@@ -1,0 +1,88 @@
+"""Synthetic fixtures and checks shared by the port's tests and
+``chip_smoke.py``: a seeded volume of planted nuclei, blob-row equality,
+and detection quality against the planted centres."""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import numpy as np
+from scipy import optimize
+from scipy.spatial import distance
+
+
+def make_nuclei_volume(shape, seed, spacing=20, sigma=2.7, jitter=4):
+    """Seeded uint16 volume of Gaussian nuclei on a jittered grid.
+
+    Centres sit at ``spacing // 2 + k * spacing`` +- ``jitter`` (integer
+    voxels), so they stay ``spacing // 2 - jitter`` voxels away from any
+    multiple of ``spacing``; ``sigma`` matches the ``lightsheet`` profile's
+    LoG scales at 1 um. Returns ``(volume, centres)``.
+    """
+    rng = np.random.default_rng(seed)
+    grids = [np.arange(spacing // 2, s - spacing // 2 + 1, spacing)
+             for s in shape]
+    centres = np.stack(np.meshgrid(*grids, indexing="ij"), -1).reshape(-1, 3)
+    centres = centres + rng.integers(-jitter, jitter + 1, centres.shape)
+    r = int(3 * sigma) + 1
+    g = np.arange(-r, r + 1, dtype=np.float32)
+    stamp = np.exp(-(g[:, None, None] ** 2 + g[None, :, None] ** 2
+                     + g[None, None, :] ** 2) / np.float32(2 * sigma ** 2))
+    vol = np.zeros([s + 2 * r for s in shape], np.float32)
+    amps = rng.uniform(1500, 3000, len(centres)).astype(np.float32)
+    w = 2 * r + 1
+    for (z, y, x), a in zip(centres, amps):
+        vol[z:z + w, y:y + w, x:x + w] += a * stamp
+    vol = vol[r:-r, r:-r, r:-r]
+    for z in range(shape[0]):
+        vol[z] += rng.normal(200, 30, shape[1:]).astype(np.float32)
+    np.clip(vol, 0, 65535, out=vol)
+    return vol.astype(np.uint16), centres
+
+
+def sorted_rows(blobs: np.ndarray) -> np.ndarray:
+    """Rows in lexicographic order of their columns."""
+    return blobs[np.lexsort(blobs.T[::-1])]
+
+
+def rows_equal(a, b) -> bool:
+    """Blob rows equal after sorting: exact coordinates and columns, radii
+    (column 3) within 1e-6 relative."""
+    if a is None or b is None or a.shape != b.shape:
+        return False
+    a, b = sorted_rows(a), sorted_rows(b)
+    other = [c for c in range(a.shape[1]) if c != 3]
+    return (np.array_equal(a[:, other], b[:, other])
+            and np.allclose(a[:, 3], b[:, 3], rtol=1e-6, atol=0))
+
+
+def sens_ppv(
+        blobs: np.ndarray, truth: np.ndarray, shape: Sequence[int],
+        tile: Sequence[int], tol: Sequence[float]) -> Tuple[float, float]:
+    """Sensitivity and PPV of detected ``blobs`` against ``truth`` centres.
+
+    Within each ``tile`` of the volume, detections and truth are paired by
+    an optimal assignment on tolerance-scaled distance, and a pair closer
+    than ``max(tol)`` is a true positive (the matching of the reference's
+    ``cv.verifier.find_closest_blobs_cdist``). Tiles keep each assignment
+    small; with tile edges away from every centre, no pair is split.
+    """
+    tol = np.asarray(tol, float)
+    thresh = float(np.amax(tol))
+    scaling = thresh / tol
+    tp = 0
+    for lo in np.ndindex(*[-(-s // t) for s, t in zip(shape, tile)]):
+        lo = np.multiply(lo, tile)
+        hi = lo + tile
+
+        def inside(a):
+            return a[np.all((a[:, :3] >= lo) & (a[:, :3] < hi), 1), :3]
+
+        det, tru = inside(blobs), inside(truth)
+        if len(det) and len(tru):
+            dists = distance.cdist(det * scaling, tru * scaling)
+            rows, cols = optimize.linear_sum_assignment(dists)
+            tp += int(np.sum(dists[rows, cols] < thresh))
+    sens = tp / len(truth) if len(truth) else 0.0
+    ppv = tp / len(blobs) if len(blobs) else 0.0
+    return sens, ppv

@@ -1,0 +1,86 @@
+"""Each CUDA kernel of the port against its plain PyTorch version on the
+card. These need a CUDA card and ``nvcc``; without a card they skip.
+Run them on a machine with a card (``--noconftest``: the suite's conftest
+imports jax, which this file does not need):
+``python -m pytest --noconftest tests/test_torch_kernels_cuda.py -m cuda -q``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from magellanmapper_torch import device as dev_mod
+from magellanmapper_torch.kernels import peak_candidates as k1
+from magellanmapper_torch.kernels import prune_overlap as k3
+from magellanmapper_torch.kernels import tile_percentiles as k4
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("shape", [(10, 31, 64, 130), (3, 8, 16, 128)])
+def test_peak_candidates_kernel(card, shape):
+    rng = np.random.default_rng(0)
+    cube = torch.from_numpy(rng.normal(0, 0.1, shape).astype(
+        np.float32)).to(card)
+    cube[0, 0, 0, :5] = 0.5        # a plateau at the border
+    before = dev_mod.LAUNCHES["peak_candidates"]
+    got = k1.select_top_sparse(*k1.peak_candidates(cube, 0.1), cube.numel())
+    want = k1.select_top_sparse(
+        *k1.peak_candidates_plain(cube, 0.1), cube.numel())
+    assert dev_mod.LAUNCHES["peak_candidates"] > before
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_peak_candidates_kernel_relaunches_past_its_buffer(card):
+    cube = torch.zeros((1, 2, 512, 512), device=card)
+    cube[0, 1] = 1.0               # 262144 plateau peaks
+    vals, idx = k1.peak_candidates(cube, 0.5)
+    assert len(vals) == 512 * 512
+    assert torch.equal(torch.sort(idx).values,
+                       torch.arange(512 * 512, 2 * 512 * 512, device=card))
+
+
+def test_peak_candidates_kernel_rejects_what_it_does_not_take(card):
+    with pytest.raises(TypeError):
+        k1.peak_candidates(torch.ones((2, 3, 4, 5), device=card,
+                                      dtype=torch.float64), 0.1)
+    with pytest.raises(ValueError):
+        k1.peak_candidates(torch.ones((3, 4, 5), device=card), 0.1)
+
+
+@pytest.mark.parametrize("spread,frac_valid", [
+    (128.0, 0.2), (40.0, 0.95), (128.0, 0.0)])
+def test_prune_overlap_kernel(card, spread, frac_valid):
+    rng = np.random.default_rng(1)
+    k = 4096
+    coords = torch.from_numpy(rng.uniform(0, spread, (k, 3)).astype(
+        np.float32)).to(card)
+    sigmas = torch.from_numpy(rng.uniform(1.5, 4.0, k).astype(
+        np.float32)).to(card)
+    valid = torch.from_numpy(rng.random(k) < frac_valid).to(card)
+    got = k3.prune_overlap(coords, sigmas, valid, 0.55)
+    want = k3.prune_overlap_plain(coords, sigmas, valid, 0.55)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.uint8, torch.float32])
+@pytest.mark.parametrize("v", [15625, 12345, 7])
+def test_tile_percentiles_kernel(card, dtype, v):
+    rng = np.random.default_rng(2)
+    tiles = torch.from_numpy(rng.integers(0, 255, (252, v)).astype(
+        np.int32)).to(card).to(dtype)
+    for q in ((5, 98.5), (0, 100), (50, 50)):
+        assert torch.equal(k4.tile_percentiles(tiles, *q),
+                           k4.tile_percentiles_plain(tiles, *q))
+
+
+def test_tile_percentiles_kernel_rejects_negative_floats(card):
+    with pytest.raises(ValueError):
+        k4.tile_percentiles(-torch.ones((2, 5), device=card), 5, 95)

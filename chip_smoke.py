@@ -8,13 +8,21 @@ result, on any fault. Phases:
 1. device: the card's name and power limit;
 2. build: the CUDA kernels from ``magellanmapper_torch/csrc`` (first use);
 3. each kernel against its plain PyTorch version on the card, at the
-   shapes of the detection path, timed with CUDA events;
-4. the slice: ``python -m magellanmapper_torch.io.cli --proc detect
+   shapes of the detection path (K1, K3, K4) and of the grid search (K2),
+   timed with CUDA events;
+4. the detect slice: ``python -m magellanmapper_torch.io.cli --proc detect
    --roi_profile lightsheet`` on a seeded (256, 1024, 1024) uint16 volume
    of planted nuclei, with launch counters, a check against the planted
    truth, and a (64, 256, 256) crop detected on the card and on the CPU;
-5. a JSON line of per-kernel results, the ``nvidia-smi`` line, and the
-   final JSON line.
+5. the grid search: ``python -m magellanmapper_torch.io.cli --grid_search
+   gridtest --roi_profile 4xnuc --truth_db ...`` on a seeded
+   (64, 512, 512) float32 ROI of planted nuclei and dimmer decoys, with a
+   truth database of the nuclei's centres, launch counters and checks of
+   the table; a
+   (32, 128, 128) crop through the same batched route on the card and on
+   the CPU; the LoG pyramid's tap route (an axis of 1024) on both;
+6. a JSON line of per-kernel results (launches summed over the two
+   paths), the ``nvidia-smi`` line, and the final JSON line.
 """
 
 from __future__ import annotations
@@ -38,6 +46,16 @@ CROP = (64, 256, 256)
 VERIFY_TILE = (80, 320, 320)
 VERIFY_TOL = (3, 3, 3)
 SEED = 0
+#: the grid search's ROI (16 Mi voxels, the batched route's limit), its
+#: card-against-CPU crop, and the tap route's volume (x past 768)
+GRID_SHAPE = (64, 512, 512)
+GRID_CROP = (32, 128, 128)
+TAPS_SHAPE = (16, 48, 1024)
+#: the grid search's first threshold chunk: ``gridtest`` sweeps 0.05 to
+#: 0.20, two thresholds per K2 launch at GRID_SHAPE (``make_fn_detect_multi``)
+GRID_K2_CHUNK = (0.05, 0.10)
+#: card against CPU on the tap route: both sum in fp32, in another order
+TAPS_RTOL, TAPS_ATOL = 1e-5, 1e-5
 
 
 def fail(msg: str) -> None:
@@ -67,7 +85,7 @@ def check_kernels(torch, prof, vol, results, dev):
     from magellanmapper_torch.kernels import peak_candidates as k1
     from magellanmapper_torch.kernels import prune_overlap as k3
     from magellanmapper_torch.kernels import tile_percentiles as k4
-    from magellanmapper_torch.ops import filters
+    from magellanmapper_torch.ops import filters, peaks
 
     blocks = sd.setup_blocks(prof, vol.shape, (1.0, 1.0, 1.0))
     block_shape = np.minimum(blocks.max_pixels + blocks.overlap, vol.shape)
@@ -138,7 +156,7 @@ def check_kernels(torch, prof, vol, results, dev):
     # K3 at the block capacity: the block's own peaks, then three
     # synthetic buffers (sparse, dense-crowded, all-invalid)
     k = params.capacity
-    coords4, _, count = k1.find_peaks(cube, thr, k)
+    coords4, _, count = peaks.find_peaks(cube, thr, k)
     sig = torch.tensor(params.sigmas, dtype=torch.float32,
                        device=dev)[coords4[:, 0].long()]
     block_case = (coords4[:, 1:].to(torch.float32).contiguous(), sig,
@@ -176,6 +194,139 @@ def check_kernels(torch, prof, vol, results, dev):
             c, s, v, params.overlap)))
 
 
+def check_k2(torch, roi, sigmas, results, dev):
+    """K2 against its plain version on ``dev``, bit for bit (values and
+    lanes): one launch of the grid search (the masked fields of its first
+    threshold chunk, 0.05 and 0.10, as ``peaks.find_peaks_unfused`` builds
+    them), all -inf rows, plateau rows, duplicate-heavy rows and a ragged
+    row count."""
+    from magellanmapper_torch.kernels import extract_candidates as k2
+    from magellanmapper_torch.ops import filters, peaks
+
+    cube = filters.log_pyramid(torch.from_numpy(roi).to(dev), sigmas)
+    # thresholds rounded to float32, as blob_log_multi rounds them
+    chunk = [float(t) for t in np.asarray(GRID_K2_CHUNK, np.float32)]
+    field = peaks._masked_fields(
+        cube, peaks.local_maxima(cube), chunk)[0].reshape(-1, k2.GROUP)
+    del cube
+    rng = np.random.default_rng(SEED)
+    neg_inf = np.full((65536, k2.GROUP), -np.inf, np.float32)
+    plateau = neg_inf[:4096].copy()
+    plateau[::2] = 0.5
+    plateau[1::4, ::3] = 0.25
+    plateau[3::4, 5] = 0.3
+    dup = rng.integers(0, 4, (65536, k2.GROUP)).astype(np.float32)
+    dup[rng.random(dup.shape) < 0.5] = -np.inf
+    ragged = np.full((100003, k2.GROUP), -np.inf, np.float32)
+    hit = rng.random(ragged.shape) < 0.02
+    ragged[hit] = rng.uniform(0, 1, hit.sum())
+    cases = {"grid_chunk_0.05_0.10": field, "all_neg_inf": neg_inf,
+             "plateau": plateau, "duplicates": dup, "ragged_R": ragged}
+    err2 = 0.0
+    for name, rows in cases.items():
+        rows = rows if torch.is_tensor(rows) else torch.from_numpy(
+            rows).to(dev)
+        got_v, got_l = k2.extract_candidates(rows)
+        want_v, want_l = k2.extract_candidates_plain(rows)
+        same = got_v == want_v      # equal -infs compare equal
+        n_bad = int((~same | (got_l != want_l)).sum())
+        err = float(torch.where(same, 0.0, (got_v - want_v).abs()).max())
+        finite = int(torch.isfinite(got_v).sum())
+        print(f"K2 {name} {tuple(rows.shape)}: {finite} finite candidates, "
+              f"{n_bad} mismatches, max_abs_err {err}", flush=True)
+        if n_bad:
+            fail(f"K2 {name}: kernel != plain version")
+        err2 = max(err2, err)
+    results["extract_candidates"].update(
+        max_abs_err=err2,
+        ms=cuda_ms(torch, lambda: k2.extract_candidates(field)),
+        plain_ms=cuda_ms(torch, lambda: k2.extract_candidates_plain(field)))
+    print(f"K2 timed at {tuple(field.shape)}", flush=True)
+
+
+def grid_search_path(torch, roi, centres, work, results, launches):
+    """The ``--grid_search`` task through the port's CLI on the card;
+    returns nothing, fails on a fault."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.cv import stack_detect
+    from magellanmapper_torch.io import cli
+    from magellanmapper_torch.stats import mlearn
+
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        img = os.path.join(tmp, "roi.npy")
+        np.save(img, roi)   # no metadata: the CLI takes 1 um spacing
+        truth = testing.write_truth_db(
+            os.path.join(tmp, "truth.db"), centres, GRID_SHAPE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev_mod.reset_launches()
+        t0 = time.perf_counter()
+        df = cli.main(["--img", img, "--grid_search", "gridtest",
+                       "--roi_profile", "4xnuc", "--truth_db", truth,
+                       "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["grid_search"] = dict(dev_mod.LAUNCHES)
+        peak_mem = torch.cuda.max_memory_allocated()
+        with open(img + "_gridsearch.csv") as f:
+            saved = list(csv.DictReader(f))
+    print(f"grid search: launches {launches['grid_search']}", flush=True)
+    for name in ("extract_candidates", "prune_overlap"):
+        if launches["grid_search"][name] <= 0:
+            fail(f"kernel {name} was not launched by the grid search")
+    if len(df) != 4 or len(saved) != 4:
+        fail(f"expected 4 grid rows, got {len(df)} (csv {len(saved)})")
+    by_thr = df.sort_values("detection_threshold")
+    for _, row in by_thr.iterrows():
+        print(f"grid search: threshold {row['detection_threshold']:.2f} "
+              f"TP {int(row['TP'])} FP {int(row['FP'])} SENS {row['SENS']:.4f} "
+              f"PPV {row['PPV']:.4f}", flush=True)
+    det = (by_thr["TP"] + by_thr["FP"]).to_numpy()
+    if np.any(np.diff(det) > 0):
+        fail(f"detections rise with the threshold: {det.tolist()}")
+    best = mlearn.parse_grid_stats(df).iloc[0]
+    print(f"grid search: {len(centres)} planted nuclei; best threshold "
+          f"{best['detection_threshold']:.2f} (sensitivity "
+          f"{best['SENS']:.4f}, PPV {best['PPV']:.4f}); wall {wall:.3f} s; "
+          f"peak device memory {peak_mem / 2**20:.1f} MiB", flush=True)
+    if not (best["SENS"] > 0.85 and best["PPV"] > 0.7):
+        fail(f"grid search quality below the bars: {best.to_dict()}")
+
+    # the batched route on a crop, card against CPU (K2 route: 40,960
+    # groups of 128 lanes against a capacity of 4,096)
+    prof = stack_detect.roi_profile("4xnuc")
+    crop = np.ascontiguousarray(roi[:GRID_CROP[0], :GRID_CROP[1],
+                                    :GRID_CROP[2]])
+    ths = [0.05, 0.1, 0.15, 0.2]
+    on_card = mlearn.make_fn_detect_multi(
+        crop, (1.0, 1.0, 1.0), prof, "cuda")({}, ths)
+    on_cpu = mlearn.make_fn_detect_multi(
+        crop, (1.0, 1.0, 1.0), prof, "cpu")({}, ths)
+    for th, a, b in zip(ths, on_card, on_cpu):
+        n = 0 if a is None else len(a)
+        print(f"grid crop {GRID_CROP} at {th}: {n} blobs on the card, "
+              f"{0 if b is None else len(b)} on the CPU", flush=True)
+        if not ((a is None and b is None) or testing.rows_equal(a, b)):
+            fail(f"grid crop at {th}: the card's blobs differ from the CPU's")
+
+
+def check_taps(torch, sigmas):
+    """The LoG pyramid's tap route (x past 768 samples) on the card
+    against the CPU."""
+    from magellanmapper_torch.ops import filters
+
+    vol = np.random.default_rng(SEED).random(TAPS_SHAPE).astype(np.float32)
+    on_cpu = filters.log_pyramid(torch.from_numpy(vol), sigmas)
+    on_card = filters.log_pyramid(torch.from_numpy(vol).cuda(), sigmas)
+    err = float((on_card.cpu() - on_cpu).abs().max())
+    print(f"taps {TAPS_SHAPE}, {len(sigmas)} scales: card vs CPU max_abs_err "
+          f"{err} (max |LoG| {float(on_cpu.abs().max()):.4f})", flush=True)
+    if not torch.allclose(on_card.cpu(), on_cpu, rtol=TAPS_RTOL,
+                          atol=TAPS_ATOL):
+        fail("tap route: the card's pyramid differs from the CPU's")
+
+
 def main() -> None:
     try:
         import torch
@@ -192,8 +343,10 @@ def main() -> None:
     from magellanmapper_torch.cv import stack_detect as sd
     from magellanmapper_torch.io import cli
     from magellanmapper_torch.kernels import _build
+    from magellanmapper_torch.cv import detector
     from magellanmapper_torch.kernels import (
-        peak_candidates as k1, prune_overlap as k3, tile_percentiles as k4)
+        extract_candidates as k2, peak_candidates as k1,
+        prune_overlap as k3, tile_percentiles as k4)
 
     # 1. device
     kind = torch.cuda.get_device_name(0)
@@ -216,15 +369,22 @@ def main() -> None:
     vol, centres = testing.make_nuclei_volume(SLICE_SHAPE, SEED)
     print(f"volume {vol.shape} {vol.dtype}, {len(centres)} planted nuclei, "
           f"made in {time.perf_counter() - t0:.1f} s", flush=True)
+    grid_roi, grid_centres = testing.make_grid_roi(GRID_SHAPE, SEED)
+    grid_sigmas = tuple(float(s) for s in detector.sigma_list(3, 4, 10))
+    print(f"grid ROI {grid_roi.shape} {grid_roi.dtype}, "
+          f"{len(grid_centres)} planted nuclei", flush=True)
 
     # 3. kernels against their plain versions
-    mods = {"peak_candidates": k1, "prune_overlap": k3,
-            "tile_percentiles": k4}
+    mods = {"peak_candidates": k1, "extract_candidates": k2,
+            "prune_overlap": k3, "tile_percentiles": k4}
     results = {name: {"name": name, "route": "cuda", "source": m.SOURCE,
                       "replaces": m.REPLACES} for name, m in mods.items()}
     check_kernels(torch, prof, vol, results, torch.device("cuda"))
+    check_k2(torch, grid_roi, grid_sigmas, results, torch.device("cuda"))
+    torch.cuda.empty_cache()
 
-    # 4. the slice through the port's CLI
+    # 4. the detect slice through the port's CLI
+    launches = {}
     work = os.path.join(ROOT, "build", "smoke")
     os.makedirs(work, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
@@ -238,18 +398,17 @@ def main() -> None:
                           "--roi_profile", "lightsheet", "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(dev_mod.LAUNCHES)
+        launches["detect"] = dict(dev_mod.LAUNCHES)
         peak_mem = torch.cuda.max_memory_allocated()
         with np.load(os.path.join(tmp, "nuclei_blobs.npz")) as archive:
             saved = archive["segments"]
         with open(os.path.join(
                 tmp, "nuclei_stack_detection_times.csv")) as f:
             times = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
-    print(f"slice: launches {launches}", flush=True)
-    for name, n in launches.items():
-        if n <= 0:
+    print(f"slice: launches {launches['detect']}", flush=True)
+    for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        if launches["detect"][name] <= 0:
             fail(f"kernel {name} was not launched by the slice")
-        results[name]["launches"] = n
     det = blobs.blobs
     if det is None or det.ndim != 2 or det.shape[1] != 10:
         fail(f"unexpected blob array {None if det is None else det.shape}")
@@ -286,11 +445,22 @@ def main() -> None:
           f"({t_cpu:.2f} s)", flush=True)
     if not testing.rows_equal(on_card, on_cpu):
         fail("the crop's blobs on the card differ from the CPU's")
+    del vol
 
+    # 5. the grid search through the port's CLI, its crop, the tap route
+    os.makedirs(work, exist_ok=True)
+    grid_search_path(torch, grid_roi, grid_centres, work, results, launches)
+    check_taps(torch, grid_sigmas)
+
+    for name in results:
+        n = sum(path[name] for path in launches.values())
+        if n <= 0:
+            fail(f"kernel {name} was launched on no path")
+        results[name]["launches"] = n
     if "jax" in sys.modules:
         fail("jax was imported: the port must run without it")
 
-    # 5. results
+    # 6. results
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

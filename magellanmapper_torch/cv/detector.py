@@ -3,7 +3,9 @@
 Port of ``magellanmapper_tpu/cv/detector.py``: the pure-numpy helpers are
 copied (their module imports jax), and :func:`blob_log` runs the LoG
 pyramid (fp32 GEMMs), peak finding (kernel K1) and sphere-overlap
-pruning (kernel K3) on the device of its input.
+pruning (kernel K3) on the device of its input. :func:`blob_log_multi`
+runs a threshold sweep on one pyramid through the unfused peak route
+(kernel K2), then K3 per threshold.
 """
 
 from __future__ import annotations
@@ -66,6 +68,44 @@ def blob_log(
     valid = peaks.prune_overlapping_blobs(
         coords, sig, valid, overlap, ndim=roi.dim())
     return torch.cat([coords, sig[:, None]], dim=1), valid, count
+
+
+def blob_log_multi(
+        roi: torch.Tensor, sigmas: Sequence[float],
+        thresholds: Sequence[float], overlap: float, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """LoG detection at K thresholds sharing one LoG pyramid
+    (``detector.py:96-131``).
+
+    The local-maximum mask is computed once; each threshold masks it,
+    and the K masked fields go through one launch of K2
+    (``peaks.find_peaks_unfused``). Per threshold the peaks' sigmas are
+    looked up and K3 prunes overlapping spheres. Thresholds are rounded
+    to float32, as the reference's traced threshold vector is.
+
+    Returns ``(K, capacity, 4)`` float32 rows ``z, y, x, sigma`` and
+    ``(K, capacity)`` validity. A row is valid when it is within the
+    peak count AND its value is finite: a 128-lane group holding more
+    than 8 peaks yields only 8, and the reference (``:124``) keeps the
+    missing ones as valid rows at the origin.
+    """
+    roi = roi.to(torch.float32)
+    sigmas = tuple(float(s) for s in sigmas)
+    cube = filters.log_pyramid(roi, sigmas)
+    sig_lut = filters.sigma_tensor(sigmas, roi.device)
+    ths = [float(t) for t in np.asarray(thresholds, np.float32)]
+    first = torch.arange(capacity, device=roi.device)
+    rows, valids = [], []
+    for coords4, values, count in peaks.find_peaks_unfused(
+            cube, ths, capacity):
+        valid = (first < count) & torch.isfinite(values)
+        sig = sig_lut[coords4[:, 0].long()]
+        coords = coords4[:, 1:].to(torch.float32).contiguous()
+        valid = peaks.prune_overlapping_blobs(
+            coords, sig, valid, overlap, ndim=roi.dim())
+        rows.append(torch.cat([coords, sig[:, None]], dim=1))
+        valids.append(valid)
+    return torch.stack(rows), torch.stack(valids)
 
 
 def remove_close_blobs(

@@ -21,9 +21,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-#: launches per kernel wrapper (K1, K3, K4 of the TPU package)
+#: launches per kernel wrapper (K1-K4 of the TPU package)
 LAUNCHES: Dict[str, int] = {
     "peak_candidates": 0,
+    "extract_candidates": 0,
     "prune_overlap": 0,
     "tile_percentiles": 0,
 }

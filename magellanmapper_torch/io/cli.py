@@ -1,12 +1,22 @@
-"""Command-line entry of the port: whole-image blob detection.
+"""Command-line entry of the port: blob detection and its grid search.
 
 ``python -m magellanmapper_torch.io.cli --img vol.npy --proc detect
 --roi_profile lightsheet [--device cuda]`` parses the reference's flags
 with ``magellanmapper_tpu.io.cli.process_cli_args``, runs the port's
 :func:`~magellanmapper_torch.cv.stack_detect.detect_blobs_stack`, and
 writes ``blobs.npz`` and ``stack_detection_times.csv`` next to the image
-as the reference's ``--proc detect`` task does. Other tasks, and detect
-options the port does not have yet, are rejected.
+as the reference's ``--proc detect`` task does.
+
+``python -m magellanmapper_torch.io.cli --img roi.npy --grid_search
+gridtest --roi_profile 4xnuc --truth_db truth.db`` runs the named
+grid-search profile over the image and scores every combination against
+the confirmed blobs of the truth database
+(:func:`~magellanmapper_torch.stats.mlearn.grid_search_from_cli`),
+writing ``<image>_gridsearch.csv`` as the reference's task does. As in the
+reference, ``--grid_search`` takes precedence over ``--proc``.
+
+Other tasks, and options the port does not have yet, are rejected;
+``--truth_db`` is accepted only with ``--grid_search``.
 
 ``--device`` picks where the device step runs: ``cuda`` (the default)
 fails without a card, and the CPU, which runs the kernels' plain
@@ -18,7 +28,7 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import pandas as pd
 
@@ -28,6 +38,7 @@ from magellanmapper_tpu.settings.config import ProcessTypes
 from magellanmapper_tpu.utils import libmag
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.cv import stack_detect
+from magellanmapper_torch.stats import mlearn
 
 _logger = logging.getLogger(__name__)
 
@@ -57,30 +68,38 @@ def detect(rc: ref_cli.RunConfig, device) -> blobs_mod.Blobs:
     return blobs
 
 
-def main(argv: Optional[Sequence[str]] = None) -> blobs_mod.Blobs:
-    """CLI entry: ``--device`` plus the reference's flags."""
+def main(argv: Optional[Sequence[str]] = None
+         ) -> Union[blobs_mod.Blobs, pd.DataFrame]:
+    """CLI entry: ``--device`` plus the reference's flags. Returns the
+    detected blobs, or the grid search's table."""
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
     pre = argparse.ArgumentParser(add_help=False)
     pre.add_argument("--device", default="cuda")
     args, rest = pre.parse_known_args(argv)
     rc = ref_cli.process_cli_args(rest)
+    task = "--grid_search" if rc.grid_search else (
+        f"--proc {rc.proc.name.lower()}" if rc.proc else None)
     unsupported = [
         flag for flag, val in (
             ("--register", rc.register_type), ("--mesh", rc.mesh),
-            ("--truth_db", rc.truth_db), ("--save_subimg", rc.save_subimg),
+            ("--truth_db", rc.truth_db and not rc.grid_search),
+            ("--save_subimg", rc.save_subimg),
             ("--df", rc.df_task), ("--plot_2d", rc.plot_2d_task),
-            ("--grid_search", rc.grid_search), ("--notify", rc.notify_url))
+            ("--notify", rc.notify_url))
         if val]
-    if rc.proc is not ProcessTypes.DETECT or unsupported:
+    if unsupported or not (rc.grid_search or rc.proc is ProcessTypes.DETECT):
         raise SystemExit(
-            "magellanmapper_torch supports only --proc detect so far "
-            f"(got --proc {rc.proc.name.lower() if rc.proc else None}"
+            "magellanmapper_torch supports only --proc detect and "
+            f"--grid_search so far (got {task}"
             + (f", {' '.join(unsupported)}" if unsupported else "")
             + "); use magellanmapper_tpu.io.cli for other tasks")
     if not rc.filenames:
-        raise SystemExit("--proc detect needs --img")
+        raise SystemExit(f"{task} needs --img")
     device = device_mod.resolve(args.device)
+    if rc.grid_search:
+        _logger.info("grid search %s on %s", rc.grid_search, device)
+        return mlearn.grid_search_from_cli(rc, device)
     _logger.info("detecting on %s", device)
     return detect(rc, device)
 

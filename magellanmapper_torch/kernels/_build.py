@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 ``nvcc`` compiles every ``magellanmapper_torch/csrc/*.cu`` for ``sm_90a``
-into one shared library with a plain C interface, under ``build/kernels/``
-at the repository root, at first use. The library's name carries a hash
+(one process per source, all started together) and links the objects into
+one shared library with a plain C interface, under ``build/kernels/`` at
+the repository root, at first use. The library's name carries a hash
 of the sources and flags, so an edited source builds anew and an unchanged
 one is loaded as it is. The library is loaded with ``ctypes``; every
 entry point launches on the stream it is given and returns
@@ -31,12 +32,13 @@ _BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so ctypes never cuts a 64-bit address to an int)
@@ -47,6 +49,8 @@ _SIGNATURES = {
     "mm_prune_overlap": (_P, _P, _P, _I, _F, _F, _P, _P),
     # tiles, is_u16, T, V, k_lo, k_hi, frac_lo, frac_hi, out, stream
     "mm_tile_percentiles": (_P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    # rows, R, out_vals, out_lanes, stream
+    "mm_extract_candidates": (_P, _L, _P, _P, _P),
 }
 
 _lock = threading.Lock()
@@ -91,17 +95,31 @@ def build() -> Path:
         build_seconds = 0.0
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
+    stem = out.with_suffix(f".{os.getpid()}")
+    objs = [Path(f"{stem}.{src.stem}.o") for src in _sources()]
+    tmp = Path(f"{stem}.tmp")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(_sources(), objs)]
+    logs = [proc.communicate()[0] for proc in procs]
+    failed = [proc.returncode for proc in procs if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp), *[str(o) for o in objs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        logs.append(link.stdout)
+        failed = [link.returncode] if link.returncode != 0 else []
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    build_log = "".join(logs)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{build_log}")
+            f"nvcc failed with code {failed[0]}:\n{build_log}")
     os.replace(tmp, out)
     return out
 

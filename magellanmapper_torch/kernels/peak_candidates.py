@@ -1,11 +1,12 @@
 """K1: fused 3^4 local-maximum test, peak compaction and selection.
 
-Replaces ``peak_candidates_pallas`` and its wrapper ``find_peaks_fused``
-(``magellanmapper_tpu/ops/pallas_kernels.py:478,540``). A voxel of the
-``(S, Z, Y, X)`` LoG cube is a peak when it is above the positive
-threshold and not below any of its 80 neighbours over (s, z, y, x), with
-out-of-range neighbours counted as 0 (``reduce_window``'s init,
-``ops/peaks.py:40-44``). The CUDA kernel (``csrc/peak_candidates.cu``)
+Replaces ``peak_candidates_pallas`` (``magellanmapper_tpu/ops/
+pallas_kernels.py:478``); its wrapper ``find_peaks_fused`` (``:540``) is
+the fused route of :func:`magellanmapper_torch.ops.peaks.find_peaks`.
+A voxel of the ``(S, Z, Y, X)`` LoG cube is a peak when it is above the
+positive threshold and not below any of its 80 neighbours over
+(s, z, y, x), with out-of-range neighbours counted as 0
+(``reduce_window``'s init, ``ops/peaks.py:40-44``). The CUDA kernel (``csrc/peak_candidates.cu``)
 returns every peak as an unordered (value, flat index) list; the plain
 version is :func:`max_filter_full` plus the compare. Selection is shared:
 value descending, ties to the lower flat index, cut at capacity.
@@ -31,9 +32,16 @@ REPLACES = "magellanmapper_tpu/ops/pallas_kernels.py:478"
 _FIRST_BUFFER = 1 << 16
 
 
-def max_filter_full(cube: torch.Tensor) -> torch.Tensor:
-    """Max filter with a full 3^nd footprint and constant-0 border,
-    clamped to >= 0 (the reference's 0-initialised ``reduce_window``)."""
+def max_filter_full(
+        cube: torch.Tensor, clamp_zero: bool = True) -> torch.Tensor:
+    """Max filter with a full 3^nd footprint and constant-0 border.
+
+    With ``clamp_zero`` the result is also clamped to >= 0 (the
+    reference's 0-initialised ``reduce_window``); without it this is
+    skimage's ``maximum_filter(mode='constant', cval=0)`` for any sign
+    (``ops/peaks.py:24-48``). One axis at a time: the max over a 0-padded
+    window is separable.
+    """
     out = cube
     for ax in range(cube.dim()):
         n = out.shape[ax]
@@ -41,7 +49,7 @@ def max_filter_full(cube: torch.Tensor) -> torch.Tensor:
         lo = torch.cat([zero, out.narrow(ax, 0, n - 1)], dim=ax)
         hi = torch.cat([out.narrow(ax, 1, n - 1), zero], dim=ax)
         out = torch.maximum(torch.maximum(lo, out), hi)
-    return torch.clamp_min(out, 0.0)
+    return torch.clamp_min(out, 0.0) if clamp_zero else out
 
 
 def peak_candidates_plain(
@@ -95,12 +103,14 @@ def peak_candidates(
     ``(values, flat_indices)``, in no particular order.
 
     A CUDA tensor runs the kernel (contiguous float32 ``(S, Z, Y, X)``),
-    a CPU tensor the plain version.
+    a CPU tensor the plain version. Thresholds <= 0 take the unfused
+    route of :func:`magellanmapper_torch.ops.peaks.find_peaks`.
     """
     if not float(threshold) > 0:
         raise ValueError(
-            "peak finding requires threshold > 0 (out-of-range neighbours "
-            "count as 0, which clamps neighbourhood maxima to >= 0)")
+            "the fused peak finder requires threshold > 0 (out-of-range "
+            "neighbours count as 0, which clamps neighbourhood maxima to "
+            ">= 0)")
     if cube.device.type == "cuda":
         return _peak_candidates_cuda(cube, threshold)
     if cube.device.type == "cpu":
@@ -108,45 +118,23 @@ def peak_candidates(
     raise ValueError(f"unsupported device {cube.device}")
 
 
-def select_top_sparse(
+def select_top_stable(
         vals: torch.Tensor, idx: torch.Tensor, capacity: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The top ``capacity`` candidates by value, ties to the lower flat
-    index (``lax.top_k`` order): sort by index, then stable-sort by value
-    descending. ``torch.topk`` does not keep that tie order."""
-    by_idx = torch.argsort(idx)
-    vals, idx = vals[by_idx], idx[by_idx]
+    """The top ``capacity`` entries by value descending; equal values keep
+    their order in ``vals`` (a stable sort: ``torch.topk`` does not keep
+    it)."""
     order = torch.sort(vals, descending=True, stable=True).indices
     order = order[:capacity]
     return vals[order], idx[order]
 
 
-def find_peaks(
-        cube: torch.Tensor, threshold: float, capacity: int
-) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """Local maxima of ``cube`` above ``threshold``, capped at ``capacity``.
-
-    Returns ``coords`` ``(capacity, cube.dim())`` int32 sorted by peak value
-    descending (zero past the count), ``values`` ``(capacity,)`` float32
-    (-inf past the count) and ``count``, the number of peaks capped at
-    ``capacity``.
-    """
-    vals, idx = peak_candidates(cube, threshold)
-    total = int(vals.shape[0])
-    top_v, top_i = select_top_sparse(vals, idx, capacity)
-    n = int(top_v.shape[0])
-    coords = torch.zeros(
-        (capacity, cube.dim()), dtype=torch.int32, device=cube.device)
-    values = torch.full(
-        (capacity,), float("-inf"), dtype=torch.float32, device=cube.device)
-    if n:
-        # decode with Python-int divisors: torch.unravel_index ships the
-        # shape to the device on every call
-        cols, rem = [], top_i
-        for size in reversed(cube.shape):
-            cols.append(rem % size)
-            rem = rem // size
-        coords[:n] = torch.stack(cols[::-1], dim=1).to(torch.int32)
-        values[:n] = top_v
-    return coords, values, min(total, capacity)
+def select_top_sparse(
+        vals: torch.Tensor, idx: torch.Tensor, capacity: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The top ``capacity`` candidates by value, ties to the lower flat
+    index (``lax.top_k`` order): sort by index, then
+    :func:`select_top_stable`."""
+    by_idx = torch.argsort(idx)
+    return select_top_stable(vals[by_idx], idx[by_idx], capacity)
 

@@ -6,9 +6,10 @@ folded in (``scipy.ndimage`` semantics), so the LoG pyramid is a handful
 of batched fp32 GEMMs. Filters act on the LAST THREE axes of a tensor;
 leading axes are a batch (a stack of denoise tiles, for instance).
 
-Only the band-matrix route is ported: the reference switches to taps past
-``_MATMUL_MAX_LEN`` samples, which no detection block reaches (blocks are
-capped at 256 px a side), and this port raises there instead.
+Past ``_MATMUL_MAX_LEN`` samples an axis takes taps instead, as in the
+reference: a padded ``F.conv1d`` over every 1D line of that axis
+(:func:`conv1d`), and :func:`log_pyramid` becomes a per-sigma
+:func:`gaussian_laplace` stack in which each axis picks its route.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 #: longest axis the band-matrix route takes (the reference's taps
 #: crossover, ``filters.py:26-27``)
@@ -89,20 +91,25 @@ def _band_matrix(
     return b.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=64)
+@functools.lru_cache(maxsize=256)
+def _band_on(kernel_bytes: bytes, klen: int, n: int, mode: str,
+             device: torch.device) -> torch.Tensor:
+    """One band matrix on ``device``, shipped once. Callers must not
+    write to it."""
+    return torch.from_numpy(
+        _band_matrix(kernel_bytes, klen, n, mode, 0.0)).to(device)
+
+
 def _bands(sigmas: Tuple[float, ...], order: int, n: int, mode: str,
            truncate: float, device: torch.device) -> torch.Tensor:
-    """``(len(sigmas), n, n)`` stack of band matrices on ``device``."""
-    if n > _MATMUL_MAX_LEN:
-        raise NotImplementedError(
-            f"axis of {n} samples: the tap-based route past "
-            f"{_MATMUL_MAX_LEN} samples is not ported yet")
+    """``(len(sigmas), n, n)`` stack of band matrices on ``device``,
+    stacked anew from the cached matrices of :func:`_band_on`."""
     mats = []
     for s in sigmas:
         kernel = np.asarray(
             gaussian_kernel1d(s, order, truncate=truncate), np.float64)
-        mats.append(_band_matrix(kernel.tobytes(), len(kernel), n, mode, 0.0))
-    return torch.from_numpy(np.stack(mats)).to(device)
+        mats.append(_band_on(kernel.tobytes(), len(kernel), n, mode, device))
+    return torch.stack(mats)
 
 
 @functools.lru_cache(maxsize=64)
@@ -113,21 +120,98 @@ def sigma_tensor(sigmas: Tuple[float, ...],
     return torch.tensor(sigmas, dtype=torch.float32, device=device)
 
 
+def conv1d(vol: torch.Tensor, kernel: np.ndarray, axis: int,
+           mode: str = "reflect", cval: float = 0.0) -> torch.Tensor:
+    """Correlate ``vol`` with a symmetric 1D ``kernel`` along ``axis``:
+    a band-matrix product up to ``_MATMUL_MAX_LEN`` samples, taps past it
+    (``filters.py:101-124``)."""
+    kernel = np.asarray(kernel, np.float64)
+    n = vol.shape[axis]
+    if n <= _MATMUL_MAX_LEN:
+        band = _band_on(kernel.tobytes(), len(kernel), n, mode,
+                        vol.device).to(vol.dtype)
+        return torch.movedim(
+            torch.tensordot(vol, band, dims=([axis], [0])), -1, axis)
+    return _conv1d_taps(vol, kernel, axis, mode, cval)
+
+
+#: numpy ``pad`` modes of the scipy boundary modes (``filters.py:145-147``)
+_PAD_MODES = {"nearest": "replicate", "mirror": "reflect", "wrap": "circular"}
+
+
+def _conv1d_taps(vol: torch.Tensor, kernel: np.ndarray, axis: int,
+                 mode: str, cval: float) -> torch.Tensor:
+    """Tap-based 1D correlation: pad every line of ``axis`` by the
+    kernel radius under ``mode``, then one ``F.conv1d`` (``filters.py:
+    135-154``). scipy's reflect is numpy's symmetric padding, nearest
+    edge, mirror numpy's reflect."""
+    axis = axis % vol.dim()
+    r = len(kernel) // 2
+    moved = torch.movedim(vol, axis, -1)
+    batch_shape, n = moved.shape[:-1], moved.shape[-1]
+    flat = moved.reshape(-1, 1, n)
+    if mode == "reflect":
+        flat = pad_symmetric(flat, [(r, r)])
+    elif mode == "constant":
+        flat = F.pad(flat, (r, r), value=float(cval))
+    elif mode in _PAD_MODES:
+        flat = F.pad(flat, (r, r), mode=_PAD_MODES[mode])
+    else:
+        raise ValueError(f"unknown boundary mode: {mode}")
+    taps = torch.from_numpy(kernel.astype(np.float32)).to(
+        device=vol.device, dtype=vol.dtype).reshape(1, 1, -1)
+    out = F.conv1d(flat, taps)
+    return torch.movedim(out.reshape(*batch_shape, n), -1, axis)
+
+
 def gaussian_filter(
         vol: torch.Tensor, sigma: float, order: int = 0,
         mode: str = "reflect", truncate: float = 4.0) -> torch.Tensor:
     """Gaussian filter over the last three axes (scipy
     ``gaussian_filter`` semantics, one sigma and order for every axis),
-    one band-matrix product per axis."""
+    one :func:`conv1d` per axis."""
     if sigma <= 0:
         return vol
+    kernel = gaussian_kernel1d(sigma, order, truncate=truncate)
     out = vol
     for ax in (-3, -2, -1):
-        band = _bands((float(sigma),), order, out.shape[ax], mode, truncate,
-                      out.device)[0].to(out.dtype)
-        out = torch.movedim(
-            torch.tensordot(out, band, dims=([ax], [0])), -1, ax)
+        out = conv1d(out, kernel, ax, mode)
     return out
+
+
+def gaussian_laplace(
+        vol: torch.Tensor, sigma, mode: str = "reflect",
+        truncate: float = 4.0) -> torch.Tensor:
+    """Laplacian of Gaussian over every axis of ``vol`` (scipy
+    ``gaussian_laplace`` semantics; ``sigma`` a scalar or one per axis),
+    each pass a :func:`conv1d`. A 3D volume shares the order-0 passes
+    across the three terms, 8 passes instead of 9 (``filters.py:
+    180-210``)."""
+    ndim = vol.dim()
+    sigmas = ((float(sigma),) * ndim if np.isscalar(sigma)
+              else tuple(float(s) for s in sigma))
+    if len(sigmas) != ndim:
+        raise ValueError(f"{len(sigmas)} sigmas for {ndim} axes")
+    k0 = [gaussian_kernel1d(s, 0, truncate=truncate) for s in sigmas]
+    k2 = [gaussian_kernel1d(s, 2, truncate=truncate) for s in sigmas]
+
+    def c(v, k, ax):
+        return conv1d(v, k, ax, mode)
+
+    if ndim != 3:
+        out = None
+        for d_ax in range(ndim):
+            term = vol
+            for ax in range(ndim):
+                term = c(term, k2[ax] if ax == d_ax else k0[ax], ax)
+            out = term if out is None else out + term
+        return out
+    a = c(vol, k0[2], 2)                      # G0x f
+    t1 = c(c(a, k0[1], 1), k2[0], 0)          # K2z G0y A
+    t2 = c(c(a, k2[1], 1), k0[0], 0)          # G0z K2y A
+    b = c(vol, k2[2], 2)                      # K2x f
+    t3 = c(c(b, k0[1], 1), k0[0], 0)          # G0z G0y B
+    return t1 + t2 + t3
 
 
 def log_pyramid(
@@ -136,10 +220,20 @@ def log_pyramid(
     """Scale-normalised negated LoG pyramid ``(S, Z, Y, X)`` of a
     ``(Z, Y, X)`` float32 volume, as seven scale-batched fp32 einsums
     (``filters.py:213-270``): the z pass uses linearity,
-    ``G0z K2y A + G0z G0y B = G0z (K2y A + G0y B)``."""
+    ``G0z K2y A + G0z G0y B = G0z (K2y A + G0y B)``. Past
+    ``_MATMUL_MAX_LEN`` samples on any axis, the dense ``(S, n, n)`` band
+    stacks would cost O(n^2) per axis, so the pyramid is a per-sigma
+    :func:`gaussian_laplace` stack instead, each axis taking band or taps
+    on its own (``filters.py:230-240``)."""
     if vol.dim() != 3:
         raise ValueError(f"log_pyramid takes a 3D volume, got {vol.dim()}D")
     sigmas = tuple(float(s) for s in sigmas)
+    scale = sigma_tensor(sigmas, vol.device).to(vol.dtype) ** 2
+    if max(vol.shape) > _MATMUL_MAX_LEN:
+        stacked = torch.stack([
+            -gaussian_laplace(vol, s, mode=mode, truncate=truncate)
+            for s in sigmas])
+        return stacked * scale[:, None, None, None]
 
     def bands(order, axis):
         return _bands(sigmas, order, vol.shape[axis], mode, truncate,
@@ -155,7 +249,6 @@ def log_pyramid(
     w = torch.einsum("szyx,syu->szux", bx, b0y)        # G0y B
     t1 = torch.einsum("szyx,szu->suyx", u0, b2z)       # K2z G0y A
     t23 = torch.einsum("szyx,szu->suyx", u2 + w, b0z)  # G0z (K2y A + G0y B)
-    scale = sigma_tensor(sigmas, vol.device).to(vol.dtype) ** 2
     return -(t1 + t23) * scale[:, None, None, None]
 
 

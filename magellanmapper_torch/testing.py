@@ -1,6 +1,7 @@
 """Synthetic fixtures and checks shared by the port's tests and
-``chip_smoke.py``: a seeded volume of planted nuclei, blob-row equality,
-and detection quality against the planted centres."""
+``chip_smoke.py``: a seeded volume of planted nuclei, a truth database of
+its centres, blob-row equality, and detection quality against the
+planted centres."""
 
 from __future__ import annotations
 
@@ -38,6 +39,44 @@ def make_nuclei_volume(shape, seed, spacing=20, sigma=2.7, jitter=4):
         vol[z] += rng.normal(200, 30, shape[1:]).astype(np.float32)
     np.clip(vol, 0, 65535, out=vol)
     return vol.astype(np.uint16), centres
+
+
+def make_grid_roi(shape, seed, spacing=20, jitter=4, decoy=0.3):
+    """Seeded float32 ROI in [0, 1] for the grid search: the planted
+    nuclei of :func:`make_nuclei_volume` (the truth; their centres are
+    returned) plus ``decoy`` times as bright nuclei half a grid step away
+    on every axis, which are not in the truth and become false positives
+    at low thresholds. Returns ``(roi, centres)``."""
+    vol, centres = make_nuclei_volume(shape, seed, spacing, jitter=jitter)
+    dim, _ = make_nuclei_volume(shape, seed + 1, spacing, jitter=jitter)
+    half = spacing // 2
+    roi = vol.astype(np.float32) + np.float32(decoy) * np.roll(
+        dim.astype(np.float32), (half, half, half), (0, 1, 2))
+    return (roi / roi.max()).astype(np.float32), centres
+
+
+def write_truth_db(
+        path: str, centres: np.ndarray, shape: Sequence[int],
+        radius: float = 3.0) -> str:
+    """Write ``centres`` (z, y, x) as the confirmed truth blobs of one
+    ROI spanning ``shape`` into a new sqlite blob database at ``path``
+    (the reference's schema, through ``magellanmapper_tpu.io.sqlite``), as
+    ``--truth_db`` reads it. Returns ``path``."""
+    from magellanmapper_tpu.io import sqlite
+
+    n = len(centres)
+    rows = np.column_stack([
+        np.asarray(centres, float), np.full(n, float(radius)),
+        np.ones(n), np.ones(n), np.zeros(n)])
+    db = sqlite.load_db(path)
+    try:
+        exp_id = db.select_or_insert_experiment("truth")
+        roi_id, _ = db.select_or_insert_roi(
+            exp_id, 0, (0, 0, 0), tuple(int(s) for s in shape[::-1]))
+        db.insert_blobs(roi_id, rows)
+    finally:
+        db.close()
+    return path
 
 
 def sorted_rows(blobs: np.ndarray) -> np.ndarray:

@@ -77,5 +77,39 @@ def test_pad_symmetric_matches_numpy(dtype, pads):
 
 
 def test_taps_route_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        filters.log_pyramid(torch.zeros(4, 4, 800), (2.0,))
+    """The taps route past 768 samples is ported now: the (4, 4, 800)
+    pyramid this test once saw raise equals the reference's."""
+    vol = _vol((4, 4, 800), 5)
+    want = np.asarray(ref_filters.log_pyramid(jnp.asarray(vol), (2.0,)))
+    got = filters.log_pyramid(torch.from_numpy(vol), (2.0,)).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("mode", [
+    "reflect", "nearest", "mirror", "constant", "wrap"])
+@pytest.mark.parametrize("axis,shape", [(2, (3, 5, 900)), (0, (1000, 3, 4))])
+def test_conv1d_taps_matches_reference(mode, axis, shape):
+    vol = _vol(shape, 6)
+    for order in (0, 2):
+        kernel = ref_filters.gaussian_kernel1d(2.5, order)
+        want = np.asarray(ref_filters.conv1d(
+            jnp.asarray(vol), kernel, axis, mode))
+        got = filters.conv1d(torch.from_numpy(vol), kernel, axis, mode)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("sigma", [1.5, (1.0, 2.0, 3.0)])
+def test_gaussian_laplace_matches_reference(sigma):
+    vol = _vol((6, 40, 800), 7)       # y takes the band, x the taps
+    want = np.asarray(ref_filters.gaussian_laplace(jnp.asarray(vol), sigma))
+    got = filters.gaussian_laplace(torch.from_numpy(vol), sigma).numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+def test_log_pyramid_long_axis_matches_reference():
+    vol = _vol((5, 24, 1024), 8)
+    sigmas = tuple(np.linspace(3, 4, 3))
+    want = np.asarray(ref_filters.log_pyramid(jnp.asarray(vol), sigmas))
+    got = filters.log_pyramid(torch.from_numpy(vol), sigmas).numpy()
+    assert got.shape == (3, 5, 24, 1024)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

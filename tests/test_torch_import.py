@@ -1,6 +1,7 @@
 """The PyTorch port imports without jax, and its copies of the reference's
 pure-numpy host helpers return what the reference returns."""
 
+import os
 import subprocess
 import sys
 
@@ -20,6 +21,10 @@ from magellanmapper_torch.ops import filters
 
 torch.set_num_threads(1)
 
+#: the checkout's root: a fresh interpreter imports the port from there,
+#: whatever directory an earlier test left the process in
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 import magellanmapper_torch
@@ -37,9 +42,20 @@ def test_port_imports_without_jax():
     # conftest imports jax into this process, so import in a fresh one
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
-        timeout=120)
+        timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 12
+    assert int(out.stdout.strip()) >= 15
+
+
+@pytest.mark.parametrize("module", [
+    "magellanmapper_torch.stats.mlearn", "magellanmapper_torch.io.cli"])
+def test_grid_search_modules_import_without_jax(module):
+    code = (f"import sys, {module}\n"
+            "assert 'jax' not in sys.modules, sorted(\n"
+            "    m for m in sys.modules if m.startswith('jax'))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.mark.parametrize("sigma,order", [

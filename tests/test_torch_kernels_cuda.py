@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from magellanmapper_torch import device as dev_mod
+from magellanmapper_torch.kernels import extract_candidates as k2
 from magellanmapper_torch.kernels import peak_candidates as k1
 from magellanmapper_torch.kernels import prune_overlap as k3
 from magellanmapper_torch.kernels import tile_percentiles as k4
@@ -53,6 +54,47 @@ def test_peak_candidates_kernel_rejects_what_it_does_not_take(card):
                                       dtype=torch.float64), 0.1)
     with pytest.raises(ValueError):
         k1.peak_candidates(torch.ones((3, 4, 5), device=card), 0.1)
+
+
+def _k2_rows(case, r, rng):
+    rows = np.full((r, 128), -np.inf, np.float32)
+    if case == "sparse":
+        hit = rng.random(rows.shape) < 0.02
+        rows[hit] = rng.uniform(0, 1, hit.sum())
+    elif case == "plateau":
+        rows[::3] = 0.5
+        rows[1::3, ::5] = 0.25
+    elif case == "duplicates":
+        rows[:] = rng.integers(0, 4, rows.shape)
+        rows[rng.random(rows.shape) < 0.3] = -np.inf
+    elif case == "inf":
+        rows[:, 7] = np.inf
+        rows[::2, 3] = np.inf
+    return rows
+
+
+@pytest.mark.parametrize("case", [
+    "sparse", "plateau", "duplicates", "all_neg_inf", "inf"])
+@pytest.mark.parametrize("r", [1, 8, 4099, 100003])
+def test_extract_candidates_kernel(card, case, r):
+    rows = torch.from_numpy(_k2_rows(case, r, np.random.default_rng(r))).to(
+        card)
+    before = dev_mod.LAUNCHES["extract_candidates"]
+    got_v, got_l = k2.extract_candidates(rows)
+    want_v, want_l = k2.extract_candidates_plain(rows)
+    torch.cuda.synchronize()
+    assert dev_mod.LAUNCHES["extract_candidates"] == before + 1
+    assert torch.equal(got_v, want_v) and torch.equal(got_l, want_l)
+
+
+def test_extract_candidates_kernel_rejects_what_it_does_not_take(card):
+    with pytest.raises(ValueError):
+        k2.extract_candidates(torch.zeros((4, 64), device=card))
+    with pytest.raises(TypeError):
+        k2.extract_candidates(torch.zeros((4, 128), device=card,
+                                          dtype=torch.float64))
+    with pytest.raises(TypeError):
+        k2.extract_candidates(torch.zeros((128, 4), device=card).t())
 
 
 @pytest.mark.parametrize("spread,frac_valid", [

@@ -101,9 +101,28 @@ def test_find_peaks_tie_order_across_plane_pairs_pin():
     np.testing.assert_array_equal(np.asarray(fused[0])[:2], flat_order[::-1])
 
 
-def test_find_peaks_rejects_nonpositive_threshold():
+def _nonpositive_threshold_parity(threshold):
+    cube = np.random.default_rng(6).normal(0, 0.1, (3, 4, 8, 128)).astype(
+        np.float32)
     with pytest.raises(ValueError):
-        peaks.find_peaks(torch.ones(2, 3, 4, 5), 0.0, 8)
+        peaks.find_peaks(torch.from_numpy(cube), threshold, 8, fused=True)
+    rc, rv, rn = ref_peaks.find_peaks(jnp.asarray(cube), threshold, 4096)
+    coords, values, count = peaks.find_peaks(
+        torch.from_numpy(cube), threshold, 4096)
+    assert count == int(rn) > 100
+    np.testing.assert_array_equal(coords.numpy(), np.asarray(rc))
+    np.testing.assert_array_equal(values.numpy(), np.asarray(rv))
+
+
+def test_find_peaks_rejects_nonpositive_threshold():
+    """Only the fused route (K1) rejects a threshold <= 0; by default a
+    threshold of 0 takes the unfused route, as in the reference, and
+    equals it (unclamped maxima: skimage semantics for any sign)."""
+    _nonpositive_threshold_parity(0.0)
+
+
+def test_find_peaks_negative_threshold_matches_reference():
+    _nonpositive_threshold_parity(-0.05)
 
 
 def test_max_filter_full_matches_reference():
@@ -112,6 +131,14 @@ def test_max_filter_full_matches_reference():
     np.testing.assert_array_equal(
         peaks.max_filter_full(torch.from_numpy(cube)).numpy(),
         np.asarray(ref_peaks.max_filter_full(jnp.asarray(cube))))
+
+
+def test_max_filter_full_unclamped_matches_reference():
+    cube = np.random.default_rng(5).normal(size=(3, 4, 5, 6)).astype(
+        np.float32)
+    np.testing.assert_array_equal(
+        peaks.max_filter_full(torch.from_numpy(cube), False).numpy(),
+        np.asarray(ref_peaks.max_filter_full(jnp.asarray(cube), False)))
 
 
 def _prune_all(coords, sigmas, valid, thresh=0.5):

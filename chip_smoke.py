@@ -7,9 +7,15 @@ result, on any fault. Phases:
 
 1. device: the card's name and power limit;
 2. build: the CUDA kernels from ``magellanmapper_torch/csrc`` (first use);
-3. each kernel against its plain PyTorch version on the card, at the
-   shapes of the detection path (K1, K3, K4) and of the grid search (K2),
-   timed with CUDA events;
+3. each kernel against its plain PyTorch version on the card, bit for
+   bit, at the shapes of the detection path (K1, K3, K4) and of the grid
+   search (K2) and on edge cases (NaNs, ragged widths, masks that are no
+   prefix, equal radii, K = 16,384, peak buffers that overflow), timed
+   with CUDA events beside its plain version, the one PyTorch call that
+   computes the same function where there is one (K2 ``torch.topk``, K4
+   ``torch.quantile``) and its bound: the larger of the bytes it must
+   move over 3.35 TB/s and the float32 operations it must do over 67
+   TFLOP/s;
 4. the detect slice: ``python -m magellanmapper_torch.io.cli --proc detect
    --roi_profile lightsheet`` on a seeded (256, 1024, 1024) uint16 volume
    of planted nuclei, with launch counters, a check against the planted
@@ -46,6 +52,17 @@ CROP = (64, 256, 256)
 VERIFY_TILE = (80, 320, 320)
 VERIFY_TOL = (3, 3, 3)
 SEED = 0
+#: published peaks of one NVIDIA H100 SXM (NVIDIA's data sheet, at its
+#: 700 W limit): device-memory bytes/s and float32 operations/s outside
+#: the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+#: operations the work needs, as the bounds count them: K1, a separable
+#: 3^4 maximum (2 per axis) and 2 compares per voxel; K3, one overlap test
+#: per unordered pair of valid blobs (distance 9, lens fraction ~28, 3
+#: compares)
+K1_OPS_PER_VOXEL = 10
+K3_OPS_PER_PAIR = 40
 #: the grid search's ROI (16 Mi voxels, the batched route's limit), its
 #: card-against-CPU crop, and the tap route's volume (x past 768)
 GRID_SHAPE = (64, 512, 512)
@@ -63,7 +80,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def cuda_ms(torch, fn, reps=10):
+def cuda_ms(torch, fn, reps=20):
     """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
     fn()
     torch.cuda.synchronize()
@@ -77,56 +94,46 @@ def cuda_ms(torch, fn, reps=10):
     return start.elapsed_time(end) / reps
 
 
-def check_kernels(torch, prof, vol, results, dev):
-    """Each kernel against its plain version on ``dev`` at the detection
-    path's shapes; fills ``results[name]`` with max_abs_err, ms and
-    plain_ms."""
+def bound(nbytes: float, ops: float):
+    """``(ms, resource)``: the least time the card could take to move
+    ``nbytes`` (each input read once, each output written once) and to do
+    ``ops`` float32 operations, at the published peaks."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / FP32_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops,
+                                                            "operations")
+
+
+def record(results, name, *, ms, plain_ms, library_ms, nbytes, ops,
+           max_abs_err, **extra):
+    """Fill ``results[name]`` with the measured times and this run's
+    bound."""
+    bound_ms, bound_by = bound(nbytes, ops)
+    results[name].update(
+        max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound_ms, bound_by=bound_by, share_of_bound=bound_ms / ms,
+        library_ms=library_ms, **extra)
+    print(f"{name}: {ms:.4f} ms (plain {plain_ms:.4f}, library "
+          f"{library_ms}), bound {bound_ms:.4f} ms by {bound_by}, "
+          f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
+
+
+def block_inputs(torch, prof, vol, dev):
+    """One block of the detect path on ``dev``: its parameters, the raw
+    block, its LoG cube, and the LoG cube of a ragged (31, 64, 130)
+    window."""
     from magellanmapper_torch.cv import stack_detect as sd
-    from magellanmapper_torch.kernels import peak_candidates as k1
-    from magellanmapper_torch.kernels import prune_overlap as k3
-    from magellanmapper_torch.kernels import tile_percentiles as k4
-    from magellanmapper_torch.ops import filters, peaks
+    from magellanmapper_torch.ops import filters
 
     blocks = sd.setup_blocks(prof, vol.shape, (1.0, 1.0, 1.0))
     block_shape = np.minimum(blocks.max_pixels + blocks.overlap, vol.shape)
     params = sd.step_params(prof, blocks, block_shape, (1.0, 1.0, 1.0),
                             float(np.percentile(vol[::16], 99.5)))
-    prep = dict(params.preproc_items)
     bz, by, bx = (int(v) for v in block_shape)
     print(f"block window {(bz, by, bx)}, capacity "
           f"{params.capacity}, {len(params.sigmas)} scales", flush=True)
-
-    # K4 on the denoise tiles of one block, as the preprocessing cuts them
     block = torch.from_numpy(np.ascontiguousarray(
         vol[64:64 + bz, 256:256 + by, 256:256 + bx])).to(dev)
-    tiles = sd.to_tiles(block, params.denoise_shape)[0]
-    tiles = tiles.reshape(tiles.shape[0], -1)
-    rng = np.random.default_rng(SEED)
-    dup = torch.from_numpy(
-        rng.integers(0, 4, tiles.shape).astype(np.float32)).to(dev)
-    cases4 = {
-        "u16": tiles,
-        "f32": tiles.to(torch.float32),
-        "u16_ragged_v": tiles[:, :12345].contiguous(),
-        "f32_duplicates": dup,
-    }
-    err4 = 0.0
-    q = (prep["clip_vmin"], prep["clip_vmax"])
-    for name, t in cases4.items():
-        got = k4.tile_percentiles(t, *q)
-        want = k4.tile_percentiles_plain(t, *q)
-        err = float((got - want).abs().max())
-        print(f"K4 {name} {tuple(t.shape)} {t.dtype}: max_abs_err {err}",
-              flush=True)
-        if not torch.equal(got, want):
-            fail(f"K4 {name}: kernel != plain version")
-        err4 = max(err4, err)
-    results["tile_percentiles"].update(
-        max_abs_err=err4,
-        ms=cuda_ms(torch, lambda: k4.tile_percentiles(tiles, *q)),
-        plain_ms=cuda_ms(torch, lambda: k4.tile_percentiles_plain(tiles, *q)))
-
-    # K1 on the LoG cube of that block, and on a ragged cube
     pre = sd.preprocess_block(block, params.denoise_shape,
                               params.preproc_items)
     cube = filters.log_pyramid(pre, params.sigmas).contiguous()
@@ -135,63 +142,195 @@ def check_kernels(torch, prof, vol, results, dev):
             vol[11:42, 100:164, 300:430])).to(dev),
         params.denoise_shape, params.preproc_items)
     ragged = filters.log_pyramid(ragged_pre, params.sigmas).contiguous()
-    thr = params.threshold
+    return params, block, cube, ragged
+
+
+def check_k4(torch, params, block, results, dev):
+    """K4 on the denoise tiles of one block, as the preprocessing cuts
+    them, and on edge cases; the library call is ``torch.quantile``."""
+    from magellanmapper_torch.cv import stack_detect as sd
+    from magellanmapper_torch.kernels import tile_percentiles as k4
+
+    prep = dict(params.preproc_items)
+    tiles = sd.to_tiles(block, params.denoise_shape)[0]
+    tiles = tiles.reshape(tiles.shape[0], -1)
+    rng = np.random.default_rng(SEED)
+    dup = torch.from_numpy(
+        rng.integers(0, 4, tiles.shape).astype(np.float32)).to(dev)
+    cases = {
+        "u16": tiles,
+        "f32": tiles.to(torch.float32),
+        "u16_ragged_v": tiles[:, :12345].contiguous(),
+        "f32_duplicates": dup,
+    }
+    err4 = 0.0
+    q = (prep["clip_vmin"], prep["clip_vmax"])
+    for name, t in cases.items():
+        got = k4.tile_percentiles(t, *q)
+        want = k4.tile_percentiles_plain(t, *q)
+        err = float((got - want).abs().max())
+        print(f"K4 {name} {tuple(t.shape)} {t.dtype}: max_abs_err {err}",
+              flush=True)
+        if not torch.equal(got, want):
+            fail(f"K4 {name}: kernel != plain version")
+        err4 = max(err4, err)
+    # the library call works on floats: the copy is made before timing
+    tiles_f32 = tiles.to(torch.float32)
+    qt = torch.tensor([q[0] / 100, q[1] / 100], dtype=torch.float32,
+                      device=dev)
+    lib_err = float((torch.quantile(tiles_f32, qt, dim=1).T
+                     - k4.tile_percentiles(tiles, *q)).abs().max())
+    print(f"K4 torch.quantile against the kernel: max_abs_diff {lib_err}",
+          flush=True)
+    t, v = tiles.shape
+    record(results, "tile_percentiles",
+           ms=cuda_ms(torch, lambda: k4.tile_percentiles(tiles, *q)),
+           plain_ms=cuda_ms(
+               torch, lambda: k4.tile_percentiles_plain(tiles, *q)),
+           library_ms=cuda_ms(
+               torch, lambda: torch.quantile(tiles_f32, qt, dim=1)),
+           nbytes=t * v * tiles.element_size() + t * 2 * 4, ops=t * v,
+           max_abs_err=err4, shape=[t, v])
+
+
+def k1_cases(torch, cube, ragged, thr, dev):
+    """K1's cases: the block's and a ragged LoG cube, the block's with
+    planted NaNs, scale counts of 1, 2 and 12 (two scale chunks), x widths
+    of 1, 127 and 130, and two cubes with more peaks than the first buffer
+    holds."""
+    from magellanmapper_torch.kernels import peak_candidates as k1
+
+    rng = np.random.default_rng(SEED + 1)
+
+    def noise(shape):
+        return torch.from_numpy(
+            rng.normal(0, 0.1, shape).astype(np.float32)).to(dev)
+
+    nan = cube.clone()
+    _, idx = k1.peak_candidates_plain(cube, thr)
+    flat = nan.view(-1)
+    flat[idx[::7]] = float("nan")               # NaN centres
+    flat[torch.clamp(idx[1::7] + 1, max=flat.numel() - 1)] = float("nan")
+    flat[torch.from_numpy(rng.integers(0, flat.numel(), 5000)).to(dev)] = (
+        float("nan"))
+    plateau = torch.zeros((1, 2, 512, 512), device=dev)
+    plateau[0, 1] = 1.0                         # 262,144 equal peaks
+    return {
+        "block": (cube, thr), "ragged": (ragged, thr), "nan": (nan, thr),
+        "s1": (noise((1, 40, 64, 96)), 0.1),
+        "s2": (noise((2, 40, 64, 96)), 0.1),
+        "s12": (noise((12, 20, 40, 64)), 0.1),
+        "x1": (noise((3, 20, 30, 1)), 0.05),
+        "x127": (noise((4, 17, 45, 127)), 0.1),
+        "x130": (noise((10, 31, 64, 130)), 0.1),
+        "many_peaks": (noise((4, 64, 256, 256)), 0.05),
+        "plateau_relaunch": (plateau, 0.5),
+    }
+
+
+def check_k1(torch, cube, ragged, thr, results, dev):
+    """K1 against its plain version, bit for bit, on every case of
+    :func:`k1_cases`; timed on the block's cube."""
+    from magellanmapper_torch.kernels import peak_candidates as k1
+
     err1 = 0.0
-    for name, c in (("block", cube), ("ragged", ragged)):
-        gv, gi = k1.select_top_sparse(
-            *k1.peak_candidates(c, thr), c.numel())
+    for name, (c, t) in k1_cases(torch, cube, ragged, thr, dev).items():
+        gv, gi = k1.select_top_sparse(*k1.peak_candidates(c, t), c.numel())
         wv, wi = k1.select_top_sparse(
-            *k1.peak_candidates_plain(c, thr), c.numel())
+            *k1.peak_candidates_plain(c, t), c.numel())
         print(f"K1 {name} {tuple(c.shape)}: {gv.numel()} peaks (plain "
               f"{wv.numel()})", flush=True)
         if not (torch.equal(gi, wi) and torch.equal(gv, wv)):
             fail(f"K1 {name}: kernel peaks != plain version")
         if gv.numel():
             err1 = max(err1, float((gv - wv).abs().max()))
-    results["peak_candidates"].update(
-        max_abs_err=err1,
-        ms=cuda_ms(torch, lambda: k1.peak_candidates(cube, thr)),
-        plain_ms=cuda_ms(torch, lambda: k1.peak_candidates_plain(cube, thr)))
+    n_peaks = k1.peak_candidates_plain(cube, thr)[0].numel()
+    record(results, "peak_candidates",
+           ms=cuda_ms(torch, lambda: k1.peak_candidates(cube, thr)),
+           plain_ms=cuda_ms(
+               torch, lambda: k1.peak_candidates_plain(cube, thr)),
+           library_ms=None,
+           nbytes=cube.numel() * 4 + n_peaks * 8 + 4,
+           ops=cube.numel() * K1_OPS_PER_VOXEL, max_abs_err=err1,
+           device_ms=cuda_ms(
+               torch, lambda: k1.enqueue(cube, thr, k1.FIRST_BUFFER)),
+           shape=list(cube.shape), peaks=n_peaks,
+           frac_above_threshold=float((cube > thr).sum()) / cube.numel())
 
-    # K3 at the block capacity: the block's own peaks, then three
-    # synthetic buffers (sparse, dense-crowded, all-invalid)
+
+def k3_cases(torch, cube, params, dev):
+    """K3's cases at the block capacity: the block's own peaks, the same
+    rows under a mask that is no prefix, synthetic buffers (sparse,
+    dense-crowded, all-invalid, equal radii), a K of no tile's multiple,
+    and the grid search's capacity of 16,384."""
+    from magellanmapper_torch.ops import peaks
+
+    rng = np.random.default_rng(SEED + 2)
     k = params.capacity
-    coords4, _, count = peaks.find_peaks(cube, thr, k)
+    coords4, _, count = peaks.find_peaks(cube, params.threshold, k)
     sig = torch.tensor(params.sigmas, dtype=torch.float32,
                        device=dev)[coords4[:, 0].long()]
-    block_case = (coords4[:, 1:].to(torch.float32).contiguous(), sig,
-                  torch.arange(k, device=dev) < count)
+    pos = coords4[:, 1:].to(torch.float32).contiguous()
+    prefix = torch.arange(k, device=dev) < count
+    holes = prefix & torch.from_numpy(rng.random(k) < 0.5).to(dev)
 
-    def synth(lo, hi, s_lo, s_hi, frac_valid):
-        c = torch.from_numpy(rng.uniform(lo, hi, (k, 3)).astype(
+    def synth(n, box, s_lo, s_hi, frac_valid, equal=False):
+        c = torch.from_numpy((rng.random((n, 3)) * np.asarray(box)).astype(
             np.float32)).to(dev)
-        s = torch.from_numpy(rng.uniform(s_lo, s_hi, k).astype(
-            np.float32)).to(dev)
-        v = torch.from_numpy(rng.random(k) < frac_valid).to(dev)
-        return c, s, v
+        s = np.full(n, s_lo) if equal else rng.uniform(s_lo, s_hi, n)
+        v = torch.from_numpy(rng.random(n) < frac_valid).to(dev)
+        return c, torch.from_numpy(s.astype(np.float32)).to(dev), v
 
-    cases3 = {
-        "block_peaks": block_case,
-        "sparse": synth(0, 128, 2.6, 2.8, 0.15),
-        "dense_crowded": synth(0, 40, 1.5, 4.0, 0.95),
-        "all_invalid": synth(0, 128, 2.6, 2.8, 0.0),
+    return {
+        "block_peaks": (pos, sig, prefix),
+        "block_non_prefix": (pos, sig, holes),
+        "sparse": synth(k, (128, 128, 128), 2.6, 2.8, 0.15),
+        "dense_crowded": synth(k, (40, 40, 40), 1.5, 4.0, 0.95),
+        "all_invalid": synth(k, (128, 128, 128), 2.6, 2.8, 0.0),
+        "equal_radii": synth(k, (24, 24, 24), 2.5, 2.5, 0.9, equal=True),
+        "ragged_k_4099": synth(4099, (40, 40, 40), 1.5, 4.0, 0.95),
+        "k16384": synth(16384, (64, 256, 256), 3.0, 4.0, 0.5),
     }
+
+
+def check_k3(torch, cube, params, results, dev):
+    """K3 against its plain version, bit for bit, on every case of
+    :func:`k3_cases`; timed on the block's peaks, dense-crowded and
+    K = 16,384."""
+    from magellanmapper_torch.kernels import prune_overlap as k3
+
+    cases = k3_cases(torch, cube, params, dev)
+    thresh = params.overlap
     mism = 0
-    for name, (c, s, v) in cases3.items():
-        got = k3.prune_overlap(c, s, v, params.overlap)
-        want = k3.prune_overlap_plain(c, s, v, params.overlap)
+    for name, (c, s, v) in cases.items():
+        got = k3.prune_overlap(c, s, v, thresh)
+        want = k3.prune_overlap_plain(c, s, v, thresh)
         n_bad = int((got != want).sum())
-        print(f"K3 {name} K={k}: {int(v.sum())} valid -> {int(got.sum())} "
-              f"kept, {n_bad} mismatches", flush=True)
+        print(f"K3 {name} K={len(v)}: {int(v.sum())} valid -> "
+              f"{int(got.sum())} kept, {n_bad} mismatches", flush=True)
         if n_bad:
             fail(f"K3 {name}: kernel mask != plain version")
         mism = max(mism, n_bad)
-    c, s, v = cases3["dense_crowded"]
-    results["prune_overlap"].update(
-        max_abs_err=float(mism),
-        ms=cuda_ms(torch, lambda: k3.prune_overlap(c, s, v, params.overlap)),
-        plain_ms=cuda_ms(torch, lambda: k3.prune_overlap_plain(
-            c, s, v, params.overlap)))
+    timed = {}
+    for name in ("block_peaks", "dense_crowded", "k16384"):
+        c, s, v = cases[name]
+        n = int(v.sum())
+        nbytes = len(v) * (3 * 4 + 4 + 1 + 1)
+        ops = n * (n - 1) // 2 * K3_OPS_PER_PAIR
+        timed[name] = dict(
+            k=len(v), valid=n,
+            ms=cuda_ms(torch, lambda: k3.prune_overlap(c, s, v, thresh)),
+            plain_ms=cuda_ms(torch, lambda: k3.prune_overlap_plain(
+                c, s, v, thresh), reps=3),
+            bound_ms=bound(nbytes, ops)[0], bound_by=bound(nbytes, ops)[1])
+        print(f"K3 timed {name}: {timed[name]}", flush=True)
+    main = timed["dense_crowded"]
+    n = main["valid"]
+    record(results, "prune_overlap", ms=main["ms"],
+           plain_ms=main["plain_ms"], library_ms=None,
+           nbytes=main["k"] * (3 * 4 + 4 + 1 + 1),
+           ops=n * (n - 1) // 2 * K3_OPS_PER_PAIR, max_abs_err=float(mism),
+           timed_case="dense_crowded", cases=timed)
 
 
 def check_k2(torch, roi, sigmas, results, dev):
@@ -199,7 +338,7 @@ def check_k2(torch, roi, sigmas, results, dev):
     lanes): one launch of the grid search (the masked fields of its first
     threshold chunk, 0.05 and 0.10, as ``peaks.find_peaks_unfused`` builds
     them), all -inf rows, plateau rows, duplicate-heavy rows and a ragged
-    row count."""
+    row count; the library call is ``torch.topk``."""
     from magellanmapper_torch.kernels import extract_candidates as k2
     from magellanmapper_torch.ops import filters, peaks
 
@@ -237,11 +376,16 @@ def check_k2(torch, roi, sigmas, results, dev):
         if n_bad:
             fail(f"K2 {name}: kernel != plain version")
         err2 = max(err2, err)
-    results["extract_candidates"].update(
-        max_abs_err=err2,
-        ms=cuda_ms(torch, lambda: k2.extract_candidates(field)),
-        plain_ms=cuda_ms(torch, lambda: k2.extract_candidates_plain(field)))
-    print(f"K2 timed at {tuple(field.shape)}", flush=True)
+    r = field.shape[0]
+    busy_rows = int(torch.isfinite(field).any(dim=1).sum())
+    record(results, "extract_candidates",
+           ms=cuda_ms(torch, lambda: k2.extract_candidates(field)),
+           plain_ms=cuda_ms(
+               torch, lambda: k2.extract_candidates_plain(field), reps=3),
+           library_ms=cuda_ms(torch, lambda: torch.topk(field, 8, dim=1)),
+           nbytes=r * k2.GROUP * 4 + r * k2.ROUNDS * 8,
+           ops=r * k2.GROUP + busy_rows * k2.ROUNDS * k2.GROUP,
+           max_abs_err=err2, shape=list(field.shape))
 
 
 def grid_search_path(torch, roi, centres, work, results, launches):
@@ -361,7 +505,7 @@ def main() -> None:
     _build.library()
     print(f"build: {_build.build_seconds:.1f} s", flush=True)
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill")):
             print("  ptxas:", line.strip(), flush=True)
 
     prof = sd.roi_profile("lightsheet")
@@ -379,7 +523,12 @@ def main() -> None:
             "prune_overlap": k3, "tile_percentiles": k4}
     results = {name: {"name": name, "route": "cuda", "source": m.SOURCE,
                       "replaces": m.REPLACES} for name, m in mods.items()}
-    check_kernels(torch, prof, vol, results, torch.device("cuda"))
+    dev = torch.device("cuda")
+    params, block, cube, ragged = block_inputs(torch, prof, vol, dev)
+    check_k4(torch, params, block, results, dev)
+    check_k1(torch, cube, ragged, params.threshold, results, dev)
+    check_k3(torch, cube, params, results, dev)
+    del block, cube, ragged
     check_k2(torch, grid_roi, grid_sigmas, results, torch.device("cuda"))
     torch.cuda.empty_cache()
 
@@ -457,8 +606,11 @@ def main() -> None:
         if n <= 0:
             fail(f"kernel {name} was launched on no path")
         results[name]["launches"] = n
-    if "jax" in sys.modules:
-        fail("jax was imported: the port must run without it")
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "magellanmapper_tpu"))
+    if loaded:
+        fail(f"the port must run without jax and the reference package, "
+             f"but these were imported: {loaded[:10]}")
 
     # 6. results
     print(json.dumps({"kernels": list(results.values())}), flush=True)

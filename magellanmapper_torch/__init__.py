@@ -11,13 +11,20 @@ reference so each counterpart is easy to find:
                 its plain PyTorch twin and a launch counter.
 - ``cv/``       detection: single-block ``blob_log`` and whole-stack block
                 detection.
-- ``io/``       the ``--proc detect`` command-line entry.
+- ``io/``       the command-line entry (``--proc detect``,
+                ``--grid_search``), image, blob-archive and database I/O.
+- ``settings/`` ROI and grid-search profiles.
+- ``stats/``    the detection grid search.
+- ``utils/``    path helpers.
 - ``testing``   seeded planted-nuclei volumes and result checks.
 
-Host-side modules of the reference that never import jax (settings,
-``cv.blobs``, ``cv.chunking``, ``io.cli``'s argument parsing and image
-loading, ``utils.libmag``) are imported from ``magellanmapper_tpu`` as
-they are. This package never imports jax.
+The package stands alone: it imports nothing of ``magellanmapper_tpu``
+and never imports jax. The host-side code it shares with the reference
+(profiles, ``cv.blobs``, ``cv.chunking``, ``cv.verifier``, ``io.np_io``,
+``io.sqlite``, path helpers) is copied here under the reference's module
+names, keeping its behaviour and file formats. Every entry point that
+takes a ``device`` runs on the card unless ``"cpu"`` is asked for, and
+raises without a card.
 """
 
 from magellanmapper_torch import device  # noqa: F401  (fp32 precision pins)

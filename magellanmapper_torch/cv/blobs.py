@@ -1,0 +1,161 @@
+"""Blob data model and its versioned NumPy archive.
+
+Copy of ``magellanmapper_tpu/cv/blobs.py`` as far as the port uses it:
+blobs are an ``N x C`` float array whose columns are ``z, y, x, radius,
+confirmed, truth, channel, abs_z, abs_y, abs_x[, region]``; archives are
+``.npz`` files with keys ``ver/segments/colocs/resolutions/basename/
+offset/roi_size/columns`` at version ``BLOBS_NP_VER = 5``, which the
+reference's ``Blobs.load_blobs`` reads.
+"""
+
+from __future__ import annotations
+
+from enum import Enum
+from typing import Optional, Sequence
+
+import numpy as np
+
+from magellanmapper_torch.utils import libmag
+
+
+class BlobCols(Enum):
+    """Blob column names, in storage order."""
+    Z = "z"
+    Y = "y"
+    X = "x"
+    RADIUS = "radius"
+    #: -1 = unconfirmed, 0 = incorrect, 1 = correct.
+    CONFIRMED = "confirmed"
+    #: -1 = not truth, 0 = unmatched truth, 1 = matched truth.
+    TRUTH = "truth"
+    CHANNEL = "channel"
+    ABS_Z = "abs_z"
+    ABS_Y = "abs_y"
+    ABS_X = "abs_x"
+    REGION = "region"
+
+
+#: column index shortcuts
+COL_IND = {c: i for i, c in enumerate(BlobCols)}
+REL_COORD_SLICE = slice(0, 3)
+ABS_COORD_SLICE = slice(COL_IND[BlobCols.ABS_Z], COL_IND[BlobCols.ABS_X] + 1)
+
+
+class Blobs:
+    """Blob storage with versioned ``.npz`` archive output."""
+
+    #: archive version (the reference's current one)
+    BLOBS_NP_VER = 5
+
+    class Keys(Enum):
+        """Archive metadata keys (names match the reference archive)."""
+        VER = "ver"
+        BLOBS = "segments"
+        COLOCS = "colocs"
+        RESOLUTIONS = "resolutions"
+        BASENAME = "basename"
+        ROI_OFFSET = "offset"
+        ROI_SIZE = "roi_size"
+        COLS = "columns"
+
+    def __init__(
+            self, blobs: Optional[np.ndarray] = None,
+            colocalizations: Optional[np.ndarray] = None,
+            path: Optional[str] = None,
+            cols: Optional[Sequence[str]] = None):
+        self.blobs = blobs
+        self.colocalizations = colocalizations
+        self.path = path
+        self.ver = self.BLOBS_NP_VER
+        self.roi_offset: Optional[Sequence[int]] = None
+        self.roi_size: Optional[Sequence[int]] = None
+        self.resolutions: Optional[np.ndarray] = None
+        self.basename: Optional[str] = None
+        self.cols = cols
+        if blobs is not None and self.cols is None:
+            self.cols = [c.value for c in BlobCols][:blobs.shape[1]]
+
+    # -- column accessors ----------------------------------------------------
+
+    @staticmethod
+    def get_blob_col(blobs: np.ndarray, col: BlobCols) -> np.ndarray:
+        return blobs[..., COL_IND[col]]
+
+    @staticmethod
+    def set_blob_col(blobs: np.ndarray, col: BlobCols, val) -> np.ndarray:
+        blobs[..., COL_IND[col]] = val
+        return blobs
+
+    @classmethod
+    def get_blobs_channel(cls, blobs: np.ndarray) -> np.ndarray:
+        return cls.get_blob_col(blobs, BlobCols.CHANNEL)
+
+    @classmethod
+    def set_blob_channel(cls, blobs: np.ndarray, channel) -> np.ndarray:
+        return cls.set_blob_col(blobs, BlobCols.CHANNEL, channel)
+
+    @staticmethod
+    def get_blob_abs_coords(blobs: np.ndarray) -> np.ndarray:
+        return blobs[..., ABS_COORD_SLICE]
+
+    @staticmethod
+    def set_blob_abs_coords(blobs: np.ndarray, coords) -> np.ndarray:
+        blobs[..., ABS_COORD_SLICE] = coords
+        return blobs
+
+    @staticmethod
+    def shift_blob_rel_coords(blobs: np.ndarray, offset) -> np.ndarray:
+        blobs[..., REL_COORD_SLICE] += offset
+        return blobs
+
+    @staticmethod
+    def shift_blob_abs_coords(blobs: np.ndarray, offset) -> np.ndarray:
+        blobs[..., ABS_COORD_SLICE] += offset
+        return blobs
+
+    @staticmethod
+    def multiply_blob_rel_coords(blobs: np.ndarray, factor) -> np.ndarray:
+        blobs[..., REL_COORD_SLICE] = (
+            blobs[..., REL_COORD_SLICE] * factor)
+        return blobs
+
+    def format_blobs(self, channel=None) -> np.ndarray:
+        """Extend ``z,y,x,radius[,...]`` rows to the full column set.
+
+        Added columns default to -1; absolute coordinates are initialized
+        from relative ones; optional ``channel`` is stamped.
+        """
+        shape = self.blobs.shape
+        # standard column set is 10 (through abs_x); REGION is optional
+        n_cols = COL_IND[BlobCols.ABS_X] + 1
+        if shape[1] < n_cols:
+            extras = np.full((shape[0], n_cols - shape[1]), -1.0)
+            self.blobs = np.concatenate([self.blobs, extras], axis=1)
+        self.cols = [c.value for c in BlobCols][:self.blobs.shape[1]]
+        self.blobs[:, ABS_COORD_SLICE] = self.blobs[:, REL_COORD_SLICE]
+        if channel is not None:
+            self.set_blob_channel(self.blobs, channel)
+        return self.blobs
+
+    # -- archive output ------------------------------------------------------
+
+    def save_archive(self) -> dict:
+        """Save the archive at ``path``, backing up any existing file
+        first; returns what was saved."""
+        arc = {
+            self.Keys.VER.value: self.ver,
+            self.Keys.BLOBS.value: self.blobs,
+            self.Keys.RESOLUTIONS.value: self.resolutions,
+            self.Keys.BASENAME.value: self.basename,
+            self.Keys.ROI_OFFSET.value: self.roi_offset,
+            self.Keys.ROI_SIZE.value: self.roi_size,
+            self.Keys.COLOCS.value: self.colocalizations,
+            self.Keys.COLS.value: self.cols,
+        }
+        arc = {k: v for k, v in arc.items() if v is not None}
+        libmag.backup_file(self.path)
+        np.savez_compressed(self.path, **arc)
+        return arc
+
+    def __len__(self) -> int:
+        return 0 if self.blobs is None else len(self.blobs)

@@ -1,7 +1,7 @@
 """3D Laplacian-of-Gaussian blob detection of one block on PyTorch.
 
 Port of ``magellanmapper_tpu/cv/detector.py``: the pure-numpy helpers are
-copied (their module imports jax), and :func:`blob_log` runs the LoG
+copied, and :func:`blob_log` runs the LoG
 pyramid (fp32 GEMMs), peak finding (kernel K1) and sphere-overlap
 pruning (kernel K3) on the device of its input. :func:`blob_log_multi`
 runs a threshold sweep on one pyramid through the unfused peak route
@@ -15,7 +15,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from magellanmapper_tpu.cv import blobs as blobs_mod
+from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.ops import filters, peaks
 
 #: overlap factor for block halos (reference ``detector.py:41``).

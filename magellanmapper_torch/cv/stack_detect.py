@@ -26,11 +26,10 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from magellanmapper_tpu.cv import blobs as blobs_mod
-from magellanmapper_tpu.cv import chunking
-from magellanmapper_tpu.settings import roi_prof
 from magellanmapper_torch import device as device_mod
-from magellanmapper_torch.cv import detector
+from magellanmapper_torch.cv import blobs as blobs_mod
+from magellanmapper_torch.cv import chunking, detector
+from magellanmapper_torch.settings import roi_prof
 from magellanmapper_torch.ops import filters, preproc
 
 _logger = logging.getLogger(__name__)
@@ -341,7 +340,7 @@ def detect_blobs_blocks(
         resolutions: Sequence[float],
         channels: Optional[Sequence[int]] = None,
         preprocess: bool = True,
-        device: Union[str, torch.device] = "cpu",
+        device: Union[str, torch.device] = "cuda",
 ) -> Tuple[Optional[np.ndarray], Dict[str, float]]:
     """Detect blobs across a whole (sub)image in blocks on ``device``.
 
@@ -351,8 +350,8 @@ def detect_blobs_blocks(
         resolutions: z,y,x spacing.
         channels: channels to detect (must share block settings); None = all.
         preprocess: apply saturate+denoise per denoise tile.
-        device: where the device step runs; a CUDA device without a card
-            raises.
+        device: where the device step runs: the card unless ``"cpu"`` is
+            asked for; a CUDA device without a card raises.
 
     Returns:
         ``(blobs, timing)``: merged, pruned N x 10 blob array (None when
@@ -586,7 +585,8 @@ def detect_blobs_stack(
         **kwargs,
 ) -> Tuple[blobs_mod.Blobs, Dict[str, float]]:
     """Detect blobs across all channels, grouping channels whose profiles
-    share block geometry; ``kwargs`` go to :func:`detect_blobs_blocks`.
+    share block geometry; ``kwargs`` go to :func:`detect_blobs_blocks`
+    (``device`` defaults to the card there).
 
     Returns ``(Blobs, timing)`` with blobs merged across channel groups.
     """
@@ -629,10 +629,11 @@ def detect_blobs_stack(
 
 class StackDetector:
     """Class façade over :func:`detect_blobs_blocks` (reference
-    ``StackDetector``): carries the configuration and the device."""
+    ``StackDetector``): carries the configuration and the device (the
+    card unless ``"cpu"`` is asked for)."""
 
     def __init__(self, img, settings, resolutions, channel=None,
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cuda"):
         self.img = img
         self.settings = settings
         self.resolutions = resolutions

@@ -1,9 +1,8 @@
 """Command-line entry of the port: blob detection and its grid search.
 
 ``python -m magellanmapper_torch.io.cli --img vol.npy --proc detect
---roi_profile lightsheet [--device cuda]`` parses the reference's flags
-with ``magellanmapper_tpu.io.cli.process_cli_args``, runs the port's
-:func:`~magellanmapper_torch.cv.stack_detect.detect_blobs_stack`, and
+--roi_profile lightsheet [--device cuda]`` runs the port's
+:func:`~magellanmapper_torch.cv.stack_detect.detect_blobs_stack` and
 writes ``blobs.npz`` and ``stack_detection_times.csv`` next to the image
 as the reference's ``--proc detect`` task does.
 
@@ -15,8 +14,13 @@ the confirmed blobs of the truth database
 writing ``<image>_gridsearch.csv`` as the reference's task does. As in the
 reference, ``--grid_search`` takes precedence over ``--proc``.
 
-Other tasks, and options the port does not have yet, are rejected;
-``--truth_db`` is accepted only with ``--grid_search``.
+The parser takes the reference's flag names
+(``magellanmapper_tpu/io/cli.py:124-194``) for what the port accepts:
+``--img``, ``--proc detect``, ``--roi_profile`` (one per channel),
+``--channel``, ``--series``, ``--prefix``, ``--subimg_offset``/
+``--subimg_size``, ``--set_meta resolutions=z,y,x``, ``--grid_search``,
+``--truth_db`` (only with ``--grid_search``) and ``--device``. Any other
+flag or task is rejected with a message that names it.
 
 ``--device`` picks where the device step runs: ``cuda`` (the default)
 fails without a card, and the CPU, which runs the kernels' plain
@@ -28,25 +32,152 @@ from __future__ import annotations
 import argparse
 import logging
 import os
-from typing import Optional, Sequence, Union
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Union
 
 import pandas as pd
 
-from magellanmapper_tpu.cv import blobs as blobs_mod
-from magellanmapper_tpu.io import cli as ref_cli
-from magellanmapper_tpu.settings.config import ProcessTypes
-from magellanmapper_tpu.utils import libmag
 from magellanmapper_torch import device as device_mod
+from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.cv import stack_detect
+from magellanmapper_torch.io import np_io
+from magellanmapper_torch.settings.roi_prof import ROIProfile
 from magellanmapper_torch.stats import mlearn
+from magellanmapper_torch.utils import libmag
 
 _logger = logging.getLogger(__name__)
 
+#: ``--proc`` tasks the port runs
+TASKS = ("detect",)
 
-def detect(rc: ref_cli.RunConfig, device) -> blobs_mod.Blobs:
+
+@dataclass
+class RunConfig:
+    """Parsed command line: the fields of the reference's ``RunConfig``
+    (``magellanmapper_tpu/io/cli.py:32``) that the port's tasks read, with
+    the same values for the same arguments; ``proc`` is the task's name
+    (the reference keeps a ``ProcessTypes`` member)."""
+    filenames: List[str] = field(default_factory=list)
+    channel: Optional[List[int]] = None
+    series: int = 0
+    subimg_offsets: Optional[List[List[int]]] = None
+    subimg_sizes: Optional[List[List[int]]] = None
+    proc: Optional[str] = None
+    proc_args: Dict[str, str] = field(default_factory=dict)
+    resolutions: Optional[List[float]] = None
+    roi_profile: ROIProfile = field(default_factory=ROIProfile)
+    roi_profiles: List[ROIProfile] = field(default_factory=list)
+    truth_db: Optional[str] = None
+    prefix: Optional[str] = None
+    grid_search: Optional[str] = None
+    device: str = "cuda"
+
+
+def args_to_dict(args: Optional[Sequence[str]]) -> Dict[str, str]:
+    """Parse ``key=value`` argument lists (a bare key maps to "1")."""
+    out: Dict[str, str] = {}
+    for arg in args or ():
+        if "=" in arg:
+            k, v = arg.split("=", 1)
+            out[k] = v
+        else:
+            out[arg] = "1"
+    return out
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m magellanmapper_torch.io.cli",
+        description="MagellanMapper blob detection on PyTorch/CUDA")
+    p.add_argument("--img", nargs="*", help="image path(s)")
+    p.add_argument("--prefix", help="output path prefix")
+    p.add_argument("--channel", nargs="*", type=int, help="channel(s)")
+    p.add_argument("--series", type=int, default=0, help="series index")
+    p.add_argument("--subimg_offset", nargs="*", help="sub-image offset x,y,z")
+    p.add_argument("--subimg_size", nargs="*", help="sub-image size x,y,z")
+    p.add_argument("--truth_db", nargs="*", help="truth DB mode and path")
+    p.add_argument("--proc", nargs="*", help="processing task: detect")
+    p.add_argument("--roi_profile", nargs="*", help="ROI profile(s)")
+    p.add_argument("--grid_search", help="grid search profile")
+    p.add_argument("--set_meta", nargs="*",
+                   help="metadata overrides (resolutions=z,y,x)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; fails without a card) or cpu")
+    return p
+
+
+def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
+    """Parse ``argv`` into a :class:`RunConfig`; a flag or task the port
+    does not have raises ``SystemExit`` naming it."""
+    args, unknown = build_parser().parse_known_args(argv)
+    flags = [a for a in unknown if a.startswith("-")]
+    if unknown:
+        raise SystemExit(
+            "magellanmapper_torch does not take "
+            f"{' '.join(flags or unknown)}; it supports only --proc detect "
+            "and --grid_search so far (use magellanmapper_tpu.io.cli for "
+            "other tasks)")
+    rc = RunConfig(device=args.device)
+    if args.img:
+        rc.filenames = list(args.img)
+    rc.channel = args.channel
+    rc.series = args.series
+    rc.prefix = args.prefix
+
+    def parse_coords(vals):
+        if not vals:
+            return None
+        return [[int(v) for v in val.split(",")] for val in vals]
+
+    rc.subimg_offsets = parse_coords(args.subimg_offset)
+    rc.subimg_sizes = parse_coords(args.subimg_size)
+    meta = args_to_dict(args.set_meta)
+    if "resolutions" in meta:
+        rc.resolutions = [float(v) for v in meta["resolutions"].split(",")]
+    # profiles: comma-separated modifier chains, one per channel
+    for prof_names in args.roi_profile or ():
+        prof = ROIProfile()
+        prof.add_profiles(prof_names)
+        rc.roi_profiles.append(prof)
+    if rc.roi_profiles:
+        rc.roi_profile = rc.roi_profiles[0]
+    rc.grid_search = args.grid_search
+    if args.proc:
+        rc.proc = args.proc[0].lower()
+        rc.proc_args = args_to_dict(args.proc[1:])
+    if args.truth_db:
+        rc.truth_db = args.truth_db[-1]
+    task = "--grid_search" if rc.grid_search else (
+        f"--proc {rc.proc}" if rc.proc else None)
+    if not rc.grid_search and rc.proc not in TASKS:
+        raise SystemExit(
+            "magellanmapper_torch supports only --proc detect and "
+            f"--grid_search so far (got {task}); use "
+            "magellanmapper_tpu.io.cli for other tasks")
+    if rc.truth_db and not rc.grid_search:
+        raise SystemExit(
+            "magellanmapper_torch takes --truth_db only with --grid_search")
+    if not rc.filenames:
+        raise SystemExit(f"{task} needs --img")
+    return rc
+
+
+def load_image(rc: RunConfig) -> np_io.Image5d:
+    """The main image, cut to the sub-image when one is given, with
+    ``--set_meta`` resolutions applied (reference ``cli._load_image``)."""
+    offset = rc.subimg_offsets[0] if rc.subimg_offsets else None
+    size = rc.subimg_sizes[0] if rc.subimg_sizes else None
+    img5d = np_io.read_file(rc.filenames[0], rc.series, offset=offset,
+                            size=size)
+    if rc.resolutions is not None:
+        img5d.meta["resolutions"] = [rc.resolutions]
+    return img5d
+
+
+def detect(rc: RunConfig, device) -> blobs_mod.Blobs:
     """The ``--proc detect`` task: detect, then save the blob archive and
     the stage timings next to the image."""
-    img5d = ref_cli._load_image(rc)
+    img5d = load_image(rc)
     vol = img5d.img[0] if img5d.img.ndim >= 4 else img5d.img
     res = (img5d.resolutions[0] if img5d.resolutions is not None
            else (1.0, 1.0, 1.0))
@@ -70,33 +201,12 @@ def detect(rc: ref_cli.RunConfig, device) -> blobs_mod.Blobs:
 
 def main(argv: Optional[Sequence[str]] = None
          ) -> Union[blobs_mod.Blobs, pd.DataFrame]:
-    """CLI entry: ``--device`` plus the reference's flags. Returns the
-    detected blobs, or the grid search's table."""
+    """CLI entry. Returns the detected blobs, or the grid search's
+    table."""
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
-    pre = argparse.ArgumentParser(add_help=False)
-    pre.add_argument("--device", default="cuda")
-    args, rest = pre.parse_known_args(argv)
-    rc = ref_cli.process_cli_args(rest)
-    task = "--grid_search" if rc.grid_search else (
-        f"--proc {rc.proc.name.lower()}" if rc.proc else None)
-    unsupported = [
-        flag for flag, val in (
-            ("--register", rc.register_type), ("--mesh", rc.mesh),
-            ("--truth_db", rc.truth_db and not rc.grid_search),
-            ("--save_subimg", rc.save_subimg),
-            ("--df", rc.df_task), ("--plot_2d", rc.plot_2d_task),
-            ("--notify", rc.notify_url))
-        if val]
-    if unsupported or not (rc.grid_search or rc.proc is ProcessTypes.DETECT):
-        raise SystemExit(
-            "magellanmapper_torch supports only --proc detect and "
-            f"--grid_search so far (got {task}"
-            + (f", {' '.join(unsupported)}" if unsupported else "")
-            + "); use magellanmapper_tpu.io.cli for other tasks")
-    if not rc.filenames:
-        raise SystemExit(f"{task} needs --img")
-    device = device_mod.resolve(args.device)
+    rc = process_cli_args(argv)
+    device = device_mod.resolve(rc.device)
     if rc.grid_search:
         _logger.info("grid search %s on %s", rc.grid_search, device)
         return mlearn.grid_search_from_cli(rc, device)

@@ -16,6 +16,7 @@ overlap test of K3 and the interpolation of K4 compare bit for bit).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +26,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 _CSRC = _PKG / "csrc"
@@ -43,10 +46,10 @@ _L = ctypes.c_longlong
 #: C entry points and their argument types (pointers and the stream as
 #: c_void_p, so ctypes never cuts a 64-bit address to an int)
 _SIGNATURES = {
-    # cube, S, Z, Y, X, thresh, vals, idx, count, buf_cap, stream
+    # cube, S, Z, Y, X, thresh, vals, idx (int64), count, buf_cap, stream
     "mm_peak_candidates": (_P, _I, _I, _I, _I, _F, _P, _P, _P, _I, _P),
-    # coords, sigmas, valid, K, sqrt_ndim, thresh, out, stream
-    "mm_prune_overlap": (_P, _P, _P, _I, _F, _F, _P, _P),
+    # coords, sigmas, valid, K, sqrt_ndim, thresh, out, scratch, stream
+    "mm_prune_overlap": (_P, _P, _P, _I, _F, _F, _P, _P, _P),
     # tiles, is_u16, T, V, k_lo, k_hi, frac_lo, frac_hi, out, stream
     "mm_tile_percentiles": (_P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
     # rows, R, out_vals, out_lanes, stream
@@ -136,6 +139,14 @@ def library() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def on_device(device):
+    """A context that makes ``device`` current, or none where it already
+    is (entering ``torch.cuda.device`` costs host time on every launch)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check(err: int, name: str) -> None:

@@ -65,7 +65,7 @@ def _launch(rows: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     vals = torch.empty((r, ROUNDS), dtype=torch.float32, device=rows.device)
     lanes = torch.empty((r, ROUNDS), dtype=torch.int32, device=rows.device)
     lib = _build.library()
-    with torch.cuda.device(rows.device):
+    with _build.on_device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mm_extract_candidates(
             rows.data_ptr(), r, vals.data_ptr(), lanes.data_ptr(), stream)

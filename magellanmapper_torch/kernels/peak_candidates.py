@@ -6,10 +6,12 @@ the fused route of :func:`magellanmapper_torch.ops.peaks.find_peaks`.
 A voxel of the ``(S, Z, Y, X)`` LoG cube is a peak when it is above the
 positive threshold and not below any of its 80 neighbours over
 (s, z, y, x), with out-of-range neighbours counted as 0
-(``reduce_window``'s init, ``ops/peaks.py:40-44``). The CUDA kernel (``csrc/peak_candidates.cu``)
-returns every peak as an unordered (value, flat index) list; the plain
-version is :func:`max_filter_full` plus the compare. Selection is shared:
-value descending, ties to the lower flat index, cut at capacity.
+(``reduce_window``'s init, ``ops/peaks.py:40-44``). The CUDA kernel
+(``csrc/peak_candidates.cu``) streams the cube once in tiles, plane by
+plane, and returns every peak as an unordered (value, flat index) list;
+the plain version is :func:`max_filter_full` plus the compare. Selection
+is shared: value descending, ties to the lower flat index, cut at
+capacity.
 
 Unlike the TPU kernel there is no cap of 8 candidates per 128-lane group:
 every peak is returned and counted.
@@ -29,7 +31,7 @@ REPLACES = "magellanmapper_tpu/ops/pallas_kernels.py:478"
 
 #: first peak-buffer size; the kernel is launched again with a buffer of
 #: the exact count when a cube holds more peaks
-_FIRST_BUFFER = 1 << 16
+FIRST_BUFFER = 1 << 16
 
 
 def max_filter_full(
@@ -62,20 +64,25 @@ def peak_candidates_plain(
     return cube.reshape(-1)[idx], idx
 
 
-def _launch(cube: torch.Tensor, threshold: float, buf_cap: int):
+def enqueue(cube: torch.Tensor, threshold: float, buf_cap: int):
+    """Launch the kernel on the current stream without waiting for it:
+    ``(vals, idx, count)`` on the card, the first ``min(count, buf_cap)``
+    slots filled and ``count`` the exact number of peaks."""
     s, z, y, x = cube.shape
     vals = torch.empty(buf_cap, dtype=torch.float32, device=cube.device)
-    idx = torch.empty(buf_cap, dtype=torch.int32, device=cube.device)
-    count = torch.zeros(1, dtype=torch.int32, device=cube.device)
+    # the int64 flat indices, then the count (which the C entry point sets
+    # to 0 on the stream) in the low half of one more slot
+    idx = torch.empty(buf_cap + 1, dtype=torch.int64, device=cube.device)
+    count = idx[buf_cap:].view(torch.int32)[:1]
     lib = _build.library()
-    with torch.cuda.device(cube.device):
+    with _build.on_device(cube.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mm_peak_candidates(
             cube.data_ptr(), s, z, y, x, float(threshold), vals.data_ptr(),
             idx.data_ptr(), count.data_ptr(), buf_cap, stream)
     _build.check(err, "mm_peak_candidates")
     dev.count_launch("peak_candidates")
-    return vals, idx, int(count.item())
+    return vals, idx, count
 
 
 def _peak_candidates_cuda(cube: torch.Tensor, threshold: float):
@@ -89,11 +96,12 @@ def _peak_candidates_cuda(cube: torch.Tensor, threshold: float):
     if cube.numel() >= 2 ** 31:
         raise ValueError(
             f"cube of {cube.numel()} voxels overflows the int32 flat index")
-    vals, idx, total = _launch(cube, threshold, _FIRST_BUFFER)
-    if total > _FIRST_BUFFER:
+    vals, idx, count = enqueue(cube, threshold, FIRST_BUFFER)
+    total = int(count.item())
+    if total > FIRST_BUFFER:
         # never truncate: the overflow retry gates on the exact count
-        vals, idx, total = _launch(cube, threshold, total)
-    return vals[:total], idx[:total].to(torch.int64)
+        vals, idx, _ = enqueue(cube, threshold, total)
+    return vals[:total], idx[:total]
 
 
 def peak_candidates(

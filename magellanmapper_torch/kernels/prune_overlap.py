@@ -7,7 +7,11 @@ smaller sphere, radius ``sigma * sqrt(ndim)``) and ``j`` wins: larger
 radius, or equal radius and ``i < j``. The result is the new validity
 mask, and kernel and plain version must agree on it bit for bit, so both
 take coordinate differences and round every step as the jnp reference
-(``ops/peaks.py:228-245,315-329``) does.
+(``ops/peaks.py:228-245,315-329``) does. The CUDA kernel
+(``csrc/prune_overlap.cu``) first compacts the valid rows on the card,
+then gives each valid row a warp; the win rule sends each pair of valid
+blobs to its loser's row only, where ``r1`` is the row's own radius as
+in the plain version.
 """
 
 from __future__ import annotations
@@ -93,12 +97,15 @@ def _launch(coords, sigmas, valid, overlap_thresh, ndim):
     if k >= 2 ** 31:
         raise ValueError(f"too many blobs: {k}")
     out = torch.empty(k, dtype=torch.bool, device=coords.device)
+    # the compacted valid rows (float4 each), their indices and count
+    scratch = torch.empty(k * 20 + 4, dtype=torch.uint8, device=coords.device)
     lib = _build.library()
-    with torch.cuda.device(coords.device):
+    with _build.on_device(coords.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mm_prune_overlap(
             coords.data_ptr(), sigmas.data_ptr(), valid.data_ptr(), k,
-            _sqrt_ndim(ndim), float(overlap_thresh), out.data_ptr(), stream)
+            _sqrt_ndim(ndim), float(overlap_thresh), out.data_ptr(),
+            scratch.data_ptr(), stream)
     _build.check(err, "mm_prune_overlap")
     dev.count_launch("prune_overlap")
     return out

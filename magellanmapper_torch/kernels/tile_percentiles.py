@@ -79,7 +79,7 @@ def _launch(tiles: torch.Tensor, q_lo: float, q_hi: float) -> torch.Tensor:
     k_hi, f_hi = _rank(q_hi, v)
     out = torch.empty((t, 2), dtype=torch.float32, device=tiles.device)
     lib = _build.library()
-    with torch.cuda.device(tiles.device):
+    with _build.on_device(tiles.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.mm_tile_percentiles(
             tiles.data_ptr(), int(tiles.dtype == torch.uint16), t, v,

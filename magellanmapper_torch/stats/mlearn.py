@@ -1,9 +1,8 @@
 """Hyperparameter grid search over detection profiles on PyTorch.
 
-Port of ``magellanmapper_tpu/stats/mlearn.py`` (the reference module
-imports ``cv.detector``, which imports jax, so its host code is copied
-here): :func:`grid_search` sweeps profile value grids, detecting and
-verifying against truth blobs per combination, and
+Port of ``magellanmapper_tpu/stats/mlearn.py``: :func:`grid_search`
+sweeps profile value grids, detecting and verifying against truth blobs
+per combination, and
 :func:`grid_search_from_cli` is the ``--grid_search`` task. A sweep whose
 only detection key is the threshold, over a single-channel ROI, runs every
 threshold of a combination on one LoG pyramid
@@ -24,13 +23,12 @@ import numpy as np
 import pandas as pd
 import torch
 
-from magellanmapper_tpu.cv import blobs as blobs_mod
-from magellanmapper_tpu.cv import verifier
-from magellanmapper_tpu.io import np_io, sqlite
-from magellanmapper_tpu.settings.grid_search_prof import GridSearchProfile
-from magellanmapper_tpu.settings.roi_prof import ROIProfile
 from magellanmapper_torch import device as device_mod
-from magellanmapper_torch.cv import detector, stack_detect
+from magellanmapper_torch.cv import blobs as blobs_mod
+from magellanmapper_torch.cv import detector, stack_detect, verifier
+from magellanmapper_torch.io import np_io, sqlite
+from magellanmapper_torch.settings.grid_search_prof import GridSearchProfile
+from magellanmapper_torch.settings.roi_prof import ROIProfile
 
 _logger = logging.getLogger(__name__)
 
@@ -117,11 +115,12 @@ def grid_search(
 
 def make_fn_detect_multi(
         vol: np.ndarray, res: Sequence[float], base_profile=None,
-        device: Union[str, torch.device] = "cpu"):
+        device: Union[str, torch.device] = "cuda"):
     """A :func:`grid_search` ``fn_detect_multi`` for a single-channel 3D
-    ROI on ``device``: all threshold values of one combination run through
-    :func:`cv.detector.blob_log_multi` (one LoG pyramid), with blob rows
-    formatted as block detection formats them.
+    ROI on ``device`` (the card unless ``"cpu"`` is asked for; a CUDA
+    device without a card raises): all threshold values of one
+    combination run through :func:`cv.detector.blob_log_multi` (one LoG
+    pyramid), with blob rows formatted as block detection formats them.
 
     The volume goes to the device once. Capacity and threshold chunks
     follow the reference (``mlearn.py:139-157``): the capacity scales with
@@ -197,11 +196,12 @@ def parse_grid_stats(df: pd.DataFrame) -> pd.DataFrame:
 
 
 def grid_search_from_cli(
-        rc, device: Union[str, torch.device] = "cpu") -> pd.DataFrame:
+        rc, device: Union[str, torch.device] = "cuda") -> pd.DataFrame:
     """The ``--grid_search`` task (reference ``cli._grid_search``): the
     named grid-search profile over the main image, scored against the
-    confirmed blobs of ``--truth_db``; writes
-    ``<prefix or image>_gridsearch.csv``."""
+    confirmed blobs of ``--truth_db``, on ``device`` (the card unless
+    ``"cpu"`` is asked for); writes ``<prefix or image>_gridsearch.csv``."""
+    device = device_mod.resolve(device)
     if not rc.truth_db:
         raise SystemExit("grid search requires --truth_db")
     gs_prof = GridSearchProfile()

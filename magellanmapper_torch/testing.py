@@ -11,6 +11,8 @@ import numpy as np
 from scipy import optimize
 from scipy.spatial import distance
 
+from magellanmapper_torch.io import sqlite
+
 
 def make_nuclei_volume(shape, seed, spacing=20, sigma=2.7, jitter=4):
     """Seeded uint16 volume of Gaussian nuclei on a jittered grid.
@@ -60,9 +62,8 @@ def write_truth_db(
         radius: float = 3.0) -> str:
     """Write ``centres`` (z, y, x) as the confirmed truth blobs of one
     ROI spanning ``shape`` into a new sqlite blob database at ``path``
-    (the reference's schema, through ``magellanmapper_tpu.io.sqlite``), as
+    (the reference's schema, through the port's ``io.sqlite``), as
     ``--truth_db`` reads it. Returns ``path``."""
-    from magellanmapper_tpu.io import sqlite
 
     n = len(centres)
     rows = np.column_stack([

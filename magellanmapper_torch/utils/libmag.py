@@ -1,0 +1,65 @@
+"""Path helpers.
+
+Copy of the path helpers of ``magellanmapper_tpu/utils/libmag.py``
+(``splitext :23``, ``insert_before_ext :32``, ``combine_paths :38``,
+``backup_file :60``) that the port's blob archive, database and image
+naming use.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import Optional, Tuple
+
+#: multi-part extensions treated as a single suffix.
+EXTS_COMPOUND = (".nii.gz", ".ome.tif", ".ome.tiff", ".tar.gz")
+
+
+def splitext(path: str) -> Tuple[str, str]:
+    """Split extension, keeping compound extensions intact."""
+    lower = path.lower()
+    for ext in EXTS_COMPOUND:
+        if lower.endswith(ext):
+            return path[: len(path) - len(ext)], path[len(path) - len(ext):]
+    return os.path.splitext(path)
+
+
+def insert_before_ext(path: str, insert: str, sep: str = "") -> str:
+    """Insert ``insert`` before the file extension of ``path``."""
+    base, ext = splitext(path)
+    return f"{base}{sep}{insert}{ext}"
+
+
+def combine_paths(
+        base: Optional[str], suffix: str, sep: str = "_",
+        ext: Optional[str] = None, check_dir: bool = False) -> str:
+    """Combine a base path with a suffix, optionally replacing extension."""
+    if not base:
+        return suffix
+    root, _ = splitext(base)
+    if suffix.startswith("."):
+        out = root + suffix
+    else:
+        out = f"{root}{sep}{suffix}"
+    if ext:
+        out = splitext(out)[0] + (ext if ext.startswith(".") else "." + ext)
+    if check_dir:
+        os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    return out
+
+
+def backup_file(path: str, modifier: str = "") -> Optional[str]:
+    """Move an existing file aside as ``path(.N)`` before overwrite.
+
+    Returns the backup path or None if ``path`` does not exist.
+    """
+    if not os.path.exists(path):
+        return None
+    i = 1
+    while True:
+        backup = insert_before_ext(path, f"{modifier}({i})")
+        if not os.path.exists(backup):
+            shutil.move(path, backup)
+            return backup
+        i += 1

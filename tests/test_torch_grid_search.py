@@ -142,14 +142,16 @@ from magellanmapper_torch.io import cli
 df = cli.main(sys.argv[1:])
 assert "jax" not in sys.modules, sorted(
     m for m in sys.modules if m.startswith("jax"))
+ref = sorted(m for m in sys.modules if m.startswith("magellanmapper_tpu"))
+assert not ref, ref
 print(len(df))
 """
 
 
 def test_grid_search_cli_runs_without_jax(tmp_path, roi):
     """The whole task, imports made inside functions included, leaves jax
-    out of ``sys.modules`` (conftest imports jax here, so a fresh
-    process)."""
+    and the reference package out of ``sys.modules`` (conftest imports
+    jax here, so a fresh process)."""
     img, truth = _write_inputs(tmp_path, roi)
     out = subprocess.run(
         [sys.executable, "-c", _GRID_SEARCH_WITHOUT_JAX,

@@ -1,5 +1,6 @@
-"""The PyTorch port imports without jax, and its copies of the reference's
-pure-numpy host helpers return what the reference returns."""
+"""The PyTorch port imports without jax and without the reference package,
+and its copies of the reference's pure-numpy host helpers return what the
+reference returns."""
 
 import os
 import subprocess
@@ -34,12 +35,15 @@ for name in names:
     importlib.import_module(name)
 assert "jax" not in sys.modules, sorted(
     m for m in sys.modules if m.startswith("jax"))
+ref = sorted(m for m in sys.modules if m.startswith("magellanmapper_tpu"))
+assert not ref, ref
 print(len(names))
 """
 
 
 def test_port_imports_without_jax():
-    # conftest imports jax into this process, so import in a fresh one
+    # conftest imports jax into this process, so import in a fresh one;
+    # neither jax nor the reference package may load
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], capture_output=True, text=True,
         timeout=120, cwd=ROOT)
@@ -52,7 +56,10 @@ def test_port_imports_without_jax():
 def test_grid_search_modules_import_without_jax(module):
     code = (f"import sys, {module}\n"
             "assert 'jax' not in sys.modules, sorted(\n"
-            "    m for m in sys.modules if m.startswith('jax'))\n")
+            "    m for m in sys.modules if m.startswith('jax'))\n"
+            "ref = sorted(m for m in sys.modules\n"
+            "             if m.startswith('magellanmapper_tpu'))\n"
+            "assert not ref, ref\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr

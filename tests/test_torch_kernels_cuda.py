@@ -39,6 +39,35 @@ def test_peak_candidates_kernel(card, shape):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _k1_cube(case, rng):
+    """Edge cases of K1: planted NaNs, one, two and twelve scales (two
+    scale chunks), x widths of 1, 127 and 130, more peaks than the first
+    buffer holds."""
+    shape = {"nan": (10, 31, 64, 130), "s1": (1, 40, 64, 96),
+             "s2": (2, 40, 64, 96), "s12": (12, 20, 40, 64),
+             "x1": (3, 20, 30, 1),
+             "x127": (4, 17, 45, 127), "x130": (10, 31, 64, 130),
+             "many_peaks": (4, 64, 256, 256)}[case]
+    cube = rng.normal(0, 0.1, shape).astype(np.float32)
+    if case == "nan":
+        flat = cube.reshape(-1)
+        flat[rng.integers(0, flat.size, 3000)] = np.nan
+        flat[np.flatnonzero(flat > 0.2)[::3] + 1] = np.nan
+    return cube, 0.05 if case in ("x1", "many_peaks") else 0.1
+
+
+@pytest.mark.parametrize("case", [
+    "nan", "s1", "s2", "s12", "x1", "x127", "x130", "many_peaks"])
+def test_peak_candidates_kernel_edges(card, case):
+    cube, thr = _k1_cube(case, np.random.default_rng(3))
+    cube = torch.from_numpy(cube).to(card)
+    got = k1.select_top_sparse(*k1.peak_candidates(cube, thr), cube.numel())
+    want = k1.select_top_sparse(
+        *k1.peak_candidates_plain(cube, thr), cube.numel())
+    assert want[0].numel() > (k1.FIRST_BUFFER if case == "many_peaks" else 0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_peak_candidates_kernel_relaunches_past_its_buffer(card):
     cube = torch.zeros((1, 2, 512, 512), device=card)
     cube[0, 1] = 1.0               # 262144 plateau peaks
@@ -110,6 +139,39 @@ def test_prune_overlap_kernel(card, spread, frac_valid):
     got = k3.prune_overlap(coords, sigmas, valid, 0.55)
     want = k3.prune_overlap_plain(coords, sigmas, valid, 0.55)
     assert torch.equal(got, want)
+
+
+def _k3_case(case, rng):
+    """Edge cases of K3: a mask that is no prefix, equal radii (the tie
+    rule decides), a K of no tile's multiple, the grid search's K."""
+    k = {"non_prefix": 4096, "equal_radii": 4096, "k_4099": 4099,
+         "k_1": 1, "k16384": 16384}[case]
+    box = {"k16384": (64, 256, 256)}.get(case, (24, 24, 24))
+    coords = (rng.random((k, 3)) * np.asarray(box)).astype(np.float32)
+    sigmas = rng.uniform(1.5, 4.0, k).astype(np.float32)
+    valid = rng.random(k) < 0.9
+    if case == "non_prefix":
+        valid[::2] = False
+        valid[-100:] = True
+    elif case == "equal_radii":
+        sigmas[:] = 2.5
+    elif case == "k_1":
+        valid[:] = True
+    return coords, sigmas, valid
+
+
+@pytest.mark.parametrize("case", [
+    "non_prefix", "equal_radii", "k_4099", "k_1", "k16384"])
+def test_prune_overlap_kernel_edges(card, case):
+    coords, sigmas, valid = (torch.from_numpy(a).to(card) for a in _k3_case(
+        case, np.random.default_rng(4)))
+    before = dev_mod.LAUNCHES["prune_overlap"]
+    got = k3.prune_overlap(coords, sigmas, valid, 0.55)
+    want = k3.prune_overlap_plain(coords, sigmas, valid, 0.55)
+    assert dev_mod.LAUNCHES["prune_overlap"] == before + 1
+    assert torch.equal(got, want)
+    if case != "k_1":
+        assert 0 < int(got.sum()) < int(valid.sum())
 
 
 @pytest.mark.parametrize("dtype", [torch.uint16, torch.uint8, torch.float32])

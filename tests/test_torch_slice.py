@@ -41,7 +41,8 @@ def volume():
 
 @pytest.fixture(scope="module")
 def port_resident(volume):
-    blobs, timing = sd.detect_blobs_blocks(volume, _lightsheet(), RES)
+    blobs, timing = sd.detect_blobs_blocks(
+        volume, _lightsheet(), RES, device="cpu")
     assert timing["h2d_bytes"] == volume.nbytes
     return blobs
 
@@ -86,7 +87,7 @@ def test_volume_smaller_than_a_block_matches_reference(volume):
     blocks = ref_sd.setup_blocks(prof, small.shape, RES)
     assert np.all(blocks.max_pixels + blocks.overlap > small.shape)
     want, _ = ref_sd.detect_blobs_blocks(small, prof, RES)
-    got, timing = sd.detect_blobs_blocks(small, prof, RES)
+    got, timing = sd.detect_blobs_blocks(small, prof, RES, device="cpu")
     assert want is not None
     assert rows_equal(got, want)
     assert timing["h2d_bytes"] == small.nbytes
@@ -99,7 +100,8 @@ def test_volume_smaller_than_a_block_matches_reference(volume):
 def test_slab_and_gather_staging_match_resident(
         volume, port_resident, monkeypatch, budget, expect_bytes):
     monkeypatch.setattr(sd, "_RESIDENT_BYTES_BUDGET", budget)
-    got, timing = sd.detect_blobs_blocks(volume, _lightsheet(), RES)
+    got, timing = sd.detect_blobs_blocks(
+        volume, _lightsheet(), RES, device="cpu")
     assert timing["h2d_bytes"] == expect_bytes
     assert rows_equal(got, port_resident)
 
@@ -108,7 +110,7 @@ def test_overflow_retry_matches_full_capacity(volume, port_resident):
     """At a capacity below each block's peak count every block overflows,
     is re-detected at doubled capacities, and ends as at full capacity."""
     got, _ = sd.detect_blobs_blocks(
-        volume, _lightsheet(max_blobs_per_block=32), RES)
+        volume, _lightsheet(max_blobs_per_block=32), RES, device="cpu")
     assert rows_equal(got, port_resident)
 
 
@@ -123,7 +125,8 @@ def test_overflow_retry_stores_truncated_rows_at_the_ceiling(volume):
 
 
 def test_stack_detector_facade(volume, port_resident):
-    got, _ = sd.StackDetector(volume, _lightsheet(), RES).detect_stack()
+    got, _ = sd.StackDetector(
+        volume, _lightsheet(), RES, device="cpu").detect_stack()
     assert rows_equal(got, port_resident)
 
 
@@ -133,7 +136,7 @@ def test_cli_writes_the_blobs_of_a_direct_call(tmp_path, volume):
     np_io.write_npy(path, small, resolutions=[[1.0, 1.0, 1.0]])
     out = cli.main(["--img", path, "--proc", "detect",
                     "--roi_profile", "lightsheet", "--device", "cpu"])
-    direct, _ = sd.detect_blobs_stack(small, _lightsheet(), RES)
+    direct, _ = sd.detect_blobs_stack(small, _lightsheet(), RES, device="cpu")
     saved = blobs_mod.Blobs().load_blobs(str(tmp_path / "tiny_blobs.npz"))
     assert len(direct) > 0
     np.testing.assert_array_equal(saved.blobs, direct.blobs)
@@ -151,7 +154,8 @@ def test_cli_rejects_what_is_not_ported(tmp_path, argv):
 
 def test_bfloat16_log_is_not_ported(volume):
     with pytest.raises(NotImplementedError):
-        sd.detect_blobs_blocks(volume, _lightsheet(log_dtype="bfloat16"), RES)
+        sd.detect_blobs_blocks(volume, _lightsheet(log_dtype="bfloat16"), RES,
+                               device="cpu")
 
 
 def test_cli_runs_on_the_card_unless_told_otherwise(tmp_path, volume):

@@ -1,0 +1,409 @@
+"""The port's own copies of the reference's host-side code (profiles, blob
+model and archive, block geometry, verification, image and database I/O,
+the command line) against the reference, and the port's entry points
+asking for the card by default."""
+
+import os
+import sqlite3
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from magellanmapper_tpu.cv import blobs as ref_blobs
+from magellanmapper_tpu.cv import chunking as ref_chunking
+from magellanmapper_tpu.cv import verifier as ref_verifier
+from magellanmapper_tpu.io import cli as ref_cli
+from magellanmapper_tpu.io import importer as ref_importer
+from magellanmapper_tpu.io import np_io as ref_np_io
+from magellanmapper_tpu.io import sqlite as ref_sqlite
+from magellanmapper_tpu.io import yaml_io as ref_yaml_io
+from magellanmapper_tpu.settings import grid_search_prof as ref_gs_prof
+from magellanmapper_tpu.settings import roi_prof as ref_roi_prof
+from magellanmapper_tpu.utils import libmag as ref_libmag
+from magellanmapper_torch import testing
+from magellanmapper_torch.cv import blobs, chunking, stack_detect, verifier
+from magellanmapper_torch.io import cli, np_io, sqlite, yaml_io
+from magellanmapper_torch.settings import grid_search_prof, roi_prof
+from magellanmapper_torch.stats import mlearn
+from magellanmapper_torch.utils import libmag
+
+torch.set_num_threads(1)
+
+#: the checkout's root: a fresh interpreter imports the port from there,
+#: whatever directory an earlier test left the process in
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+# -- profiles ---------------------------------------------------------------
+
+@pytest.mark.parametrize(
+    "name", ["default"] + sorted(ref_roi_prof.ROIProfile().profiles))
+def test_roi_profile_copy(name):
+    got, want = roi_prof.ROIProfile(), ref_roi_prof.ROIProfile()
+    assert got.profiles == want.profiles
+    got.add_profiles(name)
+    want.add_profiles(name)
+    assert dict(got) == dict(want)
+
+
+@pytest.mark.parametrize(
+    "name", sorted(ref_gs_prof.GridSearchProfile().profiles))
+def test_grid_search_profile_copy(name):
+    got = grid_search_prof.GridSearchProfile()
+    want = ref_gs_prof.GridSearchProfile()
+    got.add_profiles(name)
+    want.add_profiles(name)
+    assert dict(got) == dict(want)
+    assert got.get_param_grid() == want.get_param_grid()
+
+
+def test_profile_chains_and_yaml_files_copy(tmp_path):
+    path = str(tmp_path / "roi_custom.yml")
+    ref_yaml_io.save_yaml(path, {"detection_threshold": 0.2,
+                                 "segment_size": np.int64(80)})
+    assert yaml_io.load_yaml(path) == ref_yaml_io.load_yaml(path)
+    for names in ("lightsheet,4xnuc", "lowres,minpreproc,2p20x", path):
+        got, want = roi_prof.ROIProfile(), ref_roi_prof.ROIProfile()
+        got.add_profiles(names)
+        want.add_profiles(names)
+        assert dict(got) == dict(want)
+    with pytest.raises(KeyError):
+        roi_prof.ROIProfile().add_profiles("no_such_profile")
+    a, b = roi_prof.ROIProfile(), roi_prof.ROIProfile(segment_size=9)
+    assert roi_prof.is_identical_block_settings([a, b]) == \
+        ref_roi_prof.is_identical_block_settings([a, b])
+
+
+# -- blob model, block geometry, verification -------------------------------
+
+def _raw(rng, n, ncols=4):
+    return np.column_stack([rng.integers(0, 50, (n, 3)),
+                            rng.uniform(1, 4, (n, ncols - 3))]).astype(float)
+
+
+@pytest.mark.parametrize("ncols,channel", [(4, 0), (4, None), (7, 2)])
+def test_blobs_methods_copy(ncols, channel):
+    rng = np.random.default_rng(ncols)
+    raw = _raw(rng, 12, ncols)
+    got = blobs.Blobs(raw.copy()).format_blobs(channel)
+    want = ref_blobs.Blobs(raw.copy()).format_blobs(channel)
+    np.testing.assert_array_equal(got, want)
+    offset = (3, -2, 5)
+    for name in ("shift_blob_rel_coords", "shift_blob_abs_coords",
+                 "multiply_blob_rel_coords"):
+        np.testing.assert_array_equal(
+            getattr(blobs.Blobs, name)(got.copy(), offset),
+            getattr(ref_blobs.Blobs, name)(want.copy(), offset))
+    np.testing.assert_array_equal(blobs.Blobs.get_blobs_channel(got),
+                                  ref_blobs.Blobs.get_blobs_channel(want))
+    np.testing.assert_array_equal(blobs.Blobs.get_blob_abs_coords(got),
+                                  ref_blobs.Blobs.get_blob_abs_coords(want))
+    assert blobs.COL_IND[blobs.BlobCols.ABS_X] == \
+        ref_blobs.COL_IND[ref_blobs.BlobCols.ABS_X]
+    assert [c.value for c in blobs.BlobCols] == [
+        c.value for c in ref_blobs.BlobCols]
+
+
+def test_blob_archive_reads_in_the_reference(tmp_path):
+    rng = np.random.default_rng(5)
+    port = blobs.Blobs(_raw(rng, 20))
+    port.format_blobs(1)
+    port.resolutions = np.array([[2.0, 1.0, 1.0]])
+    port.basename = "vol"
+    port.path = str(tmp_path / "vol_blobs.npz")
+    port.save_archive()
+    port.save_archive()     # the first archive is backed up, not lost
+    assert os.path.exists(tmp_path / "vol_blobs(1).npz")
+    back = ref_blobs.Blobs().load_blobs(port.path)
+    np.testing.assert_array_equal(back.blobs, port.blobs)
+    np.testing.assert_array_equal(back.resolutions, port.resolutions)
+    assert back.cols == port.cols and back.basename == "vol"
+    ref = ref_blobs.Blobs(port.blobs.copy())
+    ref.resolutions, ref.basename = port.resolutions, port.basename
+    ref.path = str(tmp_path / "ref_blobs.npz")
+    ref.save_archive()
+    with np.load(ref.path, allow_pickle=True) as a, \
+            np.load(port.path, allow_pickle=True) as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            np.testing.assert_array_equal(a[key], b[key])
+
+
+@pytest.mark.parametrize("shape,max_pixels,overlap", [
+    ((48, 192, 192), (150, 123, 123), (5, 5, 5)),
+    ((300, 700, 650), (64, 100, 128), (3, 0, 7)),
+    ((20, 100, 90), (25, 25, 25), None)])
+def test_stack_splitter_and_merge_blobs_copy(shape, max_pixels, overlap):
+    got = chunking.stack_splitter(shape, max_pixels, overlap)
+    want = ref_chunking.stack_splitter(shape, max_pixels, overlap)
+    assert got[0].shape == want[0].shape and np.all(got[0] == want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    rng = np.random.default_rng(len(got[0].ravel()))
+    rois = np.full(got[0].shape, None, dtype=object)
+    for coord in list(np.ndindex(*rois.shape))[::2]:
+        rois[coord] = blobs.Blobs(_raw(rng, 3)).format_blobs(0)
+    np.testing.assert_array_equal(
+        chunking.merge_blobs(rois), ref_chunking.merge_blobs(rois))
+    empty = np.full(got[0].shape, None, dtype=object)
+    assert chunking.merge_blobs(empty) is None
+    assert ref_chunking.merge_blobs(empty) is None
+
+
+@pytest.mark.parametrize("tol", [(3, 3, 3), (3, 1.2, 1.2), (1, 2, 2)])
+def test_verify_stack_copy(tol):
+    rng = np.random.default_rng(9)
+    truth = rng.integers(0, 60, (80, 3)).astype(float)
+    det = np.vstack([truth[:60] + rng.integers(-3, 4, (60, 3)),
+                     rng.integers(0, 60, (15, 3))]).astype(float)
+    assert verifier.verify_stack(det, truth, tol) == \
+        ref_verifier.verify_stack(det, truth, tol)
+    got = verifier.find_closest_blobs_cdist(det, truth, 3.0, (1, 2, 2))
+    want = ref_verifier.find_closest_blobs_cdist(det, truth, 3.0, (1, 2, 2))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    for g, w in zip(verifier.setup_match_blobs_roi(tol),
+                    ref_verifier.setup_match_blobs_roi(tol)):
+        np.testing.assert_array_equal(g, w)
+    assert verifier.calc_sens_ppv(10, 7, 2, 3) == \
+        ref_verifier.calc_sens_ppv(10, 7, 2, 3)
+
+
+def test_path_helpers_copy(tmp_path):
+    for base, suffix in (("a/b/vol.npy", "blobs.npz"), ("vol", ".csv"),
+                         ("x.nii.gz", "meta.yml"), (None, "s.npz")):
+        assert libmag.combine_paths(base, suffix) == \
+            ref_libmag.combine_paths(base, suffix)
+    assert libmag.splitext("a.ome.tif") == ref_libmag.splitext("a.ome.tif")
+    path = tmp_path / "f.txt"
+    path.write_text("x")
+    assert libmag.backup_file(str(path)) == str(tmp_path / "f(1).txt")
+
+
+# -- image and database I/O --------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.float32])
+def test_read_file_of_a_reference_volume(tmp_path, dtype):
+    vol = np.random.default_rng(1).integers(0, 900, (6, 20, 24)).astype(dtype)
+    path = str(tmp_path / "vol.npy")
+    ref_np_io.write_npy(path, vol, resolutions=[[2.0, 0.5, 0.5]])
+    got, want = np_io.read_file(path), ref_np_io.read_file(path)
+    np.testing.assert_array_equal(got.img, want.img)
+    np.testing.assert_array_equal(got.resolutions, want.resolutions)
+    assert got.meta == want.meta
+    assert (got.path_img, got.path_meta) == (want.path_img, want.path_meta)
+    # a sub-image by x,y,z offset and size
+    off, size = [3, 2, 1], [10, 8, 4]
+    got = np_io.read_file(path, offset=off, size=size)
+    want = ref_np_io.read_file(path, offset=off, size=size)
+    np.testing.assert_array_equal(got.img, want.img)
+    assert list(got.subimg_offset) == list(want.subimg_offset)
+    # a plain np.save volume has no metadata: no resolutions
+    plain = str(tmp_path / "plain.npy")
+    np.save(plain, vol)
+    got, want = np_io.read_file(plain), ref_np_io.read_file(plain)
+    np.testing.assert_array_equal(got.img, want.img)
+    assert got.resolutions is None and want.resolutions is None
+
+
+def test_write_npy_reads_in_the_reference(tmp_path):
+    vol = np.random.default_rng(2).random((4, 9, 11)).astype(np.float32)
+    path = str(tmp_path / "port.npy")
+    np_io.write_npy(path, vol, resolutions=[[1.5, 1.0, 1.0]])
+    got = ref_np_io.read_file(path)
+    np.testing.assert_array_equal(got.img[0], vol)
+    assert got.meta == ref_np_io.load_metadata(
+        ref_np_io.make_filenames(path)[1])[0]
+    assert np_io.load_metadata(got.path_meta) == \
+        ref_np_io.load_metadata(got.path_meta)
+    for off, size in (([1, 2, 3], [4, 5, 6]), ([0, 0, 0], [9, 9, 9])):
+        assert np_io.make_subimage_name(path, off, size) == \
+            ref_importer.make_subimage_name(path, off, size)
+
+
+def _schema(path):
+    with sqlite3.connect(path) as conn:
+        return conn.execute(
+            "SELECT type, name, sql FROM sqlite_master ORDER BY name"
+        ).fetchall()
+
+
+def _ref_truth_db(path, centres, shape):
+    """The truth ROI of :func:`testing.write_truth_db`, written by the
+    reference's database code."""
+    n = len(centres)
+    rows = np.column_stack([np.asarray(centres, float), np.full(n, 3.0),
+                            np.ones(n), np.ones(n), np.zeros(n)])
+    db = ref_sqlite.load_db(path)
+    exp_id = db.select_or_insert_experiment("truth")
+    roi_id, _ = db.select_or_insert_roi(
+        exp_id, 0, (0, 0, 0), tuple(int(s) for s in shape[::-1]))
+    db.insert_blobs(roi_id, rows)
+    db.close()
+    return path
+
+
+def test_truth_db_interchanges_with_the_reference(tmp_path):
+    centres = np.random.default_rng(4).integers(0, 40, (50, 3))
+    centres = np.unique(centres, axis=0)
+    port = testing.write_truth_db(str(tmp_path / "port.db"), centres,
+                                  (40, 40, 40))
+    ref = _ref_truth_db(str(tmp_path / "ref.db"), centres, (40, 40, 40))
+    assert _schema(port) == _schema(ref)
+    for reader in (sqlite, ref_sqlite):
+        for path in (port, ref):
+            db = reader.load_truth_db(path[:-3])
+            got = db.select_blobs_confirmed(1)
+            db.close()
+            assert got.shape == (len(centres), 7)
+            np.testing.assert_array_equal(
+                got[np.lexsort(got.T[::-1])][:, :3],
+                centres[np.lexsort(centres.T[::-1])])
+
+
+# -- command line ------------------------------------------------------------
+
+_ACCEPTED = [
+    ["--img", "v.npy", "--proc", "detect"],
+    ["--img", "v.npy", "--proc", "detect", "--roi_profile", "lightsheet",
+     "4xnuc", "--channel", "0", "1", "--prefix", "out/p"],
+    ["--img", "v.npy", "--proc", "detect", "--series", "2",
+     "--subimg_offset", "1,2,3", "--subimg_size", "10,20,30",
+     "--set_meta", "resolutions=2.0,0.5,0.5"],
+    ["--img", "r.npy", "--grid_search", "gridtest", "--roi_profile",
+     "4xnuc", "--truth_db", "verify", "truth.db"],
+    ["--img", "r.npy", "--grid_search", "gridtest", "--proc", "detect",
+     "--truth_db", "t.db"],
+]
+
+
+@pytest.mark.parametrize("argv", _ACCEPTED)
+def test_cli_parses_as_the_reference(argv):
+    got = cli.process_cli_args(argv + ["--device", "cpu"])
+    want = ref_cli.process_cli_args(argv)
+    for name in ("filenames", "channel", "series", "subimg_offsets",
+                 "subimg_sizes", "proc_args", "resolutions", "truth_db",
+                 "prefix", "grid_search"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert got.proc == (want.proc.name.lower() if want.proc else None)
+    assert dict(got.roi_profile) == dict(want.roi_profile)
+    assert [dict(p) for p in got.roi_profiles] == [
+        dict(p) for p in want.roi_profiles]
+    assert got.device == "cpu"
+    assert cli.process_cli_args(argv).device == "cuda"
+
+
+@pytest.mark.parametrize("argv,named", [
+    (["--proc", "detect", "--register", "single"], "--register"),
+    (["--proc", "detect", "--mesh", "1,1"], "--mesh"),
+    (["--proc", "detect", "--save_subimg"], "--save_subimg"),
+    (["--proc", "detect", "--df", "sum"], "--df"),
+    (["--proc", "detect", "--plot_2d", "bar"], "--plot_2d"),
+    (["--proc", "detect", "--notify", "x"], "--notify"),
+    (["--proc", "export_planes"], "--proc export_planes"),
+    (["--proc", "detect", "--truth_db", "t.db"], "--truth_db"),
+    (["--register", "single"], "--register"),
+])
+def test_cli_rejects_and_names_what_is_not_ported(argv, named):
+    with pytest.raises(SystemExit) as err:
+        cli.process_cli_args(["--img", "v.npy"] + argv)
+    assert named in str(err.value)
+
+
+def test_cli_detect_reads_subimage_and_resolutions(tmp_path):
+    vol = testing.make_nuclei_volume((30, 60, 60), seed=3)[0]
+    path = str(tmp_path / "vol.npy")
+    np_io.write_npy(path, vol, resolutions=[[1.0, 1.0, 1.0]])
+    argv = ["--img", path, "--proc", "detect", "--subimg_offset", "4,6,2",
+            "--subimg_size", "50,40,26", "--set_meta",
+            "resolutions=1.0,1.0,1.0", "--roi_profile", "lightsheet",
+            "--device", "cpu"]
+    img5d = cli.load_image(cli.process_cli_args(argv))
+    np.testing.assert_array_equal(img5d.img[0], vol[2:28, 6:46, 4:54])
+    assert img5d.meta["resolutions"] == [[1.0, 1.0, 1.0]]
+    out = cli.main(argv)
+    prof = roi_prof.ROIProfile()
+    prof.add_profiles("lightsheet")
+    direct, _ = stack_detect.detect_blobs_stack(
+        np.ascontiguousarray(vol[2:28, 6:46, 4:54]), prof, (1.0, 1.0, 1.0),
+        device="cpu")
+    np.testing.assert_array_equal(out.blobs, direct.blobs)
+
+
+# -- the card by default ----------------------------------------------------
+
+@pytest.fixture
+def no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+
+
+def _entry_points(tmp_path):
+    vol = np.zeros((8, 16, 16), np.uint16)
+    prof = roi_prof.ROIProfile()
+    img = str(tmp_path / "roi.npy")
+    np.save(img, vol.astype(np.float32))
+    truth = testing.write_truth_db(str(tmp_path / "t.db"), [(4, 8, 8)],
+                                   vol.shape)
+    rc = cli.process_cli_args(["--img", img, "--grid_search", "gridtest",
+                               "--truth_db", truth])
+    return {
+        "detect_blobs_blocks": lambda: stack_detect.detect_blobs_blocks(
+            vol, prof, (1.0, 1.0, 1.0)),
+        "detect_blobs_stack": lambda: stack_detect.detect_blobs_stack(
+            vol, prof, (1.0, 1.0, 1.0)),
+        "StackDetector": lambda: stack_detect.StackDetector(
+            vol, prof, (1.0, 1.0, 1.0)).detect_stack(),
+        "make_fn_detect_multi": lambda: mlearn.make_fn_detect_multi(
+            vol, (1.0, 1.0, 1.0), prof),
+        "grid_search_from_cli": lambda: mlearn.grid_search_from_cli(rc),
+        "cli.main": lambda: cli.main(["--img", img, "--proc", "detect"]),
+    }
+
+
+@pytest.mark.parametrize("name", [
+    "detect_blobs_blocks", "detect_blobs_stack", "StackDetector",
+    "make_fn_detect_multi", "grid_search_from_cli", "cli.main"])
+def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
+    with pytest.raises(RuntimeError, match="CUDA"):
+        _entry_points(tmp_path)[name]()
+
+
+_BOTH_TASKS_ALONE = """
+import importlib, pkgutil, sys
+import magellanmapper_torch
+from magellanmapper_torch.io import cli
+names = [m.name for m in pkgutil.walk_packages(
+    magellanmapper_torch.__path__, "magellanmapper_torch.")]
+for name in names:
+    importlib.import_module(name)
+img, truth = sys.argv[1:3]
+blobs = cli.main(["--img", img, "--proc", "detect", "--roi_profile",
+                  "lightsheet", "--device", "cpu"])
+df = cli.main(["--img", img, "--grid_search", "gridtest", "--roi_profile",
+               "4xnuc", "--truth_db", truth, "--device", "cpu"])
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "magellanmapper_tpu"))
+assert not loaded, loaded
+print(len(names), len(blobs), len(df))
+"""
+
+
+def test_both_cli_tasks_run_without_the_reference(tmp_path):
+    """A fresh interpreter imports every port module and runs detection
+    and the grid search on the CPU; neither jax nor any module of the
+    reference package is loaded (conftest imports jax here)."""
+    roi, centres = testing.make_grid_roi((24, 48, 48), 0, spacing=12,
+                                         jitter=2)
+    img = str(tmp_path / "roi.npy")
+    np.save(img, roi)
+    truth = testing.write_truth_db(str(tmp_path / "truth.db"), centres,
+                                   roi.shape)
+    out = subprocess.run(
+        [sys.executable, "-c", _BOTH_TASKS_ALONE, img, truth],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    n_mods, n_blobs, n_rows = map(int, out.stdout.split()[-3:])
+    assert n_mods >= 30 and n_blobs > 0 and n_rows == 4

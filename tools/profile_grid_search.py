@@ -44,8 +44,7 @@ THRESHOLDS = (0.05, 0.1, 0.15, 0.2)
 
 
 def stage_split(torch, roi, truth, reps):
-    from magellanmapper_tpu.cv import verifier
-    from magellanmapper_torch.cv import detector, stack_detect
+    from magellanmapper_torch.cv import detector, stack_detect, verifier
     from magellanmapper_torch.kernels import extract_candidates as k2
     from magellanmapper_torch.ops import filters, peaks
 

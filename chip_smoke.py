@@ -10,8 +10,11 @@ result, on any fault. Phases:
 3. each kernel against its plain PyTorch version on the card, bit for
    bit, at the shapes of the detection path (K1, K3, K4) and of the grid
    search (K2) and on edge cases (NaNs, ragged widths, masks that are no
-   prefix, equal radii, K = 16,384, peak buffers that overflow), timed
-   with CUDA events beside its plain version, the one PyTorch call that
+   prefix, equal radii, K = 16,384, peak buffers that overflow; for K4
+   both of its routes, the block as one tile, negative floats, signed
+   zeros, rows of one value, V = 1; float results compared by their
+   bits), timed with CUDA events beside its plain version (K1 and K4 also
+   by their kernels' device time alone), the one PyTorch call that
    computes the same function where there is one (K2 ``torch.topk``, K4
    ``torch.quantile``) and its bound: the larger of the bytes it must
    move over 3.35 TB/s and the float32 operations it must do over 67
@@ -29,10 +32,19 @@ result, on any fault. Phases:
    the CPU; the LoG pyramid's tap route (an axis of 1024) on both;
 6. a JSON line of per-kernel results (launches summed over the two
    paths), the ``nvidia-smi`` line, and the final JSON line.
+
+``python3 chip_smoke.py --k4-times [--root DIR]`` times K4
+alone instead (:func:`time_k4`, the same measure as phase 3) on one
+seeded detect block: its (252, 15625) denoise tiles and the block as one
+(1, 2,555,904) tile, each in uint16 and float32, one JSON line a shape.
+``--root`` names the checkout whose ``magellanmapper_torch`` is timed
+(default: this one), so an older commit unpacked with ``git archive`` can
+be timed beside this one on the same card.
 """
 
 from __future__ import annotations
 
+import argparse
 import csv
 import json
 import os
@@ -73,6 +85,11 @@ TAPS_SHAPE = (16, 48, 1024)
 GRID_K2_CHUNK = (0.05, 0.10)
 #: card against CPU on the tap route: both sum in fp32, in another order
 TAPS_RTOL, TAPS_ATOL = 1e-5, 1e-5
+#: ``--k4-times``: one detect block of the lightsheet profile, its denoise
+#: tiles and its clip percentiles (clip_vmin, clip_vmax)
+K4_BLOCK = (156, 128, 128)
+K4_TILE = (25, 25, 25)
+K4_Q = (5.0, 98.5)
 
 
 def fail(msg: str) -> None:
@@ -92,6 +109,29 @@ def cuda_ms(torch, fn, reps=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def kernel_device_ms(torch, fn, name_part, reps=50):
+    """Mean milliseconds of device time per call of ``fn`` spent in the
+    kernels whose name holds ``name_part`` (every device activity for
+    ``""``), from ``torch.profiler``'s records (the launch's host cost
+    left out)."""
+    from torch.autograd import DeviceType
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+          if ev.device_type == DeviceType.CUDA and name_part in ev.name
+          and not ev.name.startswith("Activity Buffer")]
+    if not us:
+        fail(f"the profiler recorded no kernel named *{name_part}*")
+    return sum(us) / reps / 1e3
 
 
 def bound(nbytes: float, ops: float):
@@ -145,15 +185,57 @@ def block_inputs(torch, prof, vol, dev):
     return params, block, cube, ragged
 
 
+def same_bits(torch, a, b) -> bool:
+    """Float32 tensors equal bit for bit (``-0.0`` is not ``+0.0``)."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def k4_shapes(torch, tiles, block):
+    """K4's timed shapes: a block's denoise tiles as the detect path hands
+    them over, and the block as one tile (a profile without denoise tiles,
+    e.g. ``binary``), each in uint16 and float32."""
+    whole = block.reshape(1, -1)
+    return {"tiles_u16": tiles, "tiles_f32": tiles.to(torch.float32),
+            "block_u16": whole, "block_f32": whole.to(torch.float32)}
+
+
+def time_k4(torch, k4, t, q, reps=50):
+    """K4 of module ``k4`` at one shape: its kernels' device time and that
+    of every device activity of a call (the long route's scratch fill
+    too), from ``torch.profiler``; the wrapper's, the plain version's and
+    ``torch.quantile``'s times (CUDA events); the bound (the matrix read
+    once, the (T, 2) result written once; one operation an element)."""
+    t_f32 = t.to(torch.float32)   # the library call's copy, made untimed
+    qt = torch.tensor([q[0] / 100, q[1] / 100], dtype=torch.float32,
+                      device=t.device)
+    call = lambda: k4.tile_percentiles(t, *q)   # noqa: E731
+    nbytes = t.numel() * t.element_size() + t.shape[0] * 2 * 4
+    out = dict(
+        shape=list(t.shape), dtype=str(t.dtype),
+        device_ms=kernel_device_ms(torch, call, "tile_percentiles", reps),
+        call_device_ms=kernel_device_ms(torch, call, "", reps),
+        ms=cuda_ms(torch, call),
+        plain_ms=cuda_ms(torch, lambda: k4.tile_percentiles_plain(t, *q)),
+        library_ms=cuda_ms(torch, lambda: torch.quantile(t_f32, qt, dim=1)),
+        nbytes=nbytes, bound_ms=bound(nbytes, t.numel())[0])
+    out["device_share_of_bound"] = out["bound_ms"] / out["device_ms"]
+    return out
+
+
 def check_k4(torch, params, block, results, dev):
     """K4 on the denoise tiles of one block, as the preprocessing cuts
-    them, and on edge cases; the library call is ``torch.quantile``."""
+    them, on the block as one tile (the split route), and on the edge cases
+    of ``testing.k4_cases``, bit for bit at each percentile pair of
+    ``testing.K4_QS`` and the profile's; timed by :func:`time_k4` at the
+    shapes of :func:`k4_shapes`."""
+    from magellanmapper_torch import testing
     from magellanmapper_torch.cv import stack_detect as sd
     from magellanmapper_torch.kernels import tile_percentiles as k4
 
     prep = dict(params.preproc_items)
     tiles = sd.to_tiles(block, params.denoise_shape)[0]
     tiles = tiles.reshape(tiles.shape[0], -1)
+    whole = block.reshape(1, -1)
     rng = np.random.default_rng(SEED)
     dup = torch.from_numpy(
         rng.integers(0, 4, tiles.shape).astype(np.float32)).to(dev)
@@ -162,35 +244,82 @@ def check_k4(torch, params, block, results, dev):
         "f32": tiles.to(torch.float32),
         "u16_ragged_v": tiles[:, :12345].contiguous(),
         "f32_duplicates": dup,
+        "u16_block_one_tile": whole,
+        "f32_block_one_tile": whole.to(torch.float32),
     }
-    err4 = 0.0
+    cases.update((name, torch.from_numpy(a).to(dev))
+                 for name, a in testing.k4_cases(SEED).items())
     q = (prep["clip_vmin"], prep["clip_vmax"])
+    qs = (q,) + testing.K4_QS
+    err4 = 0.0
+    routes = set()
     for name, t in cases.items():
-        got = k4.tile_percentiles(t, *q)
-        want = k4.tile_percentiles_plain(t, *q)
-        err = float((got - want).abs().max())
-        print(f"K4 {name} {tuple(t.shape)} {t.dtype}: max_abs_err {err}",
-              flush=True)
-        if not torch.equal(got, want):
-            fail(f"K4 {name}: kernel != plain version")
-        err4 = max(err4, err)
-    # the library call works on floats: the copy is made before timing
-    tiles_f32 = tiles.to(torch.float32)
+        n_chunks, chunk = k4.split(*t.shape, max(2, t.element_size()))
+        routes.add("long" if n_chunks > 1 else "short")
+        for qq in qs:
+            got = k4.tile_percentiles(t, *qq)
+            want = k4.tile_percentiles_plain(t, *qq)
+            err = float((got - want).abs().max())
+            err4 = max(err4, err)
+            if not same_bits(torch, got, want):
+                fail(f"K4 {name} {tuple(t.shape)} q={qq}: kernel != plain "
+                     f"version (max_abs_err {err})")
+        print(f"K4 {name} {tuple(t.shape)} {t.dtype}, {n_chunks} chunk(s) "
+              f"of {chunk}: equal at {len(qs)} percentile pairs", flush=True)
+    if routes != {"short", "long"}:
+        fail(f"K4's cases took the routes {sorted(routes)}, not both")
     qt = torch.tensor([q[0] / 100, q[1] / 100], dtype=torch.float32,
                       device=dev)
-    lib_err = float((torch.quantile(tiles_f32, qt, dim=1).T
+    lib_err = float((torch.quantile(tiles.to(torch.float32), qt, dim=1).T
                      - k4.tile_percentiles(tiles, *q)).abs().max())
     print(f"K4 torch.quantile against the kernel: max_abs_diff {lib_err}",
           flush=True)
-    t, v = tiles.shape
-    record(results, "tile_percentiles",
-           ms=cuda_ms(torch, lambda: k4.tile_percentiles(tiles, *q)),
-           plain_ms=cuda_ms(
-               torch, lambda: k4.tile_percentiles_plain(tiles, *q)),
-           library_ms=cuda_ms(
-               torch, lambda: torch.quantile(tiles_f32, qt, dim=1)),
-           nbytes=t * v * tiles.element_size() + t * 2 * 4, ops=t * v,
-           max_abs_err=err4, shape=[t, v])
+    timed = {name: time_k4(torch, k4, t, q)
+             for name, t in k4_shapes(torch, tiles, block).items()}
+    for name, row in timed.items():
+        print(f"K4 timed {name}: {row}", flush=True)
+    main = timed["tiles_u16"]
+    record(results, "tile_percentiles", ms=main["ms"],
+           plain_ms=main["plain_ms"], library_ms=main["library_ms"],
+           nbytes=main["nbytes"], ops=tiles.numel(), max_abs_err=err4,
+           shape=main["shape"], device_ms=main["device_ms"],
+           device_share_of_bound=main["device_share_of_bound"],
+           timed=timed)
+
+
+def k4_times(root: str) -> None:
+    """``--k4-times``: K4 of the checkout at ``root`` against its own plain
+    version (bit for bit), then one JSON line of :func:`time_k4` for each
+    of :func:`k4_shapes` (labelled with ``root``), on a seeded block of
+    ``K4_BLOCK``."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    try:
+        from magellanmapper_torch import testing
+        from magellanmapper_torch.cv import stack_detect as sd
+        from magellanmapper_torch.kernels import tile_percentiles as k4
+    except ImportError as err:
+        fail(f"{root} holds no magellanmapper_torch package: {err}")
+    if not k4.__file__.startswith(root + os.sep):
+        fail(f"imported {k4.__file__}, not the one under {root}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    block = torch.from_numpy(
+        testing.make_nuclei_volume(K4_BLOCK, SEED)[0]).cuda()
+    tiles = sd.to_tiles(block, K4_TILE)[0]
+    tiles = tiles.reshape(tiles.shape[0], -1)
+    for name, t in k4_shapes(torch, tiles, block).items():
+        if not same_bits(torch, k4.tile_percentiles(t, *K4_Q),
+                         k4.tile_percentiles_plain(t, *K4_Q)):
+            fail(f"K4 {name} of {root}: kernel != plain version")
+        print(json.dumps({"root": root, "name": name,
+                          **time_k4(torch, k4, t, K4_Q, reps=100)}),
+              flush=True)
 
 
 def k1_cases(torch, cube, ragged, thr, dev):
@@ -621,4 +750,13 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--k4-times", action="store_true",
+                        help="time K4 alone instead of the smoke run")
+    parser.add_argument("--root", default=ROOT,
+                        help="checkout whose K4 --k4-times times")
+    args = parser.parse_args()
+    if args.k4_times:
+        k4_times(args.root)
+    else:
+        main()

@@ -50,8 +50,10 @@ _SIGNATURES = {
     "mm_peak_candidates": (_P, _I, _I, _I, _I, _F, _P, _P, _P, _I, _P),
     # coords, sigmas, valid, K, sqrt_ndim, thresh, out, scratch, stream
     "mm_prune_overlap": (_P, _P, _P, _I, _F, _F, _P, _P, _P),
-    # tiles, is_u16, T, V, k_lo, k_hi, frac_lo, frac_hi, out, stream
-    "mm_tile_percentiles": (_P, _I, _I, _I, _I, _I, _F, _F, _P, _P),
+    # tiles, is_u16, T, V, k_lo, k_hi, frac_lo, frac_hi, out, chunk,
+    # n_chunks, scratch, stream
+    "mm_tile_percentiles": (_P, _I, _I, _I, _I, _I, _F, _F, _P, _I, _I, _P,
+                            _P),
     # rows, R, out_vals, out_lanes, stream
     "mm_extract_candidates": (_P, _L, _P, _P, _P),
 }

@@ -1,7 +1,7 @@
 """Synthetic fixtures and checks shared by the port's tests and
 ``chip_smoke.py``: a seeded volume of planted nuclei, a truth database of
-its centres, blob-row equality, and detection quality against the
-planted centres."""
+its centres, blob-row equality, detection quality against the planted
+centres, and the edge cases of the percentile kernel (K4)."""
 
 from __future__ import annotations
 
@@ -41,6 +41,47 @@ def make_nuclei_volume(shape, seed, spacing=20, sigma=2.7, jitter=4):
         vol[z] += rng.normal(200, 30, shape[1:]).astype(np.float32)
     np.clip(vol, 0, 65535, out=vol)
     return vol.astype(np.uint16), centres
+
+
+#: percentile pairs K4 is held to on its edge cases: lightsheet's clip,
+#: the extremes, the median, minpreproc's near-extremes
+K4_QS = ((5.0, 98.5), (0.0, 100.0), (50.0, 50.0), (0.01, 99.99))
+
+
+def k4_cases(seed: int = 0) -> dict:
+    """Seeded ``(T, V)`` matrices for K4: uint16 over many high bytes,
+    rows of one value, one hot bin with outliers, V = 1 and 7, odd V
+    (misaligned row starts), long rows (the split route: one
+    (1, 2,555,904) row of image-like noise, 3 rows of 100,003), float32
+    with negatives, with signed zeros, long float rows, and uint8."""
+    rng = np.random.default_rng(seed)
+    t, v = 252, 15625
+    equal = np.repeat(rng.integers(0, 65536, (t, 1)), v, axis=1)
+    equal[:2, :] = [[0], [65535]]
+    hot = rng.integers(200, 204, (t, v))
+    for col, val in ((3, 0), (50, 65535), (777, 1000), (9000, 4000)):
+        hot[:, col] = val
+    zeros = rng.choice(np.array([-0.0, 0.0, 1e-30, -1e-30, -1.0, 1.0],
+                                np.float32), (t, v))
+    noise = np.clip(rng.normal(200, 30, (1, 2555904)), 0, None)
+    noise[0, rng.integers(0, noise.size, 20000)] += 3000
+    return {
+        "u16_wide": rng.integers(0, 4001, (t, v)).astype(np.uint16),
+        "u16_all_equal": equal.astype(np.uint16),
+        "u16_hot_bin": hot.astype(np.uint16),
+        "u16_v1": rng.integers(0, 65536, (t, 1)).astype(np.uint16),
+        "u16_v7": rng.integers(0, 300, (t, 7)).astype(np.uint16),
+        "u16_odd_v": rng.integers(0, 65536, (t, 12347)).astype(np.uint16),
+        "u16_long_row": noise.astype(np.uint16),
+        "u16_long_rows": rng.integers(0, 65536, (3, 100003)).astype(
+            np.uint16),
+        "f32_negative": rng.normal(0, 1, (t, v)).astype(np.float32),
+        "f32_signed_zeros": zeros,
+        "f32_odd_v": rng.normal(-5, 10, (37, 7777)).astype(np.float32),
+        "f32_long_rows": rng.normal(0, 1e4, (2, 1000001)).astype(
+            np.float32),
+        "u8": rng.integers(0, 256, (t, v)).astype(np.uint8),
+    }
 
 
 def make_grid_roi(shape, seed, spacing=20, jitter=4, decoy=0.3):

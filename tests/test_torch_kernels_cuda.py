@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from magellanmapper_torch import device as dev_mod
+from magellanmapper_torch import testing
 from magellanmapper_torch.kernels import extract_candidates as k2
 from magellanmapper_torch.kernels import peak_candidates as k1
 from magellanmapper_torch.kernels import prune_overlap as k3
@@ -174,17 +175,53 @@ def test_prune_overlap_kernel_edges(card, case):
         assert 0 < int(got.sum()) < int(valid.sum())
 
 
-@pytest.mark.parametrize("dtype", [torch.uint16, torch.uint8, torch.float32])
-@pytest.mark.parametrize("v", [15625, 12345, 7])
-def test_tile_percentiles_kernel(card, dtype, v):
-    rng = np.random.default_rng(2)
-    tiles = torch.from_numpy(rng.integers(0, 255, (252, v)).astype(
-        np.int32)).to(card).to(dtype)
-    for q in ((5, 98.5), (0, 100), (50, 50)):
-        assert torch.equal(k4.tile_percentiles(tiles, *q),
-                           k4.tile_percentiles_plain(tiles, *q))
+@pytest.fixture(scope="module")
+def k4_cases():
+    return testing.k4_cases()
 
 
-def test_tile_percentiles_kernel_rejects_negative_floats(card):
-    with pytest.raises(ValueError):
-        k4.tile_percentiles(-torch.ones((2, 5), device=card), 5, 95)
+@pytest.mark.parametrize("case", [
+    "u16_wide", "u16_all_equal", "u16_hot_bin", "u16_v1", "u16_v7",
+    "u16_odd_v", "u16_long_row", "u16_long_rows", "f32_negative",
+    "f32_signed_zeros", "f32_odd_v", "f32_long_rows", "u8",
+    "u16_15625", "u16_12345", "u16_7", "u8_15625", "u8_12345", "u8_7",
+    "f32_15625", "f32_12345", "f32_7"])
+def test_tile_percentiles_kernel(card, k4_cases, case):
+    """Bit for bit (signs of zero too) against the plain version, on
+    the edge cases of
+    ``testing.k4_cases`` (negative floats included) and on values 0-254
+    at three widths, on both routes of ``k4.split``."""
+    if case in k4_cases:
+        tiles = torch.from_numpy(k4_cases[case]).to(card)
+    else:
+        name, v = case.split("_")
+        dtype = {"u16": torch.uint16, "u8": torch.uint8,
+                 "f32": torch.float32}[name]
+        tiles = torch.from_numpy(np.random.default_rng(2).integers(
+            0, 255, (252, int(v))).astype(np.int32)).to(card).to(dtype)
+    n_chunks, _ = k4.split(*tiles.shape, max(2, tiles.element_size()))
+    assert (n_chunks > 1) == ("long" in case)
+    before = dev_mod.LAUNCHES["tile_percentiles"]
+    for q in testing.K4_QS:
+        got = k4.tile_percentiles(tiles, *q)
+        want = k4.tile_percentiles_plain(tiles, *q)
+        assert torch.equal(got.view(torch.int32),
+                           want.view(torch.int32)), (case, q)
+    assert dev_mod.LAUNCHES["tile_percentiles"] == before + len(testing.K4_QS)
+
+
+def test_tile_percentiles_kernel_negative_rows(card):
+    """Rows of negative floats, and rows mixing signs, equal the plain
+    version (which equals ``np.percentile``) on both routes."""
+    rng = np.random.default_rng(5)
+    for shape in ((64, 15625), (1, 300001)):
+        rows = rng.normal(0, 100, shape).astype(np.float32)
+        rows[: shape[0] // 2] = -np.abs(rows[: shape[0] // 2])
+        tiles = torch.from_numpy(rows).to(card)
+        for q in testing.K4_QS:
+            got = k4.tile_percentiles(tiles, *q)
+            want = k4.tile_percentiles_plain(tiles, *q)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+            np.testing.assert_allclose(
+                got.cpu().numpy(), np.percentile(rows, q, axis=1).T,
+                rtol=1e-6)

@@ -12,6 +12,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from magellanmapper_tpu.cv import stack_detect as ref_sd
 from magellanmapper_tpu.ops import pallas_kernels
@@ -51,6 +53,78 @@ def test_tile_percentiles_matches_reference(kind, v, q):
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(
         got, np.percentile(tiles, q, axis=1).T, rtol=1e-6)
+
+
+@pytest.mark.parametrize("t", [1, 252])
+@pytest.mark.parametrize("itemsize", [2, 4])
+@pytest.mark.parametrize("v", [1, 7, 15625, 2555904, 2 ** 31 - 1])
+def test_tile_percentiles_split_covers_each_element_once(t, itemsize, v):
+    """The host's route for K4: chunk i of a row covers
+    [i * chunk, min(v, (i + 1) * chunk)); the chunks tile the row with no
+    gap, no overlap and no empty chunk, fit the kernel's int arguments,
+    and a row longer than one CTA's staging takes the split route."""
+    n, chunk = k4.split(t, v, itemsize)
+    starts = np.arange(n, dtype=np.int64) * chunk
+    ends = np.minimum(starts + chunk, v)
+    assert starts[0] == 0 and ends[-1] == v
+    assert np.all(starts[1:] == ends[:-1]) and np.all(ends > starts)
+    assert int((ends - starts).sum()) == v
+    assert chunk < 2 ** 31 and n < 2 ** 31
+    if n == 1:
+        assert chunk == v and v * itemsize <= k4.SHORT_ROW_BYTES
+    else:
+        assert v * itemsize > k4.SHORT_ROW_BYTES and chunk % 8 == 0
+    assert (n > 1) == (v >= 2555904)
+
+
+@settings(max_examples=300, deadline=None)
+@given(q=st.floats(0, 100), v=st.integers(1, 2 ** 31 - 1))
+def test_tile_percentiles_rank_matches_reference(q, v):
+    """``_rank`` against the reference's own rank and f32 weight
+    (``pallas_kernels.py:303-307``: ``int(np.floor(r)) + 1`` and
+    ``jnp.float32(r - np.floor(r))``)."""
+    r = q / 100.0 * (v - 1)
+    want = (int(np.floor(r)) + 1, float(jnp.float32(r - np.floor(r))))
+    k, frac = k4._rank(q, v)
+    assert (k, frac) == want and isinstance(k, int)
+    assert 1 <= k <= v
+
+
+@pytest.mark.parametrize("q", [(5, 98.5), (0.01, 99.99), (25, 75)])
+def test_tile_percentiles_negative_floats(q):
+    """Rows with negative values: the plain version (the port's CPU route,
+    which the kernel equals on the card) equals ``np.percentile``; the
+    reference's ``tile_percentiles_pallas`` orders the raw float bits, which
+    puts negative values in reverse, and misses it (a recorded deviation,
+    ROADMAP §3)."""
+    rng = np.random.default_rng(11)
+    tiles = rng.normal(0, 100, (6, 1000)).astype(np.float32)
+    tiles[:3] = -np.abs(tiles[:3])
+    exact = np.percentile(tiles, q, axis=1).T
+    got = k4.tile_percentiles(torch.from_numpy(tiles), *q).numpy()
+    np.testing.assert_allclose(got, exact, rtol=1e-6)
+    ref = np.asarray(pallas_kernels.tile_percentiles_pallas(
+        jnp.asarray(tiles), *q, interpret=True))
+    assert not np.allclose(ref, exact, rtol=1e-3)
+
+
+def test_tile_percentiles_plain_orders_signed_zeros():
+    """The plain version puts ``-0.0`` before ``+0.0``, as the kernel's
+    keys do, so the two agree on a zero's sign; by value it is still
+    ``np.percentile``."""
+    rng = np.random.default_rng(12)
+    tiles = np.zeros((4, 1001), np.float32)
+    tiles[:, :251] = -0.0           # ranks 1-251 are -0.0, 252-1001 +0.0
+    tiles = rng.permuted(tiles, axis=1)
+    tiles[3, :5] = [-1.0, -1.0, -1.0, 1.0, 1.0]     # still equal by value
+    for q, neg in (((0, 100), [True, False]), ((25, 25.2), [True, False]),
+                   ((10, 50), [True, False])):
+        got = k4.tile_percentiles(torch.from_numpy(tiles[:3]), *q).numpy()
+        assert np.signbit(got).tolist() == [neg] * 3, q
+    for q in ((0, 100), (5, 98.5), (25.01, 25.03)):
+        np.testing.assert_array_equal(
+            k4.tile_percentiles(torch.from_numpy(tiles), *q).numpy(),
+            np.percentile(tiles, q, axis=1).T)
 
 
 def test_tile_percentiles_rejects_other_dtypes():

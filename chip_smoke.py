@@ -30,8 +30,20 @@ result, on any fault. Phases:
    the table; a
    (32, 128, 128) crop through the same batched route on the card and on
    the CPU; the LoG pyramid's tap route (an axis of 1024) on both;
-6. a JSON line of per-kernel results (launches summed over the two
-   paths), the ``nvidia-smi`` line, and the final JSON line.
+6. registration, which runs no hand-written kernel (the register path's
+   launch counts are printed, and are 0): the seeded (160, 240, 200)
+   gauntlet pair built on the card; ``python -m magellanmapper_torch.io.cli
+   --img sample.npy atlas --register single`` with the default atlas
+   profile (wall, the stats CSV's DSCs against the unregistered DSC, the
+   written labels' per-region DSC against the ground truth, optimiser
+   steps per second of each stage and level); ``run_gauntlet`` on the
+   same pair with the reference's smoothing schedule and hard gates
+   (dsc >= 0.95, label median >= 0.90); ``register_duo`` on a
+   (20, 28, 28) pair on the card and on the CPU;
+7. ``cv.detector.detect_blobs`` on a (48, 192, 192) crop of the detect
+   volume at resolutions (2, 1, 1) made isotropic, card against CPU;
+8. a JSON line of per-kernel results (launches summed over the paths,
+   and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --k4-times [--root DIR]`` times K4
 alone instead (:func:`time_k4`, the same measure as phase 3) on one
@@ -85,6 +97,18 @@ TAPS_SHAPE = (16, 48, 1024)
 GRID_K2_CHUNK = (0.05, 0.10)
 #: card against CPU on the tap route: both sum in fp32, in another order
 TAPS_RTOL, TAPS_ATOL = 1e-5, 1e-5
+#: registration: the gauntlet pair (the reference's registration
+#: yardstick, a 50 um mouse atlas's scale), the card-against-CPU pair
+#: (15,680 voxels: every metric stride 1, so no jitter), its iteration
+#: scale and its parameter tolerances (Adam turns float32 noise in the
+#: B-spline lattice's near-zero gradients into sign flips of whole steps)
+REG_SHAPE = (160, 240, 200)
+REG_CROP = (20, 28, 28)
+REG_CROP_ITERS = 0.25
+REG_CROP_ATOL = {"t": 1e-2, "W": 1e-3, "grid": 5e-2}
+#: detect_blobs: a crop of the detect volume, read as 2 um in z
+DETECT_CROP = (48, 192, 192)
+DETECT_RES = (2.0, 1.0, 1.0)
 #: ``--k4-times``: one detect block of the lightsheet profile, its denoise
 #: tiles and its clip percentiles (clip_vmin, clip_vmax)
 K4_BLOCK = (156, 128, 128)
@@ -600,6 +624,157 @@ def check_taps(torch, sigmas):
         fail("tap route: the card's pyramid differs from the CPU's")
 
 
+def write_register_inputs(pair, where):
+    """The pair as the ``--register single`` task reads it: the fixed
+    image as ``sample.npy`` (image5d with metadata) and the atlas as an
+    ``atlasVolume.mhd``/``annotation.mhd`` directory. Returns
+    ``(sample_path, atlas_dir)``."""
+    from magellanmapper_torch.io import np_io, sitk_io
+
+    sample = os.path.join(where, "sample.npy")
+    np_io.write_npy(sample, pair["fixed"])
+    atlas = os.path.join(where, "atlas")
+    os.makedirs(atlas)
+    sitk_io.write_med_img(os.path.join(atlas, "atlasVolume.mhd"),
+                          sitk_io.MedImage(pair["moving"]))
+    sitk_io.write_med_img(os.path.join(atlas, "annotation.mhd"),
+                          sitk_io.MedImage(pair["labels"]))
+    return sample, atlas
+
+
+def stage_rates(levels):
+    """Optimiser steps per second of each stage, over its levels."""
+    out = {}
+    for row in levels:
+        steps, secs = out.get(row["kind"], (0, 0.0))
+        out[row["kind"]] = (steps + row["iters"], secs + row["seconds"])
+    return {k: {"steps": n, "seconds": s, "steps_per_s": n / s}
+            for k, (n, s) in out.items()}
+
+
+def register_path(torch, pair, work, launches):
+    """``--register single`` through the port's CLI on the card with the
+    default atlas profile, on the gauntlet pair; fails unless the four
+    outputs are written and the atlas overlaps the sample better than
+    before registration."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch.atlas import gauntlet, metrics
+    from magellanmapper_torch.io import cli, sitk_io
+
+    unreg = metrics.measure_overlap(pair["fixed"], pair["moving"])
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        sample, atlas = write_register_inputs(pair, tmp)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev_mod.reset_launches()
+        t0 = time.perf_counter()
+        out = cli.main(["--img", sample, atlas, "--register", "single",
+                        "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["register"] = dict(dev_mod.LAUNCHES)
+        peak_mem = torch.cuda.max_memory_allocated()
+        names = {k: os.path.join(tmp, f"sample_{k}") for k in (
+            "exp.mhd", "atlasVolume.mhd", "annotation.mhd", "stats.csv")}
+        missing = [k for k, p in names.items() if not os.path.isfile(p)]
+        if missing:
+            fail(f"--register single wrote no {missing}")
+        with open(names["stats.csv"]) as f:
+            stats = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
+        labels = sitk_io.read_med_img(names["annotation.mhd"]).img
+    lt = gauntlet.label_transfer_dsc(labels, pair["labels_fixed_gt"])
+    result = out["transform"]
+    print(f"register: launches {launches['register']}", flush=True)
+    for row in result.levels:
+        print(f"register level: {json.dumps(row)}", flush=True)
+    print("register: " + json.dumps({
+        "wall_s": wall, "DSC_atlas_sample": stats["DSC_atlas_sample"],
+        "DSC_sample_labels": stats["DSC_sample_labels"],
+        "Time_s": stats["Time_s"], "unregistered_dsc": unreg,
+        "label_dsc_median": lt["median"], "label_dsc_min": lt["min"],
+        "label_dsc_p10": lt["p10"], "stages": stage_rates(result.levels),
+        "peak_device_mib": peak_mem / 2**20}), flush=True)
+    if not stats["DSC_atlas_sample"] > unreg:
+        fail(f"registration did not improve the overlap: "
+             f"{stats['DSC_atlas_sample']} <= unregistered {unreg}")
+
+
+def gauntlet_path(pair):
+    """``run_gauntlet`` on the pair, on the card, with the reference's
+    smoothing schedule; fails below the reference's hard gates (dsc 0.95,
+    label median 0.90)."""
+    from magellanmapper_torch.atlas import gauntlet
+
+    res = gauntlet.run_gauntlet(pair, device="cuda")
+    print("gauntlet: " + json.dumps(res), flush=True)
+    if res["dsc"] < 0.95 or res["label_dsc_median"] < 0.90:
+        fail(f"gauntlet below its gates: dsc {res['dsc']}, label median "
+             f"{res['label_dsc_median']}")
+    print(f"gauntlet: passes {res['passes']}", flush=True)
+
+
+def register_crop():
+    """``register_duo`` on a small pair (every stride 1, no jitter) on the
+    card and on the CPU; fails if the parameters differ beyond
+    ``REG_CROP_ATOL`` or the order-0 labels in more than 0.1% of
+    voxels."""
+    from magellanmapper_torch.atlas import gauntlet, reg_engine
+    from magellanmapper_torch.settings.atlas_prof import AtlasProfile
+
+    pair = gauntlet.build_pair(REG_CROP, seed=SEED, device="cpu",
+                               ffd_spacing=16.0, ffd_ctrl_sigma=3.0)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        _, res = reg_engine.register_duo(
+            pair["fixed"], pair["moving"], AtlasProfile(),
+            iters_scale=REG_CROP_ITERS, device=dev)
+        runs[dev] = (res, time.perf_counter() - t0)
+    (card, t_card), (cpu, t_cpu) = runs["cuda"], runs["cpu"]
+    worst = {}
+    for (kind, a), (_, b) in zip(card.stages_numpy(), cpu.stages_numpy()):
+        for k in a:
+            err = float(np.abs(a[k] - b[k]).max())
+            worst[f"{kind}.{k}"] = err
+            if err > REG_CROP_ATOL[k]:
+                fail(f"register crop: {kind} {k} differs by {err} between "
+                     "the card and the CPU")
+    labels = [r.transform_img(pair["labels"], order=0) for r in (card, cpu)]
+    frac = float(np.mean(labels[0] != labels[1]))
+    print(f"register crop {REG_CROP}: card {t_card:.2f} s, CPU "
+          f"{t_cpu:.2f} s; max param diffs {worst}; label voxels differing "
+          f"{frac:.6f}; dsc card {card.metrics['dsc_fixed_moved']:.5f} CPU "
+          f"{cpu.metrics['dsc_fixed_moved']:.5f}", flush=True)
+    if frac > 1e-3:
+        fail(f"register crop: {frac:.4%} of label voxels differ")
+
+
+def detect_blobs_crop(torch, crop, launches):
+    """``cv.detector.detect_blobs`` on an anisotropic crop at resolutions
+    (2, 1, 1) with ``isotropic`` set, on the card and on the CPU."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.cv import detector, stack_detect as sd
+
+    prof = sd.roi_profile("lightsheet")
+    prof["isotropic"] = (1.0, 1.0, 1.0)
+    dev_mod.reset_launches()
+    t0 = time.perf_counter()
+    on_card = detector.detect_blobs(crop, prof, DETECT_RES, preprocess=True,
+                                    device="cuda")
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    launches["detect_blobs"] = dict(dev_mod.LAUNCHES)
+    on_cpu = detector.detect_blobs(crop, prof, DETECT_RES, preprocess=True,
+                                   device="cpu")
+    print(f"detect_blobs {crop.shape} at {DETECT_RES}, isotropic: "
+          f"{0 if on_card is None else len(on_card)} blobs on the card "
+          f"({t_card:.2f} s), {0 if on_cpu is None else len(on_cpu)} on the "
+          f"CPU; launches {launches['detect_blobs']}", flush=True)
+    if on_card is None or not testing.rows_equal(on_card, on_cpu):
+        fail("detect_blobs: the card's blobs differ from the CPU's")
+
+
 def main() -> None:
     try:
         import torch
@@ -723,25 +898,46 @@ def main() -> None:
           f"({t_cpu:.2f} s)", flush=True)
     if not testing.rows_equal(on_card, on_cpu):
         fail("the crop's blobs on the card differ from the CPU's")
+    det_crop = np.ascontiguousarray(vol[:DETECT_CROP[0], :DETECT_CROP[1],
+                                        :DETECT_CROP[2]])
     del vol
 
     # 5. the grid search through the port's CLI, its crop, the tap route
     os.makedirs(work, exist_ok=True)
     grid_search_path(torch, grid_roi, grid_centres, work, results, launches)
     check_taps(torch, grid_sigmas)
+    del grid_roi
+    torch.cuda.empty_cache()
+
+    # 6. registration: the task through the CLI, the gauntlet, the crop
+    from magellanmapper_torch.atlas import gauntlet
+    t0 = time.perf_counter()
+    pair = gauntlet.build_pair(REG_SHAPE, seed=SEED, device="cuda")
+    print(f"gauntlet pair {REG_SHAPE}: built in "
+          f"{time.perf_counter() - t0:.1f} s; ground-truth displacement "
+          f"{json.dumps(pair['gt']['disp_stats'])}", flush=True)
+    register_path(torch, pair, work, launches)
+    gauntlet_path(pair)
+    del pair
+    register_crop()
+
+    # 7. detect_blobs, card against CPU
+    detect_blobs_crop(torch, det_crop, launches)
 
     for name in results:
         n = sum(path[name] for path in launches.values())
         if n <= 0:
             fail(f"kernel {name} was launched on no path")
         results[name]["launches"] = n
+        results[name]["launches_by_path"] = {
+            path: counts[name] for path, counts in launches.items()}
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "magellanmapper_tpu"))
     if loaded:
         fail(f"the port must run without jax and the reference package, "
              f"but these were imported: {loaded[:10]}")
 
-    # 6. results
+    # 8. results
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,14 +6,17 @@ through each kernel's plain PyTorch version). Layout mirrors the
 reference so each counterpart is easy to find:
 
 - ``ops/``      device primitives: separable filters and the LoG pyramid,
-                preprocessing, peak finding and blob pruning.
+                preprocessing, resampling, peak finding and blob pruning.
 - ``kernels/``  hand-written CUDA kernels (sources in ``csrc/``), each with
                 its plain PyTorch twin and a launch counter.
-- ``cv/``       detection: single-block ``blob_log`` and whole-stack block
-                detection.
+- ``cv/``       detection: single-block ``blob_log``/``detect_blobs`` and
+                whole-stack block detection; label curation (``cv_nd``).
+- ``atlas/``    registration: transforms, metrics, the Adam engine, the
+                ``--register single`` task and its gauntlet fixture.
 - ``io/``       the command-line entry (``--proc detect``,
-                ``--grid_search``), image, blob-archive and database I/O.
-- ``settings/`` ROI and grid-search profiles.
+                ``--grid_search``, ``--register``), image, medical-image,
+                blob-archive and database I/O.
+- ``settings/`` ROI, grid-search and atlas profiles.
 - ``stats/``    the detection grid search.
 - ``utils/``    path helpers.
 - ``testing``   seeded planted-nuclei volumes and result checks.
@@ -21,10 +24,10 @@ reference so each counterpart is easy to find:
 The package stands alone: it imports nothing of ``magellanmapper_tpu``
 and never imports jax. The host-side code it shares with the reference
 (profiles, ``cv.blobs``, ``cv.chunking``, ``cv.verifier``, ``io.np_io``,
-``io.sqlite``, path helpers) is copied here under the reference's module
-names, keeping its behaviour and file formats. Every entry point that
-takes a ``device`` runs on the card unless ``"cpu"`` is asked for, and
-raises without a card.
+``io.sitk_io``, ``io.sqlite``, path helpers) is copied here under the
+reference's module names, keeping its behaviour and file formats. Every
+entry point that takes a ``device`` runs on the card unless ``"cpu"`` is
+asked for, and raises without a card.
 """
 
 from magellanmapper_torch import device  # noqa: F401  (fp32 precision pins)

@@ -1,0 +1,3 @@
+"""Atlas registration: transforms, similarity metrics, the optimizer
+engine, the single-sample ``--register`` task and its synthetic
+ground-truthed fixture."""

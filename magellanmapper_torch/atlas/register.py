@@ -1,0 +1,278 @@
+"""Single-sample atlas registration, the ``--register single`` task, on
+PyTorch.
+
+Port of ``magellanmapper_tpu/atlas/register.py:35-294``: load the fixed
+sample and the moving atlas with its labels, register through
+:func:`reg_engine.register_duo` (translation -> affine -> B-spline), retry
+with the profile's fallback metric when the overlap is poor, carry the
+labels over at order 0, curate them (carve to the sample's foreground,
+in-paint its unlabeled voxels), and write ``exp``, ``atlasVolume`` and
+``annotation`` ``.mhd`` images with a stats CSV beside the sample, as the
+reference does. ``register_rev`` swaps the roles.
+
+Not ported yet: ``register_group`` and the volume statistics
+(ROADMAP queue item 8).
+"""
+
+from __future__ import annotations
+
+import copy
+import logging
+import os
+import time
+from enum import Enum
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import pandas as pd
+
+from magellanmapper_torch import device as device_mod
+from magellanmapper_torch.atlas import atlas_refiner, reg_engine
+from magellanmapper_torch.atlas import metrics as reg_metrics
+from magellanmapper_torch.cv import cv_nd
+from magellanmapper_torch.io import np_io, sitk_io
+
+_logger = logging.getLogger(__name__)
+
+register_duo = reg_engine.register_duo
+
+
+class RegNames(Enum):
+    """Registered-image suffix vocabulary (reference ``config.RegNames``)."""
+    IMG_ATLAS = "atlasVolume.mhd"
+    IMG_ATLAS_PRECUR = "atlasVolumePrecur.mhd"
+    IMG_LABELS = "annotation.mhd"
+    IMG_EXP = "exp.mhd"
+    IMG_EXP_MASK = "expMask.mhd"
+    IMG_GROUPED = "grouped.mhd"
+    IMG_BORDERS = "borders.mhd"
+    IMG_HEAT_MAP = "heat.mhd"
+    IMG_HEAT_COLOC = "heatColoc.mhd"
+    IMG_ATLAS_EDGE = "atlasEdge.mhd"
+    IMG_ATLAS_LOG = "atlasLoG.mhd"
+    IMG_ATLAS_MASK = "atlasMask.mhd"
+    IMG_LABELS_PRECUR = "annotationPrecur.mhd"
+    IMG_LABELS_TRUNC = "annotationTrunc.mhd"
+    IMG_LABELS_EDGE = "annotationEdge.mhd"
+    IMG_LABELS_DIST = "annotationDist.mhd"
+    IMG_LABELS_MARKERS = "annotationMarkers.mhd"
+    IMG_LABELS_INTERIOR = "annotationInterior.mhd"
+    IMG_LABELS_SUBSEG = "annotationSubseg.mhd"
+    IMG_LABELS_DIFF = "annotationDiff.mhd"
+    IMG_LABELS_LEVEL = "annotationLevel{}.mhd"
+    IMG_LABELS_TRANS = "annotationTrans.mhd"
+    COMBINED = "combined.mhd"
+
+
+def curate_img(
+        fixed_img: np.ndarray, labels_img: np.ndarray,
+        imgs: Optional[Sequence[np.ndarray]] = None,
+        inpaint: bool = True, carve: bool = True,
+        thresh: Optional[float] = None, holes_area: int = 5000,
+        device="cuda"):
+    """Carve transferred images to the fixed image's foreground and
+    in-paint its unlabeled foreground from the nearest label."""
+    out_imgs = [labels_img] if imgs is None else [labels_img, *imgs]
+    result = []
+    mask = None
+    if carve:
+        _, mask = cv_nd.carve(
+            np.asarray(fixed_img, np.float32), thresh=thresh,
+            holes_area=holes_area, device=device)
+    for img in out_imgs:
+        img = np.array(img)
+        if mask is not None:
+            if inpaint:
+                to_fill = mask & (labels_img == 0)
+                if np.any(to_fill) and np.any(labels_img != 0):
+                    img = cv_nd.in_paint(img, to_fill, device=device)
+            img[~mask] = 0
+        result.append(img)
+    return result if imgs is not None else result[0]
+
+
+def load_elastix_points(path: str) -> np.ndarray:
+    """An Elastix point-set file as an ``(N, 3)`` z,y,x array: a
+    ``point``/``index`` header line, the point count, then one ``x y z``
+    triple a line."""
+    with open(path) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    start = 0
+    if lines and lines[0].lower() in ("point", "index"):
+        start = 2 if len(lines) > 1 and lines[1].isdigit() else 1
+    pts = np.asarray(
+        [[float(v) for v in ln.split()] for ln in lines[start:]],
+        np.float32)
+    return pts[:, ::-1]  # x,y,z -> z,y,x
+
+
+def register(
+        fixed_path_or_img, moving_dir_or_imgs, profile,
+        resolutions: Optional[Sequence[float]] = None,
+        write_imgs: bool = True, prefix: Optional[str] = None,
+        iters_scale: float = 1.0, channel: int = 0,
+        reg_suffixes: Optional[Dict[str, str]] = None,
+        fixed_mask: Optional[np.ndarray] = None,
+        moving_mask: Optional[np.ndarray] = None,
+        checkpoint_dir: Optional[str] = None, mesh=None,
+        device="cuda") -> Dict:
+    """Register a moving atlas onto a fixed sample image on ``device``.
+
+    Args:
+        fixed_path_or_img: path to a ``.npy`` or medical image, or ndarray.
+        moving_dir_or_imgs: atlas directory holding ``atlasVolume`` and
+            ``annotation`` (names from ``reg_suffixes``), or a dict with
+            ``atlas`` and ``labels`` arrays.
+        profile: :class:`AtlasProfile` with the ``reg_*`` stages,
+            ``metric_sim_fallback`` and ``curate``.
+        resolutions: fixed image z,y,x spacing (read from the image when a
+            path is given).
+        write_imgs: write the registered images and the stats CSV.
+        prefix: output path prefix (defaults to the fixed path).
+        iters_scale: iteration multiplier.
+        channel: channel of the fixed image to register against.
+        reg_suffixes: ``atlas``/``annotation`` names in the atlas
+            directory, ``fixed_mask``/``moving_mask`` suffixes of masks
+            beside the fixed image.
+
+    Returns:
+        dict with ``moved_atlas``, ``moved_labels``, ``transform``
+        (:class:`reg_engine.RegResult`), ``metrics`` and, when written,
+        ``paths``.
+    """
+    dev = device_mod.resolve(device)
+    start = time.time()
+    if isinstance(fixed_path_or_img, np.ndarray):
+        fixed = fixed_path_or_img
+        fixed_path = prefix or "sample"
+    else:
+        fixed_path = fixed_path_or_img
+        if fixed_path.lower().endswith(sitk_io.EXTS_3D):
+            med = sitk_io.read_med_img(fixed_path)
+            fixed = med.img
+            resolutions = resolutions or med.spacing
+        else:
+            img5d = np_io.read_file(fixed_path)
+            vol = img5d.img[0]
+            fixed = np.asarray(vol[..., channel] if vol.ndim > 3 else vol)
+            if resolutions is None and img5d.resolutions is not None:
+                resolutions = img5d.resolutions[0]
+    fixed = np.asarray(fixed, np.float32)
+
+    if isinstance(moving_dir_or_imgs, dict):
+        moving_atlas = np.asarray(moving_dir_or_imgs["atlas"], np.float32)
+        moving_labels = np.asarray(moving_dir_or_imgs["labels"])
+    else:
+        atlas_name = (reg_suffixes or {}).get("atlas", "atlasVolume")
+        labels_name = (reg_suffixes or {}).get("annotation", "annotation")
+        atlas_name = os.path.splitext(atlas_name)[0]
+        labels_name = os.path.splitext(labels_name)[0]
+        moving_atlas = sitk_io.read_med_img(sitk_io.find_sitk_file(
+            os.path.join(moving_dir_or_imgs, atlas_name))).img.astype(
+            np.float32)
+        moving_labels = sitk_io.read_med_img(sitk_io.find_sitk_file(
+            os.path.join(moving_dir_or_imgs, labels_name))).img
+
+    if isinstance(fixed_path_or_img, str):
+        sfx = reg_suffixes or {}
+        if fixed_mask is None and sfx.get("fixed_mask"):
+            fixed_mask = sitk_io.load_registered_img(
+                prefix or fixed_path, sfx["fixed_mask"])
+        if moving_mask is None and sfx.get("moving_mask"):
+            moving_mask = sitk_io.load_registered_img(
+                prefix or fixed_path, sfx["moving_mask"])
+
+    # corresponding landmarks beside the fixed image when a stage is
+    # point-based (fix_pts.txt / mov_pts.txt)
+    fix_pts = mov_pts = None
+    point_based = any(
+        (profile[k] or {}).get("point_based")
+        for k in ("reg_translation", "reg_affine", "reg_bspline"))
+    if point_based and isinstance(fixed_path_or_img, str):
+        pts_dir = os.path.dirname(os.path.abspath(fixed_path))
+        fp = os.path.join(pts_dir, "fix_pts.txt")
+        mp = os.path.join(pts_dir, "mov_pts.txt")
+        if os.path.isfile(fp) and os.path.isfile(mp):
+            fix_pts = load_elastix_points(fp)
+            mov_pts = load_elastix_points(mp)
+            _logger.info(
+                "loaded %d corresponding points from %s / %s",
+                len(fix_pts), fp, mp)
+
+    duo = dict(iters_scale=iters_scale, fixed_mask=fixed_mask,
+               moving_mask=moving_mask, fix_pts=fix_pts, mov_pts=mov_pts,
+               checkpoint_dir=checkpoint_dir, mesh=mesh, device=dev)
+    moved, result = reg_engine.register_duo(
+        fixed, moving_atlas, profile, **duo)
+    dsc = reg_metrics.measure_overlap(fixed, moved, device=dev)
+
+    fallback = profile["metric_sim_fallback"]
+    if fallback and dsc < fallback[0]:
+        _logger.info(
+            "DSC %.3f below threshold %.3f; retrying with metric %s",
+            dsc, fallback[0], fallback[1])
+        prof2 = copy.deepcopy(dict(profile))
+        for stage_key in ("reg_translation", "reg_affine", "reg_bspline"):
+            if prof2.get(stage_key):
+                prof2[stage_key] = dict(prof2[stage_key])
+                prof2[stage_key]["metric_similarity"] = fallback[1]
+        moved2, result2 = reg_engine.register_duo(
+            fixed, moving_atlas, prof2, **duo)
+        dsc2 = reg_metrics.measure_overlap(fixed, moved2, device=dev)
+        if dsc2 > dsc:
+            moved, result, dsc = moved2, result2, dsc2
+
+    # label transfer at order 0 (Transformix), then curation
+    moved_labels = result.transform_img(moving_labels, order=0)
+    if profile["curate"]:
+        moved_labels = curate_img(fixed, moved_labels, device=dev)
+    dsc_sample_labels = atlas_refiner.measure_overlap_combined_labels(
+        fixed, moved_labels, device=dev)
+
+    elapsed = time.time() - start
+    metrics = {
+        "DSC_atlas_sample": dsc,
+        "DSC_sample_labels": dsc_sample_labels,
+        "Time_s": elapsed,
+    }
+    out = {
+        "moved_atlas": moved,
+        "moved_labels": moved_labels,
+        "transform": result,
+        "metrics": metrics,
+    }
+    if write_imgs:
+        base = prefix or fixed_path
+        spacing = tuple(resolutions) if resolutions is not None else (
+            1.0, 1.0, 1.0)
+        paths = sitk_io.write_reg_images({
+            RegNames.IMG_EXP.value: sitk_io.MedImage(fixed, spacing),
+            RegNames.IMG_ATLAS.value: sitk_io.MedImage(
+                moved.astype(np.float32), spacing),
+            RegNames.IMG_LABELS.value: sitk_io.MedImage(
+                moved_labels.astype(np.int32), spacing),
+        }, base)
+        csv_path = sitk_io.reg_out_path(base, "stats") + ".csv"
+        pd.DataFrame([metrics]).to_csv(csv_path, index=False)
+        paths["stats"] = csv_path
+        out["paths"] = paths
+    _logger.info("Single registration done in %.1fs, DSC %.3f", elapsed, dsc)
+    return out
+
+
+def register_rev(
+        fixed_path_or_img, moving_dir_or_imgs, profile, **kwargs) -> Dict:
+    """Reverse registration: the sample onto the atlas, with the same
+    engine and the roles swapped."""
+    if isinstance(moving_dir_or_imgs, dict):
+        atlas = moving_dir_or_imgs["atlas"]
+    else:
+        atlas = sitk_io.read_med_img(sitk_io.find_sitk_file(
+            os.path.join(moving_dir_or_imgs, "atlasVolume"))).img
+    return register(
+        np.asarray(atlas, np.float32),
+        {"atlas": np.asarray(fixed_path_or_img, np.float32)
+         if isinstance(fixed_path_or_img, np.ndarray)
+         else np_io.read_file(fixed_path_or_img).img[0],
+         "labels": np.zeros_like(np.asarray(atlas))},
+        profile, **kwargs)

@@ -119,6 +119,12 @@ class Blobs:
             blobs[..., REL_COORD_SLICE] * factor)
         return blobs
 
+    @staticmethod
+    def multiply_blob_abs_coords(blobs: np.ndarray, factor) -> np.ndarray:
+        blobs[..., ABS_COORD_SLICE] = (
+            blobs[..., ABS_COORD_SLICE] * factor)
+        return blobs
+
     def format_blobs(self, channel=None) -> np.ndarray:
         """Extend ``z,y,x,radius[,...]`` rows to the full column set.
 
@@ -159,3 +165,13 @@ class Blobs:
 
     def __len__(self) -> int:
         return 0 if self.blobs is None else len(self.blobs)
+
+
+def get_blobs_interior(
+        blobs: np.ndarray, shape: Sequence[int],
+        pad_start: Sequence[int], pad_end: Sequence[int]) -> np.ndarray:
+    """Blobs inside the region interior after padding in z,y,x."""
+    coords = blobs[:, :3]
+    lo = np.asarray(pad_start)
+    hi = np.asarray(shape) - np.asarray(pad_end)
+    return blobs[np.all((coords >= lo) & (coords < hi), axis=1)]

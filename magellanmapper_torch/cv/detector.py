@@ -5,18 +5,22 @@ copied, and :func:`blob_log` runs the LoG
 pyramid (fp32 GEMMs), peak finding (kernel K1) and sphere-overlap
 pruning (kernel K3) on the device of its input. :func:`blob_log_multi`
 runs a threshold sweep on one pyramid through the unfused peak route
-(kernel K2), then K3 per threshold.
+(kernel K2), then K3 per threshold. :func:`detect_blobs` is the
+reference's single-block entry: isotropic resample, unmixing and
+preprocessing around :func:`blob_log`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
-from magellanmapper_torch.ops import filters, peaks
+from magellanmapper_torch.ops import filters, peaks, preproc, resize
 
 #: overlap factor for block halos (reference ``detector.py:41``).
 OVERLAP_FACTOR = 5
@@ -106,6 +110,91 @@ def blob_log_multi(
         rows.append(torch.cat([coords, sig[:, None]], dim=1))
         valids.append(valid)
     return torch.stack(rows), torch.stack(valids)
+
+
+def detect_blobs(
+        roi: np.ndarray, settings, resolutions: Sequence[float],
+        channel: Optional[Sequence[int]] = None,
+        exclude_border: Optional[Sequence[int]] = None,
+        near_max: Optional[Sequence[float]] = None,
+        preprocess: bool = False, channel_settings=None,
+        device="cuda") -> Optional[np.ndarray]:
+    """Detect blobs in one ``(Z, Y, X[, C])`` block on ``device``
+    (``detector.py:173-273``): an optional isotropic resample, spectral
+    unmixing, per-channel saturate and denoise with ``preprocess``, then
+    :func:`blob_log`; rows come back in the block's anisotropic voxels as
+    the ``N x 10`` array of :class:`blobs_mod.Blobs`, or None when nothing
+    was found. ``exclude_border`` drops blobs within that z,y,x padding of
+    the block's edges."""
+    dev = device_mod.resolve(device)
+    shape = roi.shape
+    multichannel = roi.ndim > 3
+    channels = (list(range(shape[3])) if multichannel else [0]) \
+        if channel is None else list(np.atleast_1d(channel))
+
+    def get_settings(chl):
+        if channel_settings is not None:
+            try:
+                return channel_settings[chl]
+            except (IndexError, KeyError, TypeError):
+                pass
+        return settings
+
+    vol = torch.from_numpy(np.array(roi, np.float32)).to(dev)
+    isotropic = get_settings(channels[0])["isotropic"]
+    iso_factor = None
+    if isotropic is not None:
+        iso_factor = resize.calc_isotropic_factor(isotropic, resolutions)
+        vol = resize.make_isotropic(vol, isotropic, resolutions)
+
+    scaling_factor = calc_scaling_factor(resolutions)[2]
+    blobs_all = []
+    for chl in channels:
+        roi_detect = vol[..., chl] if multichannel else vol
+        chl_set = get_settings(chl)
+        if str(chl_set["log_dtype"]).lower() == "bfloat16":
+            raise NotImplementedError(
+                "log_dtype='bfloat16' is not ported; use float32")
+        unmix = chl_set["spectral_unmixing"]
+        if unmix and chl in unmix:
+            for subt_chl, subt_fac in unmix[chl].items():
+                roi_detect = preproc.spectral_unmix(
+                    roi_detect, vol[..., subt_chl], subt_fac)
+        if preprocess:
+            nm = 1.0 if near_max is None else float(near_max[chl])
+            roi_detect = preproc.saturate(
+                roi_detect, chl_set["clip_vmin"], chl_set["clip_vmax"],
+                nm * chl_set["max_thresh_factor"])
+            roi_detect = preproc.denoise(
+                roi_detect, chl_set["clip_min"], chl_set["clip_max"],
+                chl_set["tot_var_denoise"], chl_set["unsharp_strength"],
+                chl_set["erosion_threshold"])
+        sigmas = tuple(sigma_list(
+            chl_set["min_sigma_factor"] * scaling_factor,
+            chl_set["max_sigma_factor"] * scaling_factor,
+            chl_set["num_sigma"]))
+        raw, valid, _ = blob_log(
+            roi_detect.contiguous(), sigmas,
+            float(chl_set["detection_threshold"]), float(chl_set["overlap"]),
+            int(chl_set["max_blobs_per_block"] or 4096))
+        raw = raw[valid].cpu().numpy()
+        if raw.shape[0] < 1:
+            continue
+        # radius = sigma * sqrt(3) (reference detector.py:257-258)
+        raw[:, 3] *= math.sqrt(3)
+        blobs_all.append(blobs_mod.Blobs(raw).format_blobs(chl))
+
+    if not blobs_all:
+        return None
+    out = np.vstack(blobs_all)
+    if iso_factor is not None:
+        # coordinates back into the block's anisotropic voxels
+        out = blobs_mod.Blobs.multiply_blob_rel_coords(out, 1 / iso_factor)
+        out = blobs_mod.Blobs.multiply_blob_abs_coords(out, 1 / iso_factor)
+    if exclude_border is not None:
+        out = blobs_mod.get_blobs_interior(
+            out, shape[:3], exclude_border, exclude_border)
+    return out
 
 
 def remove_close_blobs(

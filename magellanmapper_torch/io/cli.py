@@ -1,10 +1,21 @@
-"""Command-line entry of the port: blob detection and its grid search.
+"""Command-line entry of the port: blob detection, its grid search, and
+single-sample atlas registration.
 
 ``python -m magellanmapper_torch.io.cli --img vol.npy --proc detect
 --roi_profile lightsheet [--device cuda]`` runs the port's
 :func:`~magellanmapper_torch.cv.stack_detect.detect_blobs_stack` and
 writes ``blobs.npz`` and ``stack_detection_times.csv`` next to the image
 as the reference's ``--proc detect`` task does.
+
+``python -m magellanmapper_torch.io.cli --img fixed.npy atlas_dir
+--register single [--atlas_profile ncc,nobspline]`` registers the atlas
+directory's ``atlasVolume``/``annotation`` images onto the fixed sample
+(:func:`~magellanmapper_torch.atlas.register.register`) and writes the
+``exp``, ``atlasVolume`` and ``annotation`` ``.mhd`` images and a stats
+CSV beside it (or at ``--prefix``); ``--register register_rev`` registers
+the sample onto the atlas instead. ``--reg_suffixes atlas=...
+annotation=...`` names other images of the atlas directory. As in the
+reference, ``--register`` takes precedence over every other task.
 
 ``python -m magellanmapper_torch.io.cli --img roi.npy --grid_search
 gridtest --roi_profile 4xnuc --truth_db truth.db`` runs the named
@@ -16,11 +27,13 @@ reference, ``--grid_search`` takes precedence over ``--proc``.
 
 The parser takes the reference's flag names
 (``magellanmapper_tpu/io/cli.py:124-194``) for what the port accepts:
-``--img``, ``--proc detect``, ``--roi_profile`` (one per channel),
-``--channel``, ``--series``, ``--prefix``, ``--subimg_offset``/
-``--subimg_size``, ``--set_meta resolutions=z,y,x``, ``--grid_search``,
-``--truth_db`` (only with ``--grid_search``) and ``--device``. Any other
-flag or task is rejected with a message that names it.
+``--img``, ``--proc detect``, ``--register single|register_rev``,
+``--roi_profile`` (one per channel), ``--atlas_profile``,
+``--reg_suffixes``, ``--channel``, ``--series``, ``--prefix``,
+``--subimg_offset``/``--subimg_size``, ``--set_meta resolutions=z,y,x``,
+``--grid_search``, ``--truth_db`` (only with ``--grid_search``) and
+``--device``. Any other flag or task is rejected with a message that
+names it.
 
 ``--device`` picks where the device step runs: ``cuda`` (the default)
 fails without a card, and the CPU, which runs the kernels' plain
@@ -33,14 +46,17 @@ import argparse
 import logging
 import os
 from dataclasses import dataclass, field
+from enum import Enum, auto
 from typing import Dict, List, Optional, Sequence, Union
 
 import pandas as pd
 
 from magellanmapper_torch import device as device_mod
+from magellanmapper_torch.atlas import register as register_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.cv import stack_detect
 from magellanmapper_torch.io import np_io
+from magellanmapper_torch.settings.atlas_prof import AtlasProfile
 from magellanmapper_torch.settings.roi_prof import ROIProfile
 from magellanmapper_torch.stats import mlearn
 from magellanmapper_torch.utils import libmag
@@ -49,6 +65,54 @@ _logger = logging.getLogger(__name__)
 
 #: ``--proc`` tasks the port runs
 TASKS = ("detect",)
+
+
+class RegisterTypes(Enum):
+    """The ``--register`` task names (copy of the reference's
+    ``settings.config.RegisterTypes``)."""
+    SINGLE = auto()
+    GROUP = auto()
+    REGISTER_REV = auto()
+    OVERLAYS = auto()
+    EXPORT_REGIONS = auto()
+    NEW_ATLAS = auto()
+    IMPORT_ATLAS = auto()
+    EXPORT_COMMON_LABELS = auto()
+    CONVERT_ITKSNAP_LABELS = auto()
+    MAKE_EDGE_IMAGES = auto()
+    MAKE_EDGE_IMAGES_EXP = auto()
+    MERGE_ATLAS_SEGS = auto()
+    VOL_STATS = auto()
+    VOL_COMPARE = auto()
+    MAKE_DENSITY_IMAGES = auto()
+    MERGE_ATLAS_SEGS_EXP = auto()
+    MAKE_SUBSEGS = auto()
+    EXPORT_METRICS_COMPACTNESS = auto()
+    PLOT_SMOOTHING_METRICS = auto()
+    SMOOTHING_PEAKS = auto()
+    SMOOTHING_METRICS_AGGR = auto()
+    MERGE_IMAGES = auto()
+    MERGE_IMAGES_CHANNELS = auto()
+    LABELS_DIFF = auto()
+    LABELS_DIFF_STATS = auto()
+    MAKE_LABELS_LEVEL = auto()
+    COMBINE_COLS = auto()
+    ZSCORES = auto()
+    COEFVAR = auto()
+    MELT_COLS = auto()
+    PLOT_REGION_DEV = auto()
+    PLOT_LATERAL_UNLABELED = auto()
+    PLOT_INTENS_NUC = auto()
+    PIVOT_CONDS = auto()
+    MEAS_IMPROVEMENT = auto()
+    CLUSTER_BLOBS = auto()
+    PLOT_KNNS = auto()
+    PLOT_CLUSTER_BLOBS = auto()
+    LABELS_DIST = auto()
+
+
+#: ``--register`` tasks the port runs
+REGISTER_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 
 
 @dataclass
@@ -70,6 +134,9 @@ class RunConfig:
     truth_db: Optional[str] = None
     prefix: Optional[str] = None
     grid_search: Optional[str] = None
+    register_type: Optional[RegisterTypes] = None
+    atlas_profile: AtlasProfile = field(default_factory=AtlasProfile)
+    reg_suffixes: Dict[str, str] = field(default_factory=dict)
     device: str = "cuda"
 
 
@@ -97,7 +164,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--subimg_size", nargs="*", help="sub-image size x,y,z")
     p.add_argument("--truth_db", nargs="*", help="truth DB mode and path")
     p.add_argument("--proc", nargs="*", help="processing task: detect")
+    p.add_argument("--register",
+                   help="registration task: single or register_rev")
     p.add_argument("--roi_profile", nargs="*", help="ROI profile(s)")
+    p.add_argument("--atlas_profile", help="atlas profile")
+    p.add_argument("--reg_suffixes", nargs="*",
+                   help="registered image suffixes (atlas=..., "
+                   "annotation=...)")
     p.add_argument("--grid_search", help="grid search profile")
     p.add_argument("--set_meta", nargs="*",
                    help="metadata overrides (resolutions=z,y,x)")
@@ -114,9 +187,9 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
     if unknown:
         raise SystemExit(
             "magellanmapper_torch does not take "
-            f"{' '.join(flags or unknown)}; it supports only --proc detect "
-            "and --grid_search so far (use magellanmapper_tpu.io.cli for "
-            "other tasks)")
+            f"{' '.join(flags or unknown)}; it supports only --proc detect, "
+            "--grid_search and --register single/register_rev so far (use "
+            "magellanmapper_tpu.io.cli for other tasks)")
     rc = RunConfig(device=args.device)
     if args.img:
         rc.filenames = list(args.img)
@@ -141,19 +214,36 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
         rc.roi_profiles.append(prof)
     if rc.roi_profiles:
         rc.roi_profile = rc.roi_profiles[0]
+    if args.atlas_profile:
+        rc.atlas_profile = AtlasProfile()
+        rc.atlas_profile.add_profiles(args.atlas_profile)
+    rc.reg_suffixes = args_to_dict(args.reg_suffixes)
     rc.grid_search = args.grid_search
     if args.proc:
         rc.proc = args.proc[0].lower()
         rc.proc_args = args_to_dict(args.proc[1:])
     if args.truth_db:
         rc.truth_db = args.truth_db[-1]
-    task = "--grid_search" if rc.grid_search else (
-        f"--proc {rc.proc}" if rc.proc else None)
-    if not rc.grid_search and rc.proc not in TASKS:
-        raise SystemExit(
-            "magellanmapper_torch supports only --proc detect and "
-            f"--grid_search so far (got {task}); use "
-            "magellanmapper_tpu.io.cli for other tasks")
+    if args.register:
+        task = f"--register {args.register}"
+        rc.register_type = RegisterTypes.__members__.get(
+            args.register.upper())
+        if rc.register_type not in REGISTER_TASKS:
+            raise SystemExit(
+                "magellanmapper_torch runs only --register single and "
+                f"--register register_rev so far (got {task}); use "
+                "magellanmapper_tpu.io.cli for other tasks")
+        if len(rc.filenames) < 2:
+            raise SystemExit(f"{task} needs --img <sample> <atlas_dir>")
+    else:
+        task = "--grid_search" if rc.grid_search else (
+            f"--proc {rc.proc}" if rc.proc else None)
+        if not rc.grid_search and rc.proc not in TASKS:
+            raise SystemExit(
+                "magellanmapper_torch supports only --proc detect, "
+                "--grid_search and --register single/register_rev so far "
+                f"(got {task}); use magellanmapper_tpu.io.cli for other "
+                "tasks")
     if rc.truth_db and not rc.grid_search:
         raise SystemExit(
             "magellanmapper_torch takes --truth_db only with --grid_search")
@@ -199,14 +289,32 @@ def detect(rc: RunConfig, device) -> blobs_mod.Blobs:
     return blobs
 
 
+def process_register(rc: RunConfig, device) -> Dict:
+    """The ``--register`` tasks (reference ``cli._process_register``):
+    ``single`` registers the atlas directory ``filenames[1]`` onto the
+    sample ``filenames[0]``, ``register_rev`` the sample onto the atlas."""
+    if rc.register_type is RegisterTypes.SINGLE:
+        return register_mod.register(
+            rc.filenames[0], rc.filenames[1], rc.atlas_profile,
+            prefix=rc.prefix, reg_suffixes=rc.reg_suffixes or None,
+            device=device)
+    return register_mod.register_rev(
+        rc.filenames[0], rc.filenames[1], rc.atlas_profile,
+        prefix=rc.prefix, device=device)
+
+
 def main(argv: Optional[Sequence[str]] = None
-         ) -> Union[blobs_mod.Blobs, pd.DataFrame]:
-    """CLI entry. Returns the detected blobs, or the grid search's
-    table."""
+         ) -> Union[blobs_mod.Blobs, pd.DataFrame, Dict]:
+    """CLI entry. Returns the detected blobs, the grid search's table, or
+    the registration's result."""
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
     rc = process_cli_args(argv)
     device = device_mod.resolve(rc.device)
+    if rc.register_type is not None:
+        _logger.info("--register %s on %s", rc.register_type.name.lower(),
+                     device)
+        return process_register(rc, device)
     if rc.grid_search:
         _logger.info("grid search %s on %s", rc.grid_search, device)
         return mlearn.grid_search_from_cli(rc, device)

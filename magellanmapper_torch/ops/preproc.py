@@ -1,7 +1,8 @@
 """ROI preprocessing for blob detection on PyTorch.
 
 Port of ``magellanmapper_tpu/ops/preproc.py`` (``saturate``, ``denoise``,
-``tv_chambolle``). Every function acts on the last three axes; leading
+``tv_chambolle``, ``otsu_threshold``, ``spectral_unmix``). ``saturate``,
+``denoise`` and ``tv_chambolle`` act on the last three axes; leading
 axes are a batch, so a stack of denoise tiles is preprocessed tile by
 tile in one call. Percentiles come from kernel K4
 (:mod:`magellanmapper_torch.kernels.tile_percentiles`), which computes
@@ -12,6 +13,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from magellanmapper_torch.kernels.tile_percentiles import tile_percentiles
@@ -102,3 +104,49 @@ def tv_chambolle(
         norm = torch.sqrt(torch.sum(g * g, dim=0, keepdim=True))
         p = (p + (tau / weight) * g) / (1.0 + (tau / weight) * norm)
     return img + weight * div(p)
+
+
+def _histogram(img: torch.Tensor, nbins: int):
+    """``(counts, lo, span)``: exact int64 counts of ``img``'s voxels in
+    ``nbins`` bins over ``[lo, lo + span]`` (the reference's bin index,
+    ``(x - lo) / span * nbins`` in float32, truncated and clipped), on
+    ``img``'s device."""
+    flat = img.reshape(-1).to(torch.float32)
+    lo, hi = torch.aminmax(flat)
+    span = torch.where(hi > lo, hi - lo, 1.0)
+    idx = torch.clamp(((flat - lo) / span * nbins).to(torch.int64),
+                      0, nbins - 1)
+    return torch.bincount(idx, minlength=nbins), lo, span
+
+
+def otsu_threshold(img: torch.Tensor, nbins: int = 256) -> np.float32:
+    """Otsu threshold of ``img`` from a ``nbins`` histogram over
+    ``[min, max]``, the reference's bin arithmetic in float32.
+
+    The voxels are counted on ``img``'s device by :func:`_histogram`; the
+    between-class variances of the ``nbins`` counts are then formed on the
+    host in float32, so the card and the CPU choose the same bin. The
+    reference counts with float32 additions, which stop at 2^24 in a bin
+    (ROADMAP §3); these counts are exact.
+    """
+    counts, lo_t, span_t = _histogram(img, nbins)
+    f32 = np.float32
+    counts = counts.cpu().numpy().astype(f32)
+    lo, span = f32(lo_t.item()), f32(span_t.item())
+    centers = lo + (np.arange(nbins, dtype=f32) + f32(0.5)) / f32(nbins) \
+        * span
+    w1 = np.cumsum(counts, dtype=f32)
+    w2 = w1[-1] - w1
+    s1 = np.cumsum(counts * centers, dtype=f32)
+    m1 = s1 / np.maximum(w1, f32(1))
+    m2 = (s1[-1] - s1) / np.maximum(w2, f32(1))
+    var_between = w1 * w2 * (m1 - m2) ** 2
+    var_between = np.where((w1 > 0) & (w2 > 0), var_between, -np.inf)
+    return centers[int(np.argmax(var_between))]
+
+
+def spectral_unmix(roi_chl: torch.Tensor, roi_subtract: torch.Tensor,
+                   factor: float) -> torch.Tensor:
+    """Subtract ``factor`` times another channel, clamped at zero
+    (``preproc.py:141-148``)."""
+    return torch.clamp_min(roi_chl - factor * roi_subtract, 0.0)

@@ -1,1 +1,1 @@
-"""Detection and grid-search settings profiles."""
+"""Detection, grid-search and atlas (registration) settings profiles."""

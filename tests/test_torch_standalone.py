@@ -1,7 +1,8 @@
 """The port's own copies of the reference's host-side code (profiles, blob
 model and archive, block geometry, verification, image and database I/O,
-the command line) against the reference, and the port's entry points
-asking for the card by default."""
+the command line) against the reference, the port's entry points asking
+for the card by default, and every command-line task in an interpreter
+without jax or the reference package."""
 
 import os
 import sqlite3
@@ -24,8 +25,9 @@ from magellanmapper_tpu.settings import grid_search_prof as ref_gs_prof
 from magellanmapper_tpu.settings import roi_prof as ref_roi_prof
 from magellanmapper_tpu.utils import libmag as ref_libmag
 from magellanmapper_torch import testing
+from magellanmapper_torch.atlas import gauntlet
 from magellanmapper_torch.cv import blobs, chunking, stack_detect, verifier
-from magellanmapper_torch.io import cli, np_io, sqlite, yaml_io
+from magellanmapper_torch.io import cli, np_io, sitk_io, sqlite, yaml_io
 from magellanmapper_torch.settings import grid_search_prof, roi_prof
 from magellanmapper_torch.stats import mlearn
 from magellanmapper_torch.utils import libmag
@@ -296,7 +298,7 @@ def test_cli_parses_as_the_reference(argv):
 
 
 @pytest.mark.parametrize("argv,named", [
-    (["--proc", "detect", "--register", "single"], "--register"),
+    (["--proc", "detect", "--register", "group"], "--register"),
     (["--proc", "detect", "--mesh", "1,1"], "--mesh"),
     (["--proc", "detect", "--save_subimg"], "--save_subimg"),
     (["--proc", "detect", "--df", "sum"], "--df"),
@@ -304,7 +306,7 @@ def test_cli_parses_as_the_reference(argv):
     (["--proc", "detect", "--notify", "x"], "--notify"),
     (["--proc", "export_planes"], "--proc export_planes"),
     (["--proc", "detect", "--truth_db", "t.db"], "--truth_db"),
-    (["--register", "single"], "--register"),
+    (["--register", "group"], "--register"),
 ])
 def test_cli_rejects_and_names_what_is_not_ported(argv, named):
     with pytest.raises(SystemExit) as err:
@@ -379,31 +381,48 @@ names = [m.name for m in pkgutil.walk_packages(
     magellanmapper_torch.__path__, "magellanmapper_torch.")]
 for name in names:
     importlib.import_module(name)
-img, truth = sys.argv[1:3]
+img, truth, fixed, atlas, prof = sys.argv[1:6]
 blobs = cli.main(["--img", img, "--proc", "detect", "--roi_profile",
                   "lightsheet", "--device", "cpu"])
 df = cli.main(["--img", img, "--grid_search", "gridtest", "--roi_profile",
                "4xnuc", "--truth_db", truth, "--device", "cpu"])
+reg = cli.main(["--img", fixed, atlas, "--register", "single",
+                "--atlas_profile", prof, "--device", "cpu"])
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "magellanmapper_tpu"))
 assert not loaded, loaded
-print(len(names), len(blobs), len(df))
+print(len(names), len(blobs), len(df), len(reg["paths"]))
 """
 
 
 def test_both_cli_tasks_run_without_the_reference(tmp_path):
-    """A fresh interpreter imports every port module and runs detection
-    and the grid search on the CPU; neither jax nor any module of the
-    reference package is loaded (conftest imports jax here)."""
+    """A fresh interpreter imports every port module and runs detection,
+    the grid search and ``--register single`` on the CPU; neither jax nor
+    any module of the reference package is loaded (conftest imports jax
+    here)."""
     roi, centres = testing.make_grid_roi((24, 48, 48), 0, spacing=12,
                                          jitter=2)
     img = str(tmp_path / "roi.npy")
     np.save(img, roi)
     truth = testing.write_truth_db(str(tmp_path / "truth.db"), centres,
                                    roi.shape)
+    pair = gauntlet.build_pair((20, 28, 28), seed=0, device="cpu",
+                               ffd_spacing=16.0, ffd_ctrl_sigma=3.0)
+    fixed = str(tmp_path / "fixed.npy")
+    np_io.write_npy(fixed, pair["fixed"])
+    atlas = tmp_path / "atlas"
+    atlas.mkdir()
+    for name, arr in (("atlasVolume", pair["moving"]),
+                      ("annotation", pair["labels"])):
+        sitk_io.write_med_img(str(atlas / f"{name}.mhd"),
+                              sitk_io.MedImage(arr))
+    prof = tmp_path / "atlas_short.yml"
+    prof.write_text("reg_translation:\n  max_iter: 16\nreg_affine:\n"
+                    "  max_iter: 8\nreg_bspline:\n  max_iter: 4\n")
     out = subprocess.run(
-        [sys.executable, "-c", _BOTH_TASKS_ALONE, img, truth],
+        [sys.executable, "-c", _BOTH_TASKS_ALONE, img, truth, fixed,
+         str(atlas), str(prof)],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    n_mods, n_blobs, n_rows = map(int, out.stdout.split()[-3:])
-    assert n_mods >= 30 and n_blobs > 0 and n_rows == 4
+    n_mods, n_blobs, n_rows, n_paths = map(int, out.stdout.split()[-4:])
+    assert n_mods >= 30 and n_blobs > 0 and n_rows == 4 and n_paths == 4

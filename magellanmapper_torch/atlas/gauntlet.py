@@ -25,6 +25,7 @@ import torch
 
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.atlas import metrics, reg_engine, transform
+from magellanmapper_torch.io import np_io, sitk_io
 from magellanmapper_torch.settings.atlas_prof import (
     AtlasProfile, make_reg_param_map)
 
@@ -178,38 +179,14 @@ def apply_modality_gap(
 
 
 def build_pair(shape: Sequence[int] = (160, 240, 200), seed: int = 0,
-               region_contrast: float = 0.6,
-               cache_dir: Optional[str] = None, device="cuda",
+               region_contrast: float = 0.6, device="cuda",
                **gt_kwargs) -> Dict:
     """Full gauntlet pair: ``moving`` (clean atlas intensity), ``labels``
     (its annotation), ``fixed`` (the ground-truth warp of the atlas with
     the modality gap), ``labels_fixed_gt`` (the annotation through the
     same warp at order 0, the label-transfer oracle) and ``gt`` (the
-    transform, numpy). The two warps run on ``device``. ``cache_dir``
-    caches the arrays on disk keyed by every parameter."""
+    transform, numpy). The two warps run on ``device``."""
     dev = device_mod.resolve(device)
-    cache_path = None
-    if cache_dir is not None:
-        key = "_".join(
-            [str(int(s)) for s in shape]
-            + [f"s{seed}", f"rc{region_contrast}"]
-            + [f"{k}={v}" for k, v in sorted(gt_kwargs.items())])
-        cache_path = os.path.join(cache_dir, f"gauntlet_{key}.npz")
-        if os.path.exists(cache_path):
-            z = np.load(cache_path)
-            gt = {"grid": z["grid"],
-                  "spacing": tuple(float(v) for v in z["spacing"]),
-                  "affine": {"W": z["aff_W"], "t": z["aff_t"]},
-                  "disp_stats": {
-                      k: float(v) for k, v in zip(
-                          ("mean_vox", "p95_vox", "max_vox"),
-                          z["disp_stats"])}}
-            return {"moving": z["moving"],
-                    "labels": z["labels"].astype(np.int32),
-                    "fixed": z["fixed"],
-                    "labels_fixed_gt":
-                        z["labels_fixed_gt"].astype(np.int32), "gt": gt}
-
     moving, labels = make_anatomy(
         shape, seed=seed, region_contrast=region_contrast)
     gt = make_ground_truth(shape, seed=seed + 1, device=dev, **gt_kwargs)
@@ -219,31 +196,18 @@ def build_pair(shape: Sequence[int] = (160, 240, 200), seed: int = 0,
     warped = warp.transform_img(moving, order=1)
     labels_fixed_gt = warp.transform_img(labels, order=0).astype(np.int32)
     fixed = apply_modality_gap(warped, seed=seed + 2)
-    if cache_path is not None:
-        os.makedirs(cache_dir, exist_ok=True)
-        np.savez(
-            cache_path, moving=moving,
-            labels=labels.astype(np.int16), fixed=fixed,
-            labels_fixed_gt=labels_fixed_gt.astype(np.int16),
-            grid=gt["grid"], spacing=np.asarray(gt["spacing"], np.float64),
-            aff_W=gt["affine"]["W"], aff_t=gt["affine"]["t"],
-            disp_stats=np.asarray(
-                [gt["disp_stats"]["mean_vox"], gt["disp_stats"]["p95_vox"],
-                 gt["disp_stats"]["max_vox"]], np.float64))
     return {"moving": moving, "labels": labels, "fixed": fixed,
             "labels_fixed_gt": labels_fixed_gt, "gt": gt}
 
 
 def build_truncated_pair(
         shape: Sequence[int] = (160, 240, 200), seed: int = 0,
-        keep_frac: float = 0.7, cache_dir: Optional[str] = None,
-        device="cuda", **gt_kwargs) -> Dict:
+        keep_frac: float = 0.7, device="cuda", **gt_kwargs) -> Dict:
     """Partial-overlap case: the specimen's posterior ``1 - keep_frac`` of
     z zeroed (and its annotation), a ``fixed_mask`` over the kept part,
     and ``gated_labels``, the regions the truncation kept at least half
     of."""
-    pair = build_pair(shape, seed=seed, cache_dir=cache_dir, device=device,
-                      **gt_kwargs)
+    pair = build_pair(shape, seed=seed, device=device, **gt_kwargs)
     shape = pair["fixed"].shape
     z_cut = int(shape[0] * keep_frac)
     fixed = np.array(pair["fixed"])
@@ -262,6 +226,22 @@ def build_truncated_pair(
     out.update(fixed=fixed, labels_fixed_gt=labels_gt, fixed_mask=mask,
                gated_labels=gated, keep_frac=float(keep_frac))
     return out
+
+
+def write_register_inputs(pair: Dict, where: str) -> Tuple[str, str]:
+    """The pair as the ``--register single`` task reads it, under
+    ``where``: the fixed image as ``sample.npy`` (an image5d with its
+    metadata) and the atlas as an ``atlasVolume.mhd``/``annotation.mhd``
+    directory. Returns ``(sample_path, atlas_dir)``."""
+    sample = os.path.join(where, "sample.npy")
+    np_io.write_npy(sample, pair["fixed"])
+    atlas = os.path.join(where, "atlas")
+    os.makedirs(atlas)
+    sitk_io.write_med_img(os.path.join(atlas, "atlasVolume.mhd"),
+                          sitk_io.MedImage(pair["moving"]))
+    sitk_io.write_med_img(os.path.join(atlas, "annotation.mhd"),
+                          sitk_io.MedImage(pair["labels"]))
+    return sample, atlas
 
 
 def run_gauntlet(pair: Dict, iters_scale: float = 1.0,

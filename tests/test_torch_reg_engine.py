@@ -1,6 +1,8 @@
 """``magellanmapper_torch.atlas.reg_engine`` against
 ``magellanmapper_tpu.atlas.reg_engine`` on a seeded (20, 28, 28) gauntlet
-pair (15,680 voxels, so every metric stride is 1 and no level jitters).
+pair (15,680 voxels, so every metric stride is 1 and no level jitters),
+and on a (64, 72, 64) pair for the downsampling route's four levels, its
+metric sample cap raised so that every stride is 1 there too.
 
 Tolerances, after up to 160 Adam steps a stage: the translation within
 1e-3 voxels, the affine's linear part within 1e-3 and its shift within
@@ -134,6 +136,56 @@ def test_register_stage_matches_reference(pair, name):
         device="cpu", **kwargs)
     _assert_params(got, want, kind)
     assert np.isfinite(want_loss)
+    assert abs(got_loss - want_loss) <= LOSS_ATOL
+
+
+#: the default profile's downsampling route at all 4 of its levels on a
+#: (64, 72, 64) pair, with the metric sample cap raised past the voxel
+#: count so every stride is 1: the translation (``_scale_params`` between
+#: levels), the affine with both masks (``_mask_pyramid``), and the
+#: B-spline with eroded masks and a grid-spacing schedule whose finer
+#: levels re-lattice the control points from twice the previous spacing.
+#: The affine runs NCC: under Mattes MI its (8, 9, 8) level keeps 134
+#: samples in the moving mask, and Adam doubles a float32 difference about
+#: every step there (1e-7 after one step, 1.7e-2 voxels after 24)
+DEEP_SHAPE = (64, 72, 64)
+DEEP_STAGES = {
+    "translation": ("translation", dict(max_iter=32), False),
+    "affine_masks": ("affine", dict(max_iter=24, metric="ncc"), True),
+    "bspline_schedule_erode": (
+        "bspline", dict(max_iter=16, grid_space_voxels=16,
+                        grid_spacing_schedule=[4.0, 2.0, 1.0, 1.0],
+                        erode_mask=True), True),
+}
+
+
+@pytest.fixture(scope="module")
+def deep_pair():
+    return ref_gauntlet.build_pair(DEEP_SHAPE, seed=0, ffd_spacing=32.0,
+                                   ffd_ctrl_sigma=4.0)
+
+
+@pytest.mark.parametrize("name", sorted(DEEP_STAGES))
+def test_four_level_downsampling_stage_matches_reference(deep_pair, name):
+    kind, cfg, masks = DEEP_STAGES[name]
+    cfg = dict(cfg, num_resolutions=4, num_spatial_samples=1 << 19)
+    stage = ref_prof.make_reg_param_map(kind, **cfg)
+    assert stage == atlas_prof.make_reg_param_map(kind, **cfg)
+    assert reg_engine._metric_stride(DEEP_SHAPE, 1 << 19) == (1, 1, 1)
+    kwargs = {}
+    if masks:
+        kwargs.update(
+            fixed_mask=(deep_pair["fixed"] > 0.05).astype(np.float32),
+            moving_mask=(deep_pair["moving"] > 0.05).astype(np.float32))
+    clock = reg_engine._LevelClock(torch.device("cpu"))
+    want, want_loss = ref.register_stage(
+        deep_pair["fixed"], deep_pair["moving"], stage, kind=kind, **kwargs)
+    got, got_loss = reg_engine.register_stage(
+        deep_pair["fixed"], deep_pair["moving"], stage, kind=kind,
+        device="cpu", clock=clock, **kwargs)
+    assert [r["shape"] for r in clock.read()] == [
+        [-(-s // 2 ** k) for s in DEEP_SHAPE] for k in (3, 2, 1, 0)]
+    _assert_params(got, want, kind)
     assert abs(got_loss - want_loss) <= LOSS_ATOL
 
 

@@ -4,7 +4,8 @@ curation, the gauntlet fixture and its scoring, and the task through both
 command lines on a seeded (20, 28, 28) pair (every metric stride 1).
 
 Tolerances: medical images written from equal arrays are byte for byte
-the reference's files; profiles, curation, landmarks, the gauntlet's
+the reference's files; profiles, curation (also of a (64, 96, 80) pair's
+ground truth at the default hole size), landmarks, the gauntlet's
 anatomy, labels and scoring exactly; the gauntlet's warped image within
 1e-5. Through the command lines, where each engine runs its own
 optimisation: the same file names and ``.mhd`` headers, the sample image
@@ -135,6 +136,21 @@ def test_curation_and_landmarks_match_reference(tmp_path, pair):
                                   ref_register.load_elastix_points(str(path)))
     assert [n.value for n in register.RegNames] == [
         n.value for n in ref_register.RegNames]
+
+
+def test_curation_of_the_truth_matches_reference():
+    """Curation at its default hole size on a (64, 96, 80) gauntlet pair's
+    ground-truth annotation: equal to the reference's, and it alone costs
+    the regions that the specimen shows dim (the carve keeps voxels above
+    Otsu's threshold and fills only background holes under 5,000 voxels),
+    so a curated transfer's worst regions are the carve's, not the
+    warp's."""
+    big = ref_gauntlet.build_pair((64, 96, 80), seed=0)
+    truth = big["labels_fixed_gt"]
+    got = register.curate_img(big["fixed"], truth, device="cpu")
+    np.testing.assert_array_equal(
+        got, ref_register.curate_img(big["fixed"], truth))
+    assert gauntlet.label_transfer_dsc(got, truth)["min"] < 0.8
 
 
 # -- the gauntlet -------------------------------------------------------------

@@ -30,16 +30,29 @@ result, on any fault. Phases:
    the table; a
    (32, 128, 128) crop through the same batched route on the card and on
    the CPU; the LoG pyramid's tap route (an axis of 1024) on both;
-6. registration, which runs no hand-written kernel (the register path's
-   launch counts are printed, and are 0): the seeded (160, 240, 200)
-   gauntlet pair built on the card; ``python -m magellanmapper_torch.io.cli
-   --img sample.npy atlas --register single`` with the default atlas
-   profile (wall, the stats CSV's DSCs against the unregistered DSC, the
-   written labels' per-region DSC against the ground truth, optimiser
-   steps per second of each stage and level); ``run_gauntlet`` on the
-   same pair with the reference's smoothing schedule and hard gates
-   (dsc >= 0.95, label median >= 0.90); ``register_duo`` on a
-   (20, 28, 28) pair on the card and on the CPU;
+6. the specimen chain and registration: the seeded (160, 240, 200)
+   gauntlet pair built on the card; a (640, 960, 800) uint16 specimen
+   made from it (``testing.make_specimen``: its fixed image upsampled 4
+   times as a texture, nuclei planted in its brain), then through the
+   port's CLI: ``--proc detect`` (launch counters of the ``specimen``
+   path, sensitivity and PPV against the planted nuclei), ``--proc
+   transform --transform rescale=0.25`` (shape, scaling and resolutions
+   against the reference's formula; a (64, 240, 200) crop on the card
+   against the CPU), ``--register single`` of the atlas onto the shrunk
+   specimen with the default atlas profile (the register path, which
+   runs no hand-written kernel: wall, the stats CSV's DSCs against the
+   unregistered DSC, the written labels' per-region DSC against the
+   ground truth, optimiser steps per second of each stage and level),
+   ``--register make_density_images`` (the heat map holds every blob) and
+   ``--register vol_stats`` (the regions' nuclei and voxels add up to the
+   heat map's and the labels'; equal to ``--device cpu``'s table, floats
+   within 1e-5), each step's wall and peak device memory, and each
+   region's nuclei against the planted ones; ``vol_stats`` once more at
+   the Allen CCFv3 25 um atlas's (528, 320, 456), several hundred IDs
+   (wall, peak memory, the same sums); ``run_gauntlet`` on the pair with
+   the reference's smoothing schedule and hard gates (dsc >= 0.95, label
+   median >= 0.90); ``register_duo`` on a (20, 28, 28) pair on the card
+   and on the CPU;
 7. ``cv.detector.detect_blobs`` on a (48, 192, 192) crop of the detect
    volume at resolutions (2, 1, 1) made isotropic, card against CPU;
 8. a JSON line of per-kernel results (launches summed over the paths,
@@ -109,6 +122,21 @@ REG_CROP = (20, 28, 28)
 REG_CROP_ITERS = 0.25
 REG_CROP_ATOL = {"translation.t": 1e-5, "affine.W": 1e-4, "affine.t": 1e-3,
                  "bspline.grid": 5e-2}
+#: the specimen chain: the gauntlet pair's fixed image upsampled this many
+#: times (a (640, 960, 800) uint16 specimen at 1 um), shrunk back to the
+#: pair's shape by ``--proc transform``, detection verified in tiles of
+#: the whole depth (``testing.make_specimen``); the transform's crop held
+#: card against CPU; vol_stats card against CPU (both sum in float64)
+SPEC_FACTOR = 4
+SPEC_RESCALE = 0.25
+SPEC_TILE_YX = (160, 160)
+SPEC_CROP = (64, 240, 200)
+TRANSFORM_RTOL = 1e-5
+VOLS_RTOL = 1e-5
+#: the Allen CCFv3 atlas at 25 um, and the grid that splits the pair's
+#: regions into several hundred IDs there
+CCF25_SHAPE = (528, 320, 456)
+CCF25_SPLIT = (6, 4, 6)
 #: detect_blobs: a crop of the detect volume, read as 2 um in z
 DETECT_CROP = (48, 192, 192)
 DETECT_RES = (2.0, 1.0, 1.0)
@@ -637,36 +665,36 @@ def stage_rates(levels):
             for k, (n, s) in out.items()}
 
 
-def register_path(torch, pair, work, launches):
+def register_path(torch, pair, sample, atlas, prefix, launches):
     """``--register single`` through the port's CLI on the card with the
-    default atlas profile, on the gauntlet pair; fails unless the four
-    outputs are written and the atlas overlaps the sample better than
-    before registration."""
+    default atlas profile, of the atlas directory onto ``sample``, the
+    outputs named after ``prefix``; fails unless the four outputs are
+    written and the atlas overlaps the sample better than before
+    registration. Returns the written labels."""
     from magellanmapper_torch import device as dev_mod
     from magellanmapper_torch.atlas import gauntlet, metrics
-    from magellanmapper_torch.io import cli, sitk_io
+    from magellanmapper_torch.io import cli, np_io, sitk_io
 
-    unreg = metrics.measure_overlap(pair["fixed"], pair["moving"])
-    with tempfile.TemporaryDirectory(dir=work) as tmp:
-        sample, atlas = gauntlet.write_register_inputs(pair, tmp)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        dev_mod.reset_launches()
-        t0 = time.perf_counter()
-        out = cli.main(["--img", sample, atlas, "--register", "single",
-                        "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches["register"] = dict(dev_mod.LAUNCHES)
-        peak_mem = torch.cuda.max_memory_allocated()
-        names = {k: os.path.join(tmp, f"sample_{k}") for k in (
-            "exp.mhd", "atlasVolume.mhd", "annotation.mhd", "stats.csv")}
-        missing = [k for k, p in names.items() if not os.path.isfile(p)]
-        if missing:
-            fail(f"--register single wrote no {missing}")
-        with open(names["stats.csv"]) as f:
-            stats = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
-        labels = sitk_io.read_med_img(names["annotation.mhd"]).img
+    fixed = np.asarray(np_io.read_file(sample).img[0])
+    unreg = metrics.measure_overlap(fixed, pair["moving"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev_mod.reset_launches()
+    t0 = time.perf_counter()
+    out = cli.main(["--img", sample, atlas, "--register", "single",
+                    "--prefix", prefix, "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["register"] = dict(dev_mod.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    names = {k: sitk_io.reg_out_path(prefix, k) for k in (
+        "exp.mhd", "atlasVolume.mhd", "annotation.mhd", "stats.csv")}
+    missing = [k for k, p in names.items() if not os.path.isfile(p)]
+    if missing:
+        fail(f"--register single wrote no {missing}")
+    with open(names["stats.csv"]) as f:
+        stats = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
+    labels = sitk_io.read_med_img(names["annotation.mhd"]).img
     lt = gauntlet.label_transfer_dsc(labels, pair["labels_fixed_gt"])
     result = out["transform"]
     print(f"register: launches {launches['register']}", flush=True)
@@ -682,6 +710,226 @@ def register_path(torch, pair, work, launches):
     if not stats["DSC_atlas_sample"] > unreg:
         fail(f"registration did not improve the overlap: "
              f"{stats['DSC_atlas_sample']} <= unregistered {unreg}")
+    return labels, wall
+
+
+def transform_crop(torch, vol, work):
+    """``transpose_img`` at the chain's rescale on a crop of the specimen
+    written as its own image5d, on the card and on the CPU; fails unless
+    they agree within ``TRANSFORM_RTOL``."""
+    from magellanmapper_torch.atlas import transformer
+    from magellanmapper_torch.io import np_io
+
+    crop = np.ascontiguousarray(vol[tuple(slice(0, s) for s in SPEC_CROP)])
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        where = os.path.join(work, dev)
+        os.makedirs(where)
+        path = os.path.join(where, "crop.npy")
+        np_io.write_npy(path, crop, resolutions=[[1.0, 1.0, 1.0]])
+        out = transformer.transpose_img(path, rescale=SPEC_RESCALE,
+                                        device=dev)
+        outs[dev] = np.asarray(np_io.read_file(out).img)
+    card, cpu = outs["cuda"], outs["cpu"]
+    err = float(np.max(np.abs(card - cpu) / np.maximum(np.abs(cpu), 1e-30)))
+    print(f"transform crop {SPEC_CROP} at {SPEC_RESCALE}: {card.shape}; card "
+          f"vs CPU max relative difference {err:.3g}", flush=True)
+    if card.shape != cpu.shape or not np.allclose(
+            card, cpu, rtol=TRANSFORM_RTOL, atol=0):
+        fail("transform crop: the card's image differs from the CPU's")
+
+
+def region_counts(df, truth_regions):
+    """Per-region ``Nuclei`` of a vol_stats table against the planted
+    nuclei per ground-truth region: median and worst relative error and
+    the three worst regions."""
+    truth = dict(zip(*np.unique(truth_regions[truth_regions > 0],
+                                return_counts=True)))
+    got = dict(zip(df["Region"].astype(int), df["Nuclei"].astype(int)))
+    rows = sorted(
+        ((abs(got.get(r, 0) - n) / n, int(r), int(got.get(r, 0)), int(n))
+         for r, n in truth.items()), reverse=True)
+    errs = [r[0] for r in rows]
+    return {"median_rel_err": float(np.median(errs)),
+            "worst_rel_err": float(errs[0]),
+            "worst": [{"region": r, "nuclei": g, "planted": n}
+                      for _, r, g, n in rows[:3]]}
+
+
+def specimen_chain(torch, pair, work, launches):
+    """The specimen pipeline through the port's CLI on the card, on a
+    seeded full-resolution specimen of the gauntlet pair
+    (``testing.make_specimen``, ``SPEC_FACTOR`` times its shape): detect,
+    transform (``rescale`` ``SPEC_RESCALE``, back to the pair's shape),
+    ``--register single`` onto the shrunk specimen (:func:`register_path`),
+    ``make_density_images`` and ``vol_stats``. Fails unless detection
+    meets the detect slice's bars, the transform's shape and metadata are
+    the reference formula's and its crop agrees with the CPU, the heat map
+    holds every blob, the regions' sums equal the heat map's and the
+    labels', and ``vol_stats`` on the CPU agrees with the card's."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import cli, np_io, sitk_io
+
+    steps = {}
+
+    def step(name, argv):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = cli.main(argv + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        steps[name] = {"wall_s": time.perf_counter() - t0,
+                       "peak_device_mib":
+                       torch.cuda.max_memory_allocated() / 2**20}
+        return out
+
+    t0 = time.perf_counter()
+    vol, centres = testing.make_specimen(pair, SPEC_FACTOR, SEED, "cuda")
+    shape = vol.shape
+    spec = os.path.join(work, "spec.npy")
+    np_io.write_npy(spec, vol, resolutions=[[1.0, 1.0, 1.0]])
+    print(f"specimen {shape} {vol.dtype} ({vol.nbytes} B), {len(centres)} "
+          f"planted nuclei, made and written in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    transform_crop(torch, vol, os.path.join(work, "crop"))
+    del vol
+    atlas = os.path.join(work, "atlas")
+    os.makedirs(atlas)
+    sitk_io.write_med_img(os.path.join(atlas, "atlasVolume.mhd"),
+                          sitk_io.MedImage(pair["moving"]))
+    sitk_io.write_med_img(os.path.join(atlas, "annotation.mhd"),
+                          sitk_io.MedImage(pair["labels"]))
+
+    # detect and transform: the specimen path's kernels
+    dev_mod.reset_launches()
+    blobs = step("detect", ["--img", spec, "--proc", "detect",
+                            "--roi_profile", "lightsheet"]).blobs
+    small = step("transform", ["--img", spec, "--proc", "transform",
+                               "--transform", f"rescale={SPEC_RESCALE}"])
+    counts = dict(dev_mod.LAUNCHES)
+    sens, ppv = testing.sens_ppv(blobs, centres, shape,
+                                 (shape[0],) + SPEC_TILE_YX, VERIFY_TOL)
+    print(f"specimen detect: {len(blobs)} blobs for {len(centres)} nuclei; "
+          f"sensitivity {sens:.4f} PPV {ppv:.4f}", flush=True)
+    if not (sens > 0.85 and ppv > 0.7):
+        fail(f"specimen detection below the bars: sens {sens} ppv {ppv}")
+    img5d = np_io.read_file(small)
+    want_shape = tuple(int(s * SPEC_RESCALE) for s in shape)
+    meta = img5d.meta
+    print(f"specimen transform: {img5d.img.shape}, scaling "
+          f"{meta['scaling']}, resolutions {meta['resolutions']}",
+          flush=True)
+    want_res = [(np.ones(3) / SPEC_RESCALE).tolist()]
+    if img5d.img.shape != (1,) + want_shape or want_shape != REG_SHAPE \
+            or meta["scaling"] != np.divide(want_shape, shape).tolist() \
+            or meta["resolutions"] != want_res:
+        fail(f"transform wrote {img5d.img.shape} with {meta}, not the "
+             f"reference formula's {want_shape}")
+
+    # register the shrunk specimen, naming the outputs after the specimen
+    labels, reg_wall = register_path(torch, pair, small, atlas, spec,
+                                     launches)
+    steps["register"] = {"wall_s": reg_wall}
+
+    # count per region
+    dev_mod.reset_launches()
+    step("make_density_images", ["--img", spec, "--register",
+                                 "make_density_images"])
+    df = step("vol_stats", ["--img", spec, "--register", "vol_stats"])
+    launches["specimen"] = {k: v + dev_mod.LAUNCHES[k]
+                            for k, v in counts.items()}
+    print(f"specimen: launches {launches['specimen']}", flush=True)
+    for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        if launches["specimen"][name] <= 0:
+            fail(f"kernel {name} was not launched on the specimen path")
+    heat = sitk_io.load_registered_img(spec, "heat.mhd")
+    fg = labels != 0
+    sums = {"blobs": len(blobs), "heat": int(heat.sum()),
+            "nuclei": int(df["Nuclei"].sum()),
+            "heat_in_labels": int(heat[fg].sum()),
+            "volpx": int(df["VolPx"].sum()), "labelled": int(fg.sum())}
+    print(f"specimen sums: {sums}; heat {heat.shape} {heat.dtype}",
+          flush=True)
+    if heat.shape != REG_SHAPE or sums["heat"] != sums["blobs"] \
+            or sums["nuclei"] != sums["heat_in_labels"] \
+            or sums["volpx"] != sums["labelled"]:
+        fail(f"specimen counts do not add up: {sums}")
+    cpu_prefix = os.path.join(work, "spec_cpu")
+    t0 = time.perf_counter()
+    df_cpu = cli.main(["--img", spec, "--register", "vol_stats",
+                       "--prefix", cpu_prefix, "--device", "cpu"])
+    t_cpu = time.perf_counter() - t0
+    for col in df.columns:
+        a, b = df[col].to_numpy(), df_cpu[col].to_numpy()
+        same = (np.array_equal(a, b) if a.dtype.kind in "iu"
+                else np.allclose(a, b, rtol=VOLS_RTOL, atol=0,
+                                 equal_nan=True))
+        if not same:
+            fail(f"vol_stats column {col}: the card's differs from the CPU's")
+    regions = pair["labels_fixed_gt"][tuple((centres // SPEC_FACTOR).T)]
+    print("specimen regions against the planted nuclei: "
+          + json.dumps(region_counts(df, regions)), flush=True)
+    mvox = {k: float(np.prod(shape)) / 1e6 / steps[k]["wall_s"]
+            for k in ("detect", "transform")}
+    print("specimen chain: " + json.dumps({
+        "shape": list(shape), "nuclei": len(centres), "regions": len(df),
+        "steps": steps, "mvox_per_s": mvox, "vol_stats_cpu_s": t_cpu}),
+        flush=True)
+    return blobs
+
+
+def vol_stats_25um(torch, pair, blobs):
+    """``measure_labels_metrics`` once on the card at the Allen CCFv3
+    25 um atlas's size: the pair's ground-truth labels resized there at
+    order 0 and split by a coarse grid into several hundred IDs (the left
+    half negative, as a mirrored annotation), the fixed image resized as
+    the intensity, and the specimen's blobs as an int32 heat map; fails
+    unless the regions' sums equal the heat map's and the labels'."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch.atlas import ontology
+    from magellanmapper_torch.cv import cv_nd
+    from magellanmapper_torch.io import np_io
+    from magellanmapper_torch.ops import resize
+    from magellanmapper_torch.stats import vols
+
+    dev = dev_mod.resolve("cuda")
+    gt = torch.from_numpy(pair["labels_fixed_gt"]).to(dev)
+    labels = resize.resize(gt, CCF25_SHAPE, order=0)
+    grid = [torch.arange(s, device=dev) * n // s
+            for s, n in zip(CCF25_SHAPE, CCF25_SPLIT)]
+    cell = (grid[0][:, None, None] * CCF25_SPLIT[1]
+            + grid[1][None, :, None]) * CCF25_SPLIT[2] + grid[2][None, None]
+    labels = torch.where(labels > 0, labels * 1000 + cell, 0)
+    side = torch.where(torch.arange(CCF25_SHAPE[2], device=dev)
+                       < CCF25_SHAPE[2] // 2, -1, 1)
+    labels = (labels * side).to(torch.int32).cpu().numpy()
+    intensity = resize.resize(torch.from_numpy(pair["fixed"]).to(dev),
+                              CCF25_SHAPE).cpu().numpy()
+    scaling = np_io.find_scaling(
+        tuple(s * SPEC_FACTOR for s in REG_SHAPE), CCF25_SHAPE)
+    heat = cv_nd.build_heat_map(
+        CCF25_SHAPE, ontology.scale_coords(blobs[:, :3], scaling,
+                                           CCF25_SHAPE), device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    df = vols.measure_labels_metrics(intensity, labels, heat_map=heat,
+                                     device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    fg = labels != 0
+    sums = {"nuclei": int(df["Nuclei"].sum()),
+            "heat_in_labels": int(heat[fg].sum()),
+            "volpx": int(df["VolPx"].sum()), "labelled": int(fg.sum())}
+    print("vol_stats 25um: " + json.dumps({
+        "shape": list(CCF25_SHAPE), "voxels": int(np.prod(CCF25_SHAPE)),
+        "regions": len(df), "wall_s": wall, "peak_device_mib": peak,
+        "sums": sums}), flush=True)
+    if sums["nuclei"] != sums["heat_in_labels"] \
+            or sums["volpx"] != sums["labelled"]:
+        fail(f"vol_stats at 25 um: the sums do not add up: {sums}")
 
 
 def gauntlet_path(pair):
@@ -894,14 +1142,20 @@ def main() -> None:
     del grid_roi
     torch.cuda.empty_cache()
 
-    # 6. registration: the task through the CLI, the gauntlet, the crop
+    # 6. the specimen chain (its register step is the registration task
+    # through the CLI), vol_stats at the 25 um atlas's size, the gauntlet,
+    # the register crop
     from magellanmapper_torch.atlas import gauntlet
     t0 = time.perf_counter()
     pair = gauntlet.build_pair(REG_SHAPE, seed=SEED, device="cuda")
     print(f"gauntlet pair {REG_SHAPE}: built in "
           f"{time.perf_counter() - t0:.1f} s; ground-truth displacement "
           f"{json.dumps(pair['gt']['disp_stats'])}", flush=True)
-    register_path(torch, pair, work, launches)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        spec_blobs = specimen_chain(torch, pair, tmp, launches)
+    torch.cuda.empty_cache()
+    vol_stats_25um(torch, pair, spec_blobs)
+    torch.cuda.empty_cache()
     gauntlet_path(pair)
     del pair
     register_crop()

@@ -5,7 +5,8 @@ blobs are an ``N x C`` float array whose columns are ``z, y, x, radius,
 confirmed, truth, channel, abs_z, abs_y, abs_x[, region]``; archives are
 ``.npz`` files with keys ``ver/segments/colocs/resolutions/basename/
 offset/roi_size/columns`` at version ``BLOBS_NP_VER = 5``, which the
-reference's ``Blobs.load_blobs`` reads.
+reference's ``Blobs.load_blobs`` reads, and :meth:`Blobs.load_blobs`
+reads the reference's archives.
 """
 
 from __future__ import annotations
@@ -125,6 +126,17 @@ class Blobs:
             blobs[..., ABS_COORD_SLICE] * factor)
         return blobs
 
+    @staticmethod
+    def blobs_in_channel(
+            blobs: np.ndarray, channel, return_mask=False):
+        """Filter blobs to the given channel(s); None = all."""
+        if channel is None:
+            mask = np.ones(len(blobs), dtype=bool)
+        else:
+            mask = np.isin(
+                Blobs.get_blobs_channel(blobs), np.atleast_1d(channel))
+        return (blobs[mask], mask) if return_mask else blobs[mask]
+
     def format_blobs(self, channel=None) -> np.ndarray:
         """Extend ``z,y,x,radius[,...]`` rows to the full column set.
 
@@ -144,6 +156,41 @@ class Blobs:
         return self.blobs
 
     # -- archive output ------------------------------------------------------
+
+    def load_blobs(self, path: Optional[str] = None) -> "Blobs":
+        """Load a blobs ``.npz`` archive, upgrading old versions."""
+        if path is not None:
+            self.path = path
+        with np.load(self.path, allow_pickle=True) as archive:
+            info = {k: archive[k] for k in archive.files}
+
+        def _scalar(v):
+            return v.item() if isinstance(v, np.ndarray) and v.ndim == 0 \
+                else v
+
+        if self.Keys.VER.value in info:
+            self.ver = int(_scalar(info[self.Keys.VER.value]))
+        if self.Keys.COLS.value in info:
+            self.cols = [str(c) for c in np.atleast_1d(
+                info[self.Keys.COLS.value])]
+        if self.Keys.BLOBS.value in info:
+            self.blobs = info[self.Keys.BLOBS.value]
+        if self.Keys.COLOCS.value in info:
+            self.colocalizations = _scalar(info[self.Keys.COLOCS.value])
+        if self.Keys.RESOLUTIONS.value in info:
+            self.resolutions = _scalar(info[self.Keys.RESOLUTIONS.value])
+        if self.Keys.BASENAME.value in info:
+            self.basename = str(_scalar(info[self.Keys.BASENAME.value]))
+        if self.Keys.ROI_OFFSET.value in info:
+            self.roi_offset = _scalar(info[self.Keys.ROI_OFFSET.value])
+        if self.Keys.ROI_SIZE.value in info:
+            self.roi_size = _scalar(info[self.Keys.ROI_SIZE.value])
+        if self.ver <= 4 and self.cols is not None:
+            # <=v4 archives stored 3 extra abs-coord column names that were
+            # not present in the data; drop them (reference upgrade path)
+            self.cols = self.cols[:len(self.cols) - 3]
+        self.ver = self.BLOBS_NP_VER
+        return self
 
     def save_archive(self) -> dict:
         """Save the archive at ``path``, backing up any existing file

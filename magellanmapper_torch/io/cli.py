@@ -1,11 +1,20 @@
-"""Command-line entry of the port: blob detection, its grid search, and
-single-sample atlas registration.
+"""Command-line entry of the port: blob detection, its grid search,
+single-sample atlas registration, and the specimen pipeline around it.
 
 ``python -m magellanmapper_torch.io.cli --img vol.npy --proc detect
 --roi_profile lightsheet [--device cuda]`` runs the port's
 :func:`~magellanmapper_torch.cv.stack_detect.detect_blobs_stack` and
 writes ``blobs.npz`` and ``stack_detection_times.csv`` next to the image
 as the reference's ``--proc detect`` task does.
+
+``python -m magellanmapper_torch.io.cli --img vol.npy --proc transform
+--transform rescale=0.25 [--plane xz]`` shrinks (and reorients) the
+whole image, streamed through the device, into
+``vol_scale0.25_image5d.npy`` with its metadata
+(:func:`~magellanmapper_torch.atlas.transformer.transpose_img`);
+``--proc preprocess saturate denoise remap rotate90`` runs those
+whole-image tasks and writes the result at ``--prefix`` (default: over
+the image).
 
 ``python -m magellanmapper_torch.io.cli --img fixed.npy atlas_dir
 --register single [--atlas_profile ncc,nobspline]`` registers the atlas
@@ -17,6 +26,18 @@ the sample onto the atlas instead. ``--reg_suffixes atlas=...
 annotation=...`` names other images of the atlas directory. As in the
 reference, ``--register`` takes precedence over every other task.
 
+The specimen's counts: ``--img spec.npy --register make_density_images``
+scales ``spec_blobs.npz`` into the registered ``spec_atlasVolume.mhd``'s
+shape and writes the per-voxel count as ``spec_heat.mhd`` (one or more
+images); ``--img spec.npy --register vol_stats [--labels path_ref=...]``
+measures every region of ``spec_annotation.mhd`` (volume, intensity of
+``spec_atlasVolume.mhd``, nuclei of ``spec_heat.mhd`` when present) into
+``<prefix or base>_vols.csv``; ``--register export_regions --labels
+path_ref=ontology.json [level=N]`` writes the ontology's regions to
+``--prefix`` (default ``region_ids.csv``). As in the reference,
+``vol_stats`` measures the labels as they are: ``level=`` is read only by
+``export_regions``.
+
 ``python -m magellanmapper_torch.io.cli --img roi.npy --grid_search
 gridtest --roi_profile 4xnuc --truth_db truth.db`` runs the named
 grid-search profile over the image and scores every combination against
@@ -27,9 +48,11 @@ reference, ``--grid_search`` takes precedence over ``--proc``.
 
 The parser takes the reference's flag names
 (``magellanmapper_tpu/io/cli.py:124-194``) for what the port accepts:
-``--img``, ``--proc detect``, ``--register single|register_rev``,
+``--img``, ``--proc detect|transform|preprocess``, ``--register
+single|register_rev|make_density_images|vol_stats|export_regions``,
 ``--roi_profile`` (one per channel), ``--atlas_profile``,
-``--reg_suffixes``, ``--channel``, ``--series``, ``--prefix``,
+``--reg_suffixes``, ``--transform``, ``--plane``, ``--labels``,
+``--channel``, ``--series``, ``--prefix``,
 ``--subimg_offset``/``--subimg_size``, ``--set_meta resolutions=z,y,x``,
 ``--grid_search``, ``--truth_db`` (only with ``--grid_search``) and
 ``--device``. Any other flag or task is rejected with a message that
@@ -49,22 +72,24 @@ from dataclasses import dataclass, field
 from enum import Enum, auto
 from typing import Dict, List, Optional, Sequence, Union
 
+import numpy as np
 import pandas as pd
 
 from magellanmapper_torch import device as device_mod
+from magellanmapper_torch.atlas import ontology, transformer
 from magellanmapper_torch.atlas import register as register_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.cv import stack_detect
-from magellanmapper_torch.io import np_io
+from magellanmapper_torch.io import export_regions, np_io, sitk_io
 from magellanmapper_torch.settings.atlas_prof import AtlasProfile
 from magellanmapper_torch.settings.roi_prof import ROIProfile
-from magellanmapper_torch.stats import mlearn
+from magellanmapper_torch.stats import mlearn, vols
 from magellanmapper_torch.utils import libmag
 
 _logger = logging.getLogger(__name__)
 
 #: ``--proc`` tasks the port runs
-TASKS = ("detect",)
+TASKS = ("detect", "transform", "preprocess")
 
 
 class RegisterTypes(Enum):
@@ -112,7 +137,16 @@ class RegisterTypes(Enum):
 
 
 #: ``--register`` tasks the port runs
-REGISTER_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
+REGISTER_TASKS = (
+    RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV,
+    RegisterTypes.MAKE_DENSITY_IMAGES, RegisterTypes.VOL_STATS,
+    RegisterTypes.EXPORT_REGIONS)
+#: the tasks that register an atlas directory onto a sample
+PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
+#: what the port runs, for the messages that reject the rest
+SUPPORTED = ("--proc detect/transform/preprocess, --grid_search and "
+             "--register single/register_rev/make_density_images/"
+             "vol_stats/export_regions")
 
 
 @dataclass
@@ -137,6 +171,9 @@ class RunConfig:
     register_type: Optional[RegisterTypes] = None
     atlas_profile: AtlasProfile = field(default_factory=AtlasProfile)
     reg_suffixes: Dict[str, str] = field(default_factory=dict)
+    transform: Dict[str, str] = field(default_factory=dict)
+    plane: Optional[str] = None
+    labels: Dict[str, str] = field(default_factory=dict)
     device: str = "cuda"
 
 
@@ -163,14 +200,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--subimg_offset", nargs="*", help="sub-image offset x,y,z")
     p.add_argument("--subimg_size", nargs="*", help="sub-image size x,y,z")
     p.add_argument("--truth_db", nargs="*", help="truth DB mode and path")
-    p.add_argument("--proc", nargs="*", help="processing task: detect")
+    p.add_argument("--proc", nargs="*",
+                   help="processing task: detect, transform or preprocess "
+                   "<tasks>")
     p.add_argument("--register",
-                   help="registration task: single or register_rev")
+                   help="registration task: single, register_rev, "
+                   "make_density_images, vol_stats or export_regions")
     p.add_argument("--roi_profile", nargs="*", help="ROI profile(s)")
     p.add_argument("--atlas_profile", help="atlas profile")
     p.add_argument("--reg_suffixes", nargs="*",
                    help="registered image suffixes (atlas=..., "
                    "annotation=...)")
+    p.add_argument("--labels", nargs="*", help="labels args "
+                   "(path_ref=..., level=...)")
+    p.add_argument("--transform", nargs="*", help="transform args "
+                   "(rescale=...)")
+    p.add_argument("--plane", help="plane orientation (xy/xz/yz)")
     p.add_argument("--grid_search", help="grid search profile")
     p.add_argument("--set_meta", nargs="*",
                    help="metadata overrides (resolutions=z,y,x)")
@@ -187,9 +232,8 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
     if unknown:
         raise SystemExit(
             "magellanmapper_torch does not take "
-            f"{' '.join(flags or unknown)}; it supports only --proc detect, "
-            "--grid_search and --register single/register_rev so far (use "
-            "magellanmapper_tpu.io.cli for other tasks)")
+            f"{' '.join(flags or unknown)}; it supports only {SUPPORTED} "
+            "so far (use magellanmapper_tpu.io.cli for other tasks)")
     rc = RunConfig(device=args.device)
     if args.img:
         rc.filenames = list(args.img)
@@ -218,6 +262,9 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
         rc.atlas_profile = AtlasProfile()
         rc.atlas_profile.add_profiles(args.atlas_profile)
     rc.reg_suffixes = args_to_dict(args.reg_suffixes)
+    rc.transform = args_to_dict(args.transform)
+    rc.labels = args_to_dict(args.labels)
+    rc.plane = args.plane
     rc.grid_search = args.grid_search
     if args.proc:
         rc.proc = args.proc[0].lower()
@@ -230,24 +277,23 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
             args.register.upper())
         if rc.register_type not in REGISTER_TASKS:
             raise SystemExit(
-                "magellanmapper_torch runs only --register single and "
-                f"--register register_rev so far (got {task}); use "
-                "magellanmapper_tpu.io.cli for other tasks")
-        if len(rc.filenames) < 2:
+                f"magellanmapper_torch runs only {SUPPORTED} so far (got "
+                f"{task}); use magellanmapper_tpu.io.cli for other tasks")
+        if rc.register_type in PAIR_TASKS and len(rc.filenames) < 2:
             raise SystemExit(f"{task} needs --img <sample> <atlas_dir>")
     else:
         task = "--grid_search" if rc.grid_search else (
             f"--proc {rc.proc}" if rc.proc else None)
         if not rc.grid_search and rc.proc not in TASKS:
             raise SystemExit(
-                "magellanmapper_torch supports only --proc detect, "
-                "--grid_search and --register single/register_rev so far "
+                f"magellanmapper_torch supports only {SUPPORTED} so far "
                 f"(got {task}); use magellanmapper_tpu.io.cli for other "
                 "tasks")
     if rc.truth_db and not rc.grid_search:
         raise SystemExit(
             "magellanmapper_torch takes --truth_db only with --grid_search")
-    if not rc.filenames:
+    if not rc.filenames and rc.register_type is not \
+            RegisterTypes.EXPORT_REGIONS:
         raise SystemExit(f"{task} needs --img")
     return rc
 
@@ -289,24 +335,86 @@ def detect(rc: RunConfig, device) -> blobs_mod.Blobs:
     return blobs
 
 
-def process_register(rc: RunConfig, device) -> Dict:
+def process_register(rc: RunConfig, device):
     """The ``--register`` tasks (reference ``cli._process_register``):
     ``single`` registers the atlas directory ``filenames[1]`` onto the
-    sample ``filenames[0]``, ``register_rev`` the sample onto the atlas."""
-    if rc.register_type is RegisterTypes.SINGLE:
+    sample ``filenames[0]``, ``register_rev`` the sample onto the atlas;
+    ``make_density_images``, ``vol_stats`` and ``export_regions`` measure
+    a registered sample and export its ontology."""
+    task = rc.register_type
+    if task is RegisterTypes.SINGLE:
         return register_mod.register(
             rc.filenames[0], rc.filenames[1], rc.atlas_profile,
             prefix=rc.prefix, reg_suffixes=rc.reg_suffixes or None,
             device=device)
-    return register_mod.register_rev(
-        rc.filenames[0], rc.filenames[1], rc.atlas_profile,
-        prefix=rc.prefix, device=device)
+    if task is RegisterTypes.REGISTER_REV:
+        return register_mod.register_rev(
+            rc.filenames[0], rc.filenames[1], rc.atlas_profile,
+            prefix=rc.prefix, device=device)
+    if task is RegisterTypes.VOL_STATS:
+        return vol_stats(rc, device)
+    if task is RegisterTypes.EXPORT_REGIONS:
+        ref_path = rc.labels.get("path_ref") or rc.filenames[0]
+        ref = ontology.LabelsRef(str(ref_path)).load()
+        level = rc.labels.get("level")
+        return export_regions.export_region_ids(
+            ref, rc.prefix or "region_ids.csv",
+            int(level) if level else None)
+    if len(rc.filenames) > 1:
+        return export_regions.make_density_images_mp(
+            rc.filenames, device=device)
+    return export_regions.make_density_image(rc.filenames[0],
+                                             device=device)
+
+
+def vol_stats(rc: RunConfig, device) -> pd.DataFrame:
+    """The ``--register vol_stats`` task (reference ``cli._vol_stats``):
+    per-region metrics of the sample's registered annotation, atlas and
+    heat map (when present), written to ``<prefix or base>_vols.csv``."""
+    path = rc.filenames[0]
+    atlas = sitk_io.load_registered_img(path, "atlasVolume.mhd")
+    labels = sitk_io.load_registered_img(path, "annotation.mhd")
+    heat = None
+    try:
+        heat = sitk_io.load_registered_img(path, "heat.mhd")
+    except FileNotFoundError:
+        pass
+    ref = None
+    ref_path = rc.labels.get("path_ref")
+    if ref_path:
+        ref = ontology.LabelsRef(str(ref_path)).load()
+    df = vols.measure_labels_metrics(
+        atlas, labels, heat_map=heat, labels_ref=ref, device=device)
+    out_csv = (rc.prefix or os.path.splitext(path)[0]) + "_vols.csv"
+    df.to_csv(out_csv, index=False)
+    return df
+
+
+def process_file(rc: RunConfig, device):
+    """The ``--proc`` tasks (reference ``cli.process_file``): ``detect``,
+    ``transform`` (returns the output image's path) and ``preprocess``
+    (returns the processed image)."""
+    path = rc.filenames[0]
+    if rc.proc == "transform":
+        rescale = rc.transform.get("rescale")
+        return transformer.transpose_img(
+            path, plane=rc.plane,
+            rescale=float(rescale) if rescale else None, device=device)
+    if rc.proc == "preprocess":
+        img5d = load_image(rc)
+        return transformer.preprocess_img(
+            np.asarray(img5d.img), list(rc.proc_args),
+            out_path=rc.prefix or path, device=device)
+    return detect(rc, device)
 
 
 def main(argv: Optional[Sequence[str]] = None
-         ) -> Union[blobs_mod.Blobs, pd.DataFrame, Dict]:
-    """CLI entry. Returns the detected blobs, the grid search's table, or
-    the registration's result."""
+         ) -> Union[blobs_mod.Blobs, pd.DataFrame, Dict, str, list,
+                    np.ndarray, tuple]:
+    """CLI entry. Returns what the task's function returns: the detected
+    blobs, the grid search's table, the registration's result, the
+    transformed image's path, the preprocessed image, the heat map(s) or
+    the regions' table."""
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
     rc = process_cli_args(argv)
@@ -318,8 +426,8 @@ def main(argv: Optional[Sequence[str]] = None
     if rc.grid_search:
         _logger.info("grid search %s on %s", rc.grid_search, device)
         return mlearn.grid_search_from_cli(rc, device)
-    _logger.info("detecting on %s", device)
-    return detect(rc, device)
+    _logger.info("--proc %s on %s", rc.proc, device)
+    return process_file(rc, device)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,9 @@ Copy of what the port reads and writes from
 ``magellanmapper_tpu/io/np_io.py``: the ``Image5d`` model,
 ``<base>_image5d.npy`` / ``<base>_meta.yml`` naming, versioned metadata,
 memmapped loading (:func:`read_file`, which also takes a plain ``.npy``
-path, and a sub-image by offset and size) and :func:`write_npy`.
+path, and a sub-image by offset and size), :func:`write_npy`, and the
+scaling between a full image and a rescaled one with the blobs' region
+assignment (:func:`find_scaling`, :func:`assign_blob_regions`).
 """
 
 from __future__ import annotations
@@ -183,6 +185,29 @@ def read_file(
         img5d.subimg_offset = off_zyx
         img5d.subimg_size = size_zyx
     return img5d
+
+
+def find_scaling(
+        img5d_shape: Sequence[int], scaled_shape: Sequence[int]
+) -> np.ndarray:
+    """Per-axis scaling between a full image and a rescaled one
+    (reference ``np_io.find_scaling``)."""
+    return np.divide(scaled_shape[:3], img5d_shape[:3])
+
+
+def assign_blob_regions(
+        blobs: np.ndarray, labels_img: np.ndarray,
+        scaling: Sequence[float]) -> np.ndarray:
+    """Append/overwrite the blobs' region column from a labels image
+    (reference ``np_io.setup_images`` blob-to-region assignment)."""
+    from magellanmapper_torch.atlas import ontology
+    coords = ontology.scale_coords(
+        blobs[:, :3], scaling, labels_img.shape)
+    regions = ontology.get_label_ids_from_position(coords, labels_img)
+    if blobs.shape[1] >= 11:
+        blobs[:, 10] = regions
+        return blobs
+    return np.column_stack([blobs, regions])
 
 
 def update_image5d_np_ver(meta: Dict, ver: int) -> Dict:

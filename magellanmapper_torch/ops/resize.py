@@ -11,7 +11,7 @@ in 3D, so it is not used. Order 0 is ``"nearest"``: the source index of
 output ``i`` is ``floor((i + 0.5) * in / out)`` in float32, and the input
 dtype is kept (labels).
 
-``resize_sharded`` is not ported (ROADMAP queue item 11).
+``resize_sharded`` is not ported (ROADMAP queue item 10).
 """
 
 from __future__ import annotations

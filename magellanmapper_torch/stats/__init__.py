@@ -1,1 +1,2 @@
-"""Statistics: the detection grid search."""
+"""Statistics: the detection grid search, per-region metrics and
+cluster counts."""

@@ -1,17 +1,23 @@
 """Synthetic fixtures and checks shared by the port's tests and
-``chip_smoke.py``: a seeded volume of planted nuclei, a truth database of
-its centres, blob-row equality, detection quality against the planted
-centres, and the edge cases of the percentile kernel (K4)."""
+``chip_smoke.py``: a seeded volume of planted nuclei, a full-resolution
+specimen made from a registration pair with nuclei planted in its brain,
+a truth database of the centres, blob-row equality, detection quality
+against the planted centres, and the edge cases of the percentile kernel
+(K4)."""
 
 from __future__ import annotations
 
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
 from scipy import optimize
 from scipy.spatial import distance
 
+from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.io import sqlite
+from magellanmapper_torch.ops import filters
+from magellanmapper_torch.ops import resize as resize_ops
 
 
 def make_nuclei_volume(shape, seed, spacing=20, sigma=2.7, jitter=4):
@@ -41,6 +47,89 @@ def make_nuclei_volume(shape, seed, spacing=20, sigma=2.7, jitter=4):
         vol[z] += rng.normal(200, 30, shape[1:]).astype(np.float32)
     np.clip(vol, 0, 65535, out=vol)
     return vol.astype(np.uint16), centres
+
+
+#: :func:`make_specimen`'s texture at its brightest, its tissue level in
+#: the brain, and its background's mean and noise, in counts
+SPECIMEN_TEXTURE = 150.0
+SPECIMEN_TISSUE = 150.0
+SPECIMEN_BACKGROUND = 200.0
+SPECIMEN_NOISE = 15.0
+
+
+def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda"
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """Seeded full-resolution specimen of a registration pair
+    (``atlas.gauntlet.build_pair``), made on ``device``.
+
+    The pair's fixed image, blurred by one of its voxels and upsampled
+    ``factor`` times per axis with ``ops.resize`` (linear), is a texture
+    of ``SPECIMEN_TEXTURE`` counts at its brightest, over a tissue level
+    of ``SPECIMEN_TISSUE`` counts in the ground-truth brain (its mask
+    blurred by two voxels of the pair); Gaussian nuclei (the
+    stamp, 20 voxel lattice, jitter and amplitudes of
+    :func:`make_nuclei_volume`) are planted at the lattice points inside
+    the ground-truth brain (``labels_fixed_gt`` > 0 at the point's voxel
+    of the pair); noise N(``SPECIMEN_BACKGROUND``, ``SPECIMEN_NOISE``)
+    from a generator seeded on ``device`` covers it all.
+
+    The contrasts are set so that the planted nuclei are the only blobs
+    to find and the specimen still registers once shrunk back: texture
+    and tissue together stay 5-10 times dimmer than a nucleus
+    (1,500-3,000 counts), since the detector's per-tile saturation turns
+    brighter ones into blobs, yet bright enough over the background that
+    the shrunk brain is more than its nuclei to Otsu's threshold and to
+    Mattes MI. In y and x the lattice keeps
+    :func:`make_nuclei_volume`'s offset (centres stay 6 voxels or more
+    from multiples of 20, where verification tiles may cut); in z it sits
+    on the multiples of 20, so that the planes the detector samples for
+    its near-max (every ``Z // 16``-th, a multiple of 20 at a depth of
+    640) pass through nuclei as they would in tissue without a lattice.
+    Verify with tiles spanning the whole depth. Returns ``(volume,
+    centres)``: uint16 ``(Z, Y, X)`` at ``factor`` times the pair's
+    shape, and the nuclei's integer centres.
+    """
+    dev = device_mod.resolve(device)
+    spacing, sigma, jitter = 20, 2.7, 4
+    small = np.asarray(pair["fixed"], np.float32)
+    shape = tuple(int(s) * factor for s in small.shape)
+    rng = np.random.default_rng(seed)
+    grids = [np.arange(spacing // 2, s - spacing // 2 + 1, spacing)
+             for s in shape]
+    grids[0] = np.arange(spacing, shape[0] - spacing // 2 + 1, spacing)
+    centres = np.stack(np.meshgrid(*grids, indexing="ij"), -1).reshape(-1, 3)
+    centres = centres + rng.integers(-jitter, jitter + 1, centres.shape)
+    amps = rng.uniform(1500, 3000, len(centres)).astype(np.float32)
+    inside = np.asarray(pair["labels_fixed_gt"])[
+        tuple((centres // factor).T)] > 0
+    centres, amps = centres[inside], amps[inside]
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    vol = torch.empty(shape, dtype=torch.float32, device=dev)
+    vol.normal_(SPECIMEN_BACKGROUND, SPECIMEN_NOISE, generator=gen)
+    # the pair's own voxel noise, upsampled, would be blobs of ~factor
+    # voxels: a blur of one voxel of the pair takes it out first
+    tex = filters.gaussian_filter(torch.from_numpy(small).to(dev), 1.0)
+    tex *= np.float32(SPECIMEN_TEXTURE / max(float(tex.max()), 1e-6))
+    brain = torch.from_numpy(np.asarray(pair["labels_fixed_gt"]) > 0)
+    tex += filters.gaussian_filter(brain.to(dev, torch.float32), 2.0) \
+        * np.float32(SPECIMEN_TISSUE)
+    vol += resize_ops.resize(tex, shape)
+    r = int(3 * sigma) + 1
+    g = torch.arange(-r, r + 1, dtype=torch.float32, device=dev)
+    stamp = torch.exp(-(g[:, None, None] ** 2 + g[None, :, None] ** 2
+                        + g[None, None, :] ** 2) / np.float32(2 * sigma ** 2))
+    for centre, amp in zip(centres, amps):
+        lo = np.maximum(centre - r, 0)
+        hi = np.minimum(centre + r + 1, shape)
+        dst = tuple(slice(a, b) for a, b in zip(lo, hi))
+        src = tuple(slice(a - c + r, b - c + r)
+                    for a, b, c in zip(lo, hi, centre))
+        vol[dst] += float(amp) * stamp[src]
+    # truncate to uint16 as make_nuclei_volume does; int16 holds the bits
+    vol = torch.clamp(vol, 0, 65535).to(torch.int32).to(torch.int16)
+    return vol.cpu().numpy().view(np.uint16), centres
 
 
 #: percentile pairs K4 is held to on its edge cases: lightsheet's clip,

@@ -1,16 +1,18 @@
-"""Path helpers.
+"""Path and sequence helpers.
 
-Copy of the path helpers of ``magellanmapper_tpu/utils/libmag.py``
+Copy of the helpers of ``magellanmapper_tpu/utils/libmag.py``
 (``splitext :23``, ``insert_before_ext :32``, ``combine_paths :38``,
-``backup_file :60``) that the port's blob archive, database and image
-naming use.
+``backup_file :60``, ``is_seq :176``) that the port's blob archive,
+database and image naming and its region metrics use.
 """
 
 from __future__ import annotations
 
 import os
 import shutil
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
+
+import numpy as np
 
 #: multi-part extensions treated as a single suffix.
 EXTS_COMPOUND = (".nii.gz", ".ome.tif", ".ome.tiff", ".tar.gz")
@@ -63,3 +65,8 @@ def backup_file(path: str, modifier: str = "") -> Optional[str]:
             shutil.move(path, backup)
             return backup
         i += 1
+
+
+def is_seq(val: Any) -> bool:
+    """True for list/tuple/ndarray (not strings)."""
+    return isinstance(val, (list, tuple, np.ndarray))

@@ -310,8 +310,34 @@ def test_register_cli_parses_as_the_reference(argv):
         t.name for t in type(want.register_type)]
 
 
-@pytest.mark.parametrize("task", ["group", "import_atlas", "vol_stats",
-                                  "no_such_task"])
+@pytest.mark.parametrize("argv", [
+    ["--img", "s.npy", "--proc", "transform", "--transform",
+     "rescale=0.25"],
+    ["--img", "s.npy", "--proc", "transform", "--transform", "rescale=0.5",
+     "--plane", "yz", "--prefix", "out/p"],
+    ["--img", "s.npy", "--proc", "preprocess", "saturate", "denoise",
+     "remap", "rotate90"],
+    ["--img", "s.npy", "--register", "make_density_images"],
+    ["--img", "s.npy", "t.npy", "--register", "make_density_images"],
+    ["--img", "s.npy", "--register", "vol_stats"],
+    ["--img", "s.npy", "--register", "vol_stats", "--labels",
+     "path_ref=ref.json", "level=2", "--prefix", "out/p"],
+    ["--register", "export_regions", "--labels", "path_ref=ref.json",
+     "level=1", "--prefix", "ids.csv"],
+])
+def test_pipeline_cli_parses_as_the_reference(argv):
+    got = cli.process_cli_args(argv + ["--device", "cpu"])
+    want = ref_cli.process_cli_args(argv)
+    assert got.proc == (want.proc.name.lower() if want.proc else None)
+    assert (got.register_type.name if got.register_type else None) == (
+        want.register_type.name if want.register_type else None)
+    for name in ("filenames", "prefix", "proc_args", "transform", "plane",
+                 "labels"):
+        assert getattr(got, name) == getattr(want, name), name
+
+
+@pytest.mark.parametrize("task", ["group", "import_atlas",
+                                  "make_edge_images", "no_such_task"])
 def test_other_register_tasks_are_rejected_by_name(task):
     with pytest.raises(SystemExit, match=f"--register {task}"):
         cli.process_cli_args(["--img", "s.npy", "atlas", "--register", task])

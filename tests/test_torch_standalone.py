@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from magellanmapper_tpu.atlas import ontology as ref_ontology
 from magellanmapper_tpu.cv import blobs as ref_blobs
 from magellanmapper_tpu.cv import chunking as ref_chunking
 from magellanmapper_tpu.cv import verifier as ref_verifier
@@ -25,11 +26,13 @@ from magellanmapper_tpu.settings import grid_search_prof as ref_gs_prof
 from magellanmapper_tpu.settings import roi_prof as ref_roi_prof
 from magellanmapper_tpu.utils import libmag as ref_libmag
 from magellanmapper_torch import testing
-from magellanmapper_torch.atlas import gauntlet
-from magellanmapper_torch.cv import blobs, chunking, stack_detect, verifier
-from magellanmapper_torch.io import cli, np_io, sitk_io, sqlite, yaml_io
+from magellanmapper_torch.atlas import gauntlet, ontology, transformer
+from magellanmapper_torch.cv import blobs, chunking, cv_nd, stack_detect
+from magellanmapper_torch.cv import verifier
+from magellanmapper_torch.io import cli, export_regions, np_io, sitk_io
+from magellanmapper_torch.io import sqlite, yaml_io
 from magellanmapper_torch.settings import grid_search_prof, roi_prof
-from magellanmapper_torch.stats import mlearn
+from magellanmapper_torch.stats import mlearn, vols
 from magellanmapper_torch.utils import libmag
 
 torch.set_num_threads(1)
@@ -182,6 +185,158 @@ def test_path_helpers_copy(tmp_path):
     path = tmp_path / "f.txt"
     path.write_text("x")
     assert libmag.backup_file(str(path)) == str(tmp_path / "f(1).txt")
+
+
+def test_reference_blob_archive_reads_in_the_port(tmp_path):
+    rng = np.random.default_rng(6)
+    ref = ref_blobs.Blobs(_raw(rng, 15))
+    ref.format_blobs(2)
+    ref.resolutions = np.array([[1.0, 0.5, 0.5]])
+    ref.basename, ref.roi_offset, ref.roi_size = "s", [1, 2, 3], [9, 9, 9]
+    ref.path = str(tmp_path / "s_blobs.npz")
+    ref.save_archive()
+    got = blobs.Blobs().load_blobs(ref.path)
+    want = ref_blobs.Blobs().load_blobs(ref.path)
+    for name in ("blobs", "resolutions", "roi_offset", "roi_size"):
+        np.testing.assert_array_equal(getattr(got, name),
+                                      getattr(want, name))
+    assert (got.cols, got.basename, got.ver) == (want.cols, want.basename,
+                                                 want.ver)
+    for channel in (None, 2, [0, 2], 5):
+        for mask in (False, True):
+            g = blobs.Blobs.blobs_in_channel(got.blobs, channel, mask)
+            w = ref_blobs.Blobs.blobs_in_channel(want.blobs, channel, mask)
+            for a, b in zip(g if mask else [g], w if mask else [w]):
+                np.testing.assert_array_equal(a, b)
+
+
+# -- ontology -----------------------------------------------------------------
+
+_ABA = {"msg": [{
+    "id": 1, "name": "root", "acronym": "rt", "st_level": 0,
+    "children": [
+        {"id": 2, "name": "cortex", "acronym": "cx", "st_level": 1,
+         "children": [
+             {"id": 4, "name": "layer1", "acronym": "l1", "st_level": 2,
+              "children": []},
+             {"id": 5, "name": "layer2", "acronym": "l2", "st_level": 2,
+              "children": [{"id": 7, "name": "deep", "acronym": "dp",
+                            "st_level": 3}]}]},
+        {"id": 3, "name": "thalamus", "acronym": "th", "st_level": 1,
+         "children": []}]}]}
+
+
+def _ontology_files(tmp_path):
+    import json
+    aba = tmp_path / "ref.json"
+    aba.write_text(json.dumps(_ABA))
+    csv_path = tmp_path / "ref.csv"
+    csv_path.write_text("Region,RegionName,Level\n1,root,0\n2,cortex,1\n"
+                        "4,layer1,2\n")
+    itk = tmp_path / "ref.txt"
+    itk.write_text('# ITK-SNAP label description\n'
+                   '    0     0    0    0        0  0  0    "Clear Label"\n'
+                   '    2   255    0    0        1  1  1    "cortex"\n'
+                   '    3     0  255    0        1  1  1    "thalamus"\n')
+    return [str(aba), str(csv_path), str(itk)]
+
+
+def test_ontology_copy(tmp_path):
+    paths = _ontology_files(tmp_path)
+    for path in paths:
+        got = ontology.LabelsRef(path).load()
+        want = ref_ontology.LabelsRef(path).load()
+        assert sorted(got.ref_lookup) == sorted(want.ref_lookup)
+        for lid, entry in want.ref_lookup.items():
+            assert got.ref_lookup[lid][ontology.PARENT_IDS] == \
+                entry[ref_ontology.PARENT_IDS]
+            assert got.ref_lookup[lid][ontology.MIRRORED] == \
+                entry[ref_ontology.MIRRORED]
+            for side in (False, True):
+                assert ontology.get_label_name(got.ref_lookup[lid], side) \
+                    == ref_ontology.get_label_name(entry, side)
+        pd_got = got.get_ref_lookup_as_df()
+        pd_want = want.get_ref_lookup_as_df()
+        assert pd_got.astype(str).equals(pd_want.astype(str))
+    with pytest.raises(FileNotFoundError):
+        ontology.LabelsRef(str(tmp_path / "none.json")).load()
+    got = ontology.LabelsRef(paths[0]).load().ref_lookup
+    want = ref_ontology.LabelsRef(paths[0]).load().ref_lookup
+    labels = np.array([[[4, 5, 3, 0], [-7, -4, 2, 1]]], np.int32)
+    for level in (None, 0, 1, 2, 3):
+        assert ontology.labels_to_parent(got, level) == \
+            ref_ontology.labels_to_parent(want, level)
+        if level is not None:
+            np.testing.assert_array_equal(
+                ontology.make_labels_level(labels, got, level),
+                ref_ontology.make_labels_level(labels, want, level))
+        for lid in (4, -7, 99):
+            a = ontology.get_label_at_level(lid, got, level)
+            b = ref_ontology.get_label_at_level(lid, want, level)
+            assert (a is None and b is None) or a[ontology.NODE] == \
+                b[ref_ontology.NODE]
+    for lid in (2, -2, 7, 99):
+        for incl, both in ((True, False), (False, True)):
+            assert ontology.get_children_from_id(got, lid, incl, both) == \
+                ref_ontology.get_children_from_id(want, lid, incl, both)
+    for ids in (4, [-4, -5], [3, -3], []):
+        assert ontology.get_label_side(ids) == \
+            ref_ontology.get_label_side(ids)
+    big = np.zeros((6, 8, 8), np.int32)
+    big[1:4, 2:6, 2:7] = 4
+    big[3:5, 1:3, 1:4] = -5
+    for args in (([4], False), ([5], True), ([2], True)):
+        a, b = (mod.get_region_middle(lk, args[0], big,
+                                      (2.0, 1.0, 1.0), args[1])
+                for mod, lk in ((ontology, got), (ref_ontology, want)))
+        assert a[0] == b[0] and a[2] == b[2]
+        np.testing.assert_array_equal(a[1], b[1])
+    coord = (2, 3, 4)
+    for kwargs in ({}, {"scaling": (0.5, 0.6, 0.7), "rounding": True},
+                   {"level": 1}):
+        a = ontology.get_label(coord, big, got, **kwargs)
+        b = ref_ontology.get_label(coord, big, want, **kwargs)
+        assert (a is None and b is None) or a[ontology.NODE] == \
+            b[ref_ontology.NODE]
+    rng = np.random.default_rng(11)
+    coords = rng.uniform(0, 40, (200, 3))
+    for clip in (None, big.shape):
+        np.testing.assert_array_equal(
+            ontology.scale_coords(coords, (0.15, 0.2, 0.19), clip),
+            ref_ontology.scale_coords(coords, (0.15, 0.2, 0.19), clip))
+    scaled = ontology.scale_coords(coords, (0.15, 0.2, 0.19), big.shape)
+    np.testing.assert_array_equal(
+        ontology.get_label_ids_from_position(scaled, big),
+        ref_ontology.get_label_ids_from_position(scaled, big))
+    import pandas as pd
+    swap = pd.DataFrame({"Region": [4, -5], "RegionTo": [3, 3]})
+    for clear in (False, True):
+        np.testing.assert_array_equal(
+            ontology.replace_labels(big, swap, clear),
+            ref_ontology.replace_labels(big, swap, clear))
+    tree = pd.DataFrame({"Region": [1, 2, 3, 4], "Parent": [0, 1, 1, 2]})
+    assert ontology.get_children_from_id_df(tree, 1) == \
+        ref_ontology.get_children_from_id_df(tree, 1)
+    assert ontology.rel_to_abs_ages(["E18.5", "P4"]) == \
+        ref_ontology.rel_to_abs_ages(["E18.5", "P4"])
+    assert [c.value for c in ontology.LabelColumns] == [
+        c.value for c in ref_ontology.LabelColumns]
+    assert ontology.get_label_item(got[4], ontology.ABA_NAME) == \
+        ref_ontology.get_label_item(want[4], ref_ontology.ABA_NAME)
+
+
+def test_np_io_scaling_and_blob_regions_copy():
+    rng = np.random.default_rng(12)
+    labels = rng.integers(0, 9, (8, 10, 12)).astype(np.int32)
+    scaling = np_io.find_scaling((1, 32, 40, 48)[1:], labels.shape)
+    np.testing.assert_array_equal(
+        scaling, ref_np_io.find_scaling((32, 40, 48), labels.shape))
+    for ncols in (10, 11):
+        rows = np.column_stack([rng.uniform(0, 31, (30, 3)),
+                                rng.uniform(1, 3, (30, ncols - 3))])
+        np.testing.assert_array_equal(
+            np_io.assign_blob_regions(rows.copy(), labels, scaling),
+            ref_np_io.assign_blob_regions(rows.copy(), labels, scaling))
 
 
 # -- image and database I/O --------------------------------------------------
@@ -362,12 +517,32 @@ def _entry_points(tmp_path):
             vol, (1.0, 1.0, 1.0), prof),
         "grid_search_from_cli": lambda: mlearn.grid_search_from_cli(rc),
         "cli.main": lambda: cli.main(["--img", img, "--proc", "detect"]),
+        "transpose_img": lambda: transformer.transpose_img(
+            img, rescale=0.5),
+        "preprocess_img": lambda: transformer.preprocess_img(
+            vol[None], ["saturate"]),
+        "Downsampler": lambda: transformer.Downsampler(vol).rescale(0.5),
+        "build_heat_map": lambda: cv_nd.build_heat_map(
+            vol.shape, np.zeros((1, 3))),
+        "perimeter_nd": lambda: cv_nd.perimeter_nd(vol > 0),
+        "make_density_image": lambda: export_regions.make_density_image(
+            img),
+        "measure_labels_metrics": lambda: vols.measure_labels_metrics(
+            None, vol.astype(np.int32)),
+        "cli.main transform": lambda: cli.main(
+            ["--img", img, "--proc", "transform", "--transform",
+             "rescale=0.5"]),
+        "cli.main vol_stats": lambda: cli.main(
+            ["--img", img, "--register", "vol_stats"]),
     }
 
 
 @pytest.mark.parametrize("name", [
     "detect_blobs_blocks", "detect_blobs_stack", "StackDetector",
-    "make_fn_detect_multi", "grid_search_from_cli", "cli.main"])
+    "make_fn_detect_multi", "grid_search_from_cli", "cli.main",
+    "transpose_img", "preprocess_img", "Downsampler", "build_heat_map",
+    "perimeter_nd", "make_density_image", "measure_labels_metrics",
+    "cli.main transform", "cli.main vol_stats"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()
@@ -381,25 +556,41 @@ names = [m.name for m in pkgutil.walk_packages(
     magellanmapper_torch.__path__, "magellanmapper_torch.")]
 for name in names:
     importlib.import_module(name)
-img, truth, fixed, atlas, prof = sys.argv[1:6]
+img, truth, fixed, atlas, prof, ref = sys.argv[1:7]
 blobs = cli.main(["--img", img, "--proc", "detect", "--roi_profile",
                   "lightsheet", "--device", "cpu"])
 df = cli.main(["--img", img, "--grid_search", "gridtest", "--roi_profile",
                "4xnuc", "--truth_db", truth, "--device", "cpu"])
 reg = cli.main(["--img", fixed, atlas, "--register", "single",
                 "--atlas_profile", prof, "--device", "cpu"])
+small = cli.main(["--img", fixed, "--proc", "transform", "--transform",
+                  "rescale=0.5", "--device", "cpu"])
+pre = cli.main(["--img", small, "--proc", "preprocess", "saturate",
+                "--prefix", small + "_pre.npy", "--device", "cpu"])
+cli.main(["--img", fixed, "--proc", "detect", "--roi_profile", "4xnuc",
+          "--device", "cpu"])
+heat, _ = cli.main(["--img", fixed, "--register", "make_density_images",
+                    "--device", "cpu"])
+vols = cli.main(["--img", fixed, "--register", "vol_stats", "--labels",
+                 "path_ref=" + ref, "--device", "cpu"])
+ids = cli.main(["--register", "export_regions", "--labels",
+                "path_ref=" + ref, "--prefix", ref + ".csv", "--device",
+                "cpu"])
+assert int(heat.sum()) > 0 and int(vols["Nuclei"].sum()) > 0
+assert pre.shape[0] == 1 and len(ids) > 0
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "magellanmapper_tpu"))
 assert not loaded, loaded
-print(len(names), len(blobs), len(df), len(reg["paths"]))
+print(len(names), len(blobs), len(df), len(reg["paths"]), len(vols))
 """
 
 
 def test_both_cli_tasks_run_without_the_reference(tmp_path):
     """A fresh interpreter imports every port module and runs detection,
-    the grid search and ``--register single`` on the CPU; neither jax nor
-    any module of the reference package is loaded (conftest imports jax
-    here)."""
+    the grid search, ``--register single`` and the specimen pipeline's
+    tasks (transform, preprocess, make_density_images, vol_stats,
+    export_regions) on the CPU; neither jax nor any module of the
+    reference package is loaded (conftest imports jax here)."""
     roi, centres = testing.make_grid_roi((24, 48, 48), 0, spacing=12,
                                          jitter=2)
     img = str(tmp_path / "roi.npy")
@@ -421,8 +612,10 @@ def test_both_cli_tasks_run_without_the_reference(tmp_path):
                     "  max_iter: 8\nreg_bspline:\n  max_iter: 4\n")
     out = subprocess.run(
         [sys.executable, "-c", _BOTH_TASKS_ALONE, img, truth, fixed,
-         str(atlas), str(prof)],
+         str(atlas), str(prof), _ontology_files(tmp_path)[0]],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
-    n_mods, n_blobs, n_rows, n_paths = map(int, out.stdout.split()[-4:])
+    n_mods, n_blobs, n_rows, n_paths, n_regions = map(
+        int, out.stdout.split()[-5:])
     assert n_mods >= 30 and n_blobs > 0 and n_rows == 4 and n_paths == 4
+    assert n_regions > 0

@@ -55,7 +55,24 @@ result, on any fault. Phases:
    and on the CPU;
 7. ``cv.detector.detect_blobs`` on a (48, 192, 192) crop of the detect
    volume at resolutions (2, 1, 1) made isotropic, card against CPU;
-8. a JSON line of per-kernel results (launches summed over the paths,
+8. atlas construction, which runs none of the hand-written kernels (its
+   launch counts are printed, 0): ``--register group --atlas_profile
+   groupwise`` through the CLI on four brains of the pair's shape, each
+   the pair's fixed image and truth labels under its own ground-truth
+   warp (wall, steps per second by level, peak memory; the group's
+   variance after below half of before, the carried labels' mean pairwise
+   DSC above the unregistered one), the same engine card against CPU on
+   three (20, 28, 28) brains; ``register`` with stage checkpoints stopped
+   after its affine stage and resumed, equal to an uninterrupted run; a
+   one-sided atlas at the 25 um atlas's (528, 320, 456) imported with
+   ``abap56`` (its labels mirrored exactly), smoothed,
+   ``make_edge_images`` (edges inside the labels, distance 0 exactly on
+   them), ``merge_atlas_segs`` (watershed sweeps, labels lost,
+   ``DSC_orig_new``) and ``make_subsegs`` (each sub-label's parent), each
+   step's wall and peak memory; a crop of it card against CPU (markers,
+   watershed and sub-labels exactly, the LoG image within 1e-4 of its
+   range);
+9. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --k4-times [--root DIR]`` times K4
@@ -137,6 +154,32 @@ VOLS_RTOL = 1e-5
 #: regions into several hundred IDs there
 CCF25_SHAPE = (528, 320, 456)
 CCF25_SPLIT = (6, 4, 6)
+#: atlas construction: four brains of the pair's shape (the pair's fixed
+#: image and truth labels, each under its own ground-truth warp, seeds
+#: 1-4) registered by ``--register group --atlas_profile groupwise``; the
+#: reference's gate on the variance after against before
+#: (``tests/test_registration.py:192``)
+GROUP_SEEDS = (1, 2, 3, 4)
+GROUP_VAR_GATE = 0.5
+#: the groupwise card-against-CPU check: three brains of REG_CROP (every
+#: metric stride 1), a short run of each route, and its limits by stage and
+#: parameter: Adam turns float32 noise into sign flips of whole steps, as
+#: for REG_CROP; the lattice (rate 0.5 voxels a step) is held to half a
+#: step (0.070 voxels measured on an H100)
+GROUP_CROP_RUN = dict(max_iter=32, grid_space_voxels=12.0,
+                      grid_spacing_schedule=[2.0, 2.0, 2.0, 1.0, 1.0, 1.0])
+GROUP_CROP_ATOL = {"affine.W": 1e-3, "affine.t": 1e-2, "bspline.W": 1e-3,
+                   "bspline.t": 1e-2, "bspline.grid": 0.25}
+#: the resume check: ``--register single`` on REG_CROP with a short
+#: schedule, stopped after its affine stage and resumed
+RESUME_ITERS = {"reg_translation": 48, "reg_affine": 32, "reg_bspline": 16}
+#: atlas refinement at CCF25_SHAPE: a one-sided atlas from the pair
+#: (``testing.make_atlas``), its outermost labelled planes cleared, imported
+#: with the ``abap56`` profile, smoothed (filter 2), reannotated; the
+#: card-against-CPU crop of the imported atlas and the LoG image's limit
+ATLAS_CUT_PLANES = 8
+ATLAS_CROP = (slice(40, 88), slice(96, 192), slice(96, 192))
+LOG_RTOL = 1e-4
 #: detect_blobs: a crop of the detect volume, read as 2 um in z
 DETECT_CROP = (48, 192, 192)
 DETECT_RES = (2.0, 1.0, 1.0)
@@ -774,14 +817,8 @@ def specimen_chain(torch, pair, work, launches):
     steps = {}
 
     def step(name, argv):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        out = cli.main(argv + ["--device", "cuda"])
-        torch.cuda.synchronize()
-        steps[name] = {"wall_s": time.perf_counter() - t0,
-                       "peak_device_mib":
-                       torch.cuda.max_memory_allocated() / 2**20}
+        out, steps[name] = timed(torch, lambda: cli.main(
+            argv + ["--device", "cuda"]))
         return out
 
     t0 = time.perf_counter()
@@ -1008,6 +1045,362 @@ def detect_blobs_crop(torch, crop, launches):
         fail("detect_blobs: the card's blobs differ from the CPU's")
 
 
+class LogRecords:
+    """Collects the port's log records while open, so a phase can read
+    what a task logged (the watershed's sweeps, the groupwise levels)."""
+
+    def __init__(self, name: str):
+        import logging
+
+        self.records = []
+        self.logger = logging.getLogger(name)
+        self.handler = logging.Handler()
+        self.handler.emit = self.records.append
+
+    def __enter__(self):
+        import logging
+
+        self.logger.addHandler(self.handler)
+        self.level = self.logger.level
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+    def args(self, prefix: str):
+        """The arguments of every record whose message starts so."""
+        return [r.args for r in self.records if r.msg.startswith(prefix)]
+
+
+def timed(torch, fn):
+    """``fn()`` on the card: its result, wall seconds and peak MiB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"wall_s": time.perf_counter() - t0,
+                 "peak_device_mib": torch.cuda.max_memory_allocated() / 2**20}
+
+
+def group_labels(torch, labels, per_img, spacing):
+    """The group's labels carried through their recovered transforms, in
+    one gather at order 0, on the card."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch.atlas import transform
+
+    dev = dev_mod.resolve("cuda")
+    lab = torch.from_numpy(np.stack(labels)).to(dev)
+    p = {k: torch.from_numpy(np.stack([q[k] for q in per_img])).to(dev)
+         for k in ("W", "t", "grid") if k in per_img[0]}
+    coords = transform.group_coords(p, lab.shape[1:], spacing)
+    return list(transform.sample_volume(lab, coords, order=0).cpu().numpy())
+
+
+def groupwise_path(torch, pair, work, launches):
+    """``--register group --atlas_profile groupwise`` through the port's
+    CLI on the card, on four brains of the pair's shape
+    (``testing.make_group``): wall, steps per second by level (from the
+    engine's log), peak memory; fails unless the group's variance under
+    the recovered transforms is below ``GROUP_VAR_GATE`` of the variance
+    before and the truth labels carried by them overlap each other (mean
+    pairwise per-label DSC) better than unregistered."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.atlas import transform
+    from magellanmapper_torch.io import cli, np_io
+
+    t0 = time.perf_counter()
+    group = testing.make_group(pair, GROUP_SEEDS, device="cuda")
+    paths = []
+    for i, img in enumerate(group["imgs"]):
+        paths.append(os.path.join(work, f"brain{i}.npy"))
+        np_io.write_npy(paths[-1], img)
+    print(f"groupwise: {len(paths)} brains of {REG_SHAPE} made and written "
+          f"in {time.perf_counter() - t0:.1f} s", flush=True)
+    dev_mod.reset_launches()
+    with LogRecords("magellanmapper_torch.atlas.reg_engine") as logs:
+        (mean, per_img), stats = timed(torch, lambda: cli.main(
+            ["--img"] + paths + ["--register", "group", "--atlas_profile",
+                                 "groupwise", "--device", "cuda"]))
+    launches["groupwise"] = dict(dev_mod.LAUNCHES)
+    levels = logs.args("groupwise levels")[0][0]
+    spacing = per_img[0].get("spacing")
+    dev = dev_mod.resolve("cuda")
+    vols = torch.from_numpy(np.stack(group["imgs"])).to(dev)
+    p = {k: torch.from_numpy(np.stack([q[k] for q in per_img])).to(dev)
+         for k in ("W", "t", "grid") if k in per_img[0]}
+    with torch.no_grad():
+        moved = transform.sample_volume(
+            vols, transform.group_coords(p, REG_SHAPE, spacing))
+        var_before = float(torch.var(vols, dim=0, correction=0).mean())
+        var_after = float(torch.var(moved, dim=0, correction=0).mean())
+    del vols, moved
+    carried = group_labels(torch, group["labels"], per_img, spacing)
+    dsc = testing.mean_pairwise_dsc(carried)
+    dsc_before = testing.mean_pairwise_dsc(group["labels"])
+    ratio = var_after / var_before
+    for row in levels:
+        print(f"groupwise level: {json.dumps(row)}", flush=True)
+    print("groupwise: " + json.dumps({
+        "brains": len(paths), "shape": list(REG_SHAPE), **stats,
+        "launches": launches["groupwise"], "variance_before": var_before,
+        "variance_after": var_after, "variance_ratio": ratio,
+        "label_dsc_pairwise": dsc, "label_dsc_pairwise_unregistered":
+        dsc_before, "mean_finite": bool(np.isfinite(mean).all()),
+        "stages": stage_rates(levels)}), flush=True)
+    if not np.isfinite(mean).all() or mean.shape != REG_SHAPE:
+        fail(f"groupwise mean image {mean.shape} is not finite")
+    if not ratio < GROUP_VAR_GATE:
+        fail(f"groupwise variance ratio {ratio} >= {GROUP_VAR_GATE}")
+    if not dsc > dsc_before:
+        fail(f"groupwise labels overlap {dsc} <= unregistered {dsc_before}")
+
+
+def groupwise_crop():
+    """``register_groupwise`` on three brains of ``REG_CROP`` (every
+    metric stride 1) on the card and on the CPU, the affine route and the
+    B-spline route; fails if a stage's parameters differ beyond
+    ``GROUP_CROP_ATOL``."""
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.atlas import gauntlet, reg_engine
+
+    pair = gauntlet.build_pair(REG_CROP, seed=SEED, device="cpu",
+                               ffd_spacing=16.0, ffd_ctrl_sigma=3.0)
+    imgs = testing.make_group(pair, GROUP_SEEDS[:3], device="cpu",
+                              ffd_spacing=16.0, ffd_ctrl_sigma=2.0)["imgs"]
+    worst = {}
+    for stage, bs_iter in (("affine", 0), ("bspline", 16)):
+        runs = [reg_engine.register_groupwise(
+            imgs, bspline_iter=bs_iter, device=dev, **GROUP_CROP_RUN)[1]
+            for dev in ("cuda", "cpu")]
+        for k in runs[0][0]:
+            if k != "spacing":
+                worst[f"{stage}.{k}"] = max(float(np.abs(a[k] - b[k]).max())
+                                            for a, b in zip(*runs))
+    print(f"groupwise crop {REG_CROP} x 3: max param diffs card vs CPU "
+          f"{json.dumps(worst)}", flush=True)
+    over = {k: v for k, v in worst.items() if v > GROUP_CROP_ATOL[k]}
+    if over:
+        fail(f"groupwise crop: the card's parameters differ from the CPU's "
+             f"beyond {GROUP_CROP_ATOL}: {over}")
+
+
+def resume_path(torch, work):
+    """``register`` (the ``--register single`` task's function) on a
+    ``REG_CROP`` pair with a short schedule and stage checkpoints, once
+    uninterrupted and once stopped after its affine stage (the B-spline
+    stage raises, as a killed process stops) and run again; fails unless
+    the resumed run equals the uninterrupted one."""
+    from magellanmapper_torch.atlas import gauntlet, reg_engine, register
+    from magellanmapper_torch.settings.atlas_prof import AtlasProfile
+
+    class Stop(Exception):
+        pass
+
+    pair = gauntlet.build_pair(REG_CROP, seed=SEED, device="cpu",
+                               ffd_spacing=16.0, ffd_ctrl_sigma=3.0)
+    prof = AtlasProfile()
+    for key, n in RESUME_ITERS.items():
+        prof[key] = dict(prof[key], max_iter=n)
+    imgs = {"atlas": pair["moving"], "labels": pair["labels"]}
+
+    def run(ckdir):
+        return register.register(pair["fixed"], imgs, prof,
+                                 write_imgs=False, checkpoint_dir=ckdir,
+                                 device="cuda")
+
+    whole = run(os.path.join(work, "whole"))
+    orig = reg_engine.register_stage
+
+    def stop(*args, **kwargs):
+        if kwargs.get("kind") == "bspline":
+            raise Stop
+        return orig(*args, **kwargs)
+
+    ckdir = os.path.join(work, "stopped")
+    reg_engine.register_stage = stop
+    try:
+        run(ckdir)
+        fail("resume: the stopped run did not stop")
+    except Stop:
+        pass
+    finally:
+        reg_engine.register_stage = orig
+    saved = sorted(os.listdir(ckdir))
+    resumed = run(ckdir)
+    same = {
+        "moved_atlas": bool(np.array_equal(whole["moved_atlas"],
+                                           resumed["moved_atlas"])),
+        "moved_labels": bool(np.array_equal(whole["moved_labels"],
+                                            resumed["moved_labels"])),
+        "params": all(torch.equal(a[k], b[k]) for (_, a), (_, b) in zip(
+            whole["transform"].stages, resumed["transform"].stages)
+            for k in a)}
+    print(f"resume: checkpoints after the stop {saved}; resumed equals "
+          f"uninterrupted {json.dumps(same)}", flush=True)
+    if saved != ["affine.pt", "translation.pt"] or not all(same.values()):
+        fail(f"resume: the resumed run differs: {same}, saved {saved}")
+
+
+def atlas_path(torch, pair, work, launches):
+    """Atlas refinement at the Allen CCFv3 25 um atlas's size through the
+    port's CLI on the card, one step at a time (seconds and peak memory
+    each): ``import_atlas`` with the ``abap56`` profile (lateral edge
+    extension, mirroring), ``smooth_labels`` (filter 2) by a direct call,
+    ``make_edge_images``, ``merge_atlas_segs`` and ``make_subsegs``. Fails
+    unless the imported labels mirror each other exactly (negated), the
+    edges lie in the labels' foreground with the distance 0 exactly on
+    them, and every sub-label over 100 is its parent's ID; prints the
+    restored planes' overlap with the uncut truth, the watershed's sweeps,
+    the labels reannotation lost and ``DSC_orig_new``. Returns the
+    imported atlas and labels."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.atlas import atlas_refiner
+    from magellanmapper_torch.io import cli, sitk_io
+
+    steps = {}
+    t0 = time.perf_counter()
+    fx = testing.make_atlas(pair, CCF25_SHAPE, CCF25_SPLIT,
+                            ATLAS_CUT_PLANES, device="cuda")
+    src = os.path.join(work, "ccf25")
+    os.makedirs(src)
+    for name, arr in (("atlasVolume", fx["atlas"]),
+                      ("annotation", fx["labels"])):
+        sitk_io.write_med_img(os.path.join(src, f"{name}.mhd"),
+                              sitk_io.MedImage(arr, (0.025,) * 3))
+    n_ids = len(np.unique(fx["truth"])) - 1
+    print(f"atlas {CCF25_SHAPE}: {n_ids} IDs on one side, planes "
+          f"{fx['cut'].start}-{fx['cut'].stop - 1} cleared, made and "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+
+    def step(name, argv):
+        out, steps[name] = timed(torch, lambda: cli.main(
+            argv + ["--device", "cuda"]))
+        return out
+
+    dev_mod.reset_launches()
+    paths = step("import_atlas", ["--img", src, "--register",
+                                  "import_atlas", "--atlas_profile",
+                                  "abap56"])
+    base = paths["annotation.mhd"].replace("_annotation.mhd", ".mhd")
+    atlas = sitk_io.read_med_img(paths["atlasVolume.mhd"]).img
+    labels = sitk_io.read_med_img(paths["annotation.mhd"]).img
+    mirrored = atlas_refiner.check_mirrorred(labels, -1)
+    cut = fx["cut"]
+    truth, got = fx["truth"][cut], labels[cut]
+    fg_t, fg_g = truth != 0, got != 0
+    restored = {
+        "planes": [cut.start, cut.stop - 1],
+        "fg_dsc": float(2 * np.sum(fg_t & fg_g)
+                        / max(fg_t.sum() + fg_g.sum(), 1)),
+        "same_id_frac": float(np.mean(got[fg_t] == truth[fg_t]))}
+    print(f"import_atlas: mirrored (values, IDs) {mirrored}; restored "
+          f"lateral planes against the uncut truth {json.dumps(restored)}",
+          flush=True)
+    if not mirrored[0]:
+        fail("import_atlas: the labels do not mirror each other")
+
+    smoothed = np.array(labels)
+    _, steps["smooth_labels"] = timed(torch, lambda: (
+        atlas_refiner.smooth_labels(smoothed, 2, device="cuda")))
+    print(f"smooth_labels: {int(np.sum(smoothed != labels))} voxels "
+          "relabelled", flush=True)
+    del smoothed
+
+    imgs = step("make_edge_images", ["--img", base, "--register",
+                                     "make_edge_images"])
+    edges = imgs["atlas_edge"] != 0
+    dist = imgs["dist_to_edge"]
+    edge_check = {"edges": int(edges.sum()),
+                  "outside_labels": int(np.sum(edges & (labels == 0))),
+                  "dist_nonzero_on_edges": int(np.sum(dist[edges] != 0)),
+                  "dist_zero_off_edges": int(np.sum(dist[~edges] == 0))}
+    print(f"make_edge_images: {json.dumps(edge_check)}", flush=True)
+    del imgs, dist
+    if edge_check["edges"] == 0 or any(
+            v for k, v in edge_check.items() if k != "edges"):
+        fail(f"make_edge_images: edges or distances wrong: {edge_check}")
+
+    with LogRecords("magellanmapper_torch.cv.segmenter") as logs:
+        metr = step("merge_atlas_segs", ["--img", base, "--register",
+                                         "merge_atlas_segs"])[0]
+    sweeps = [a[0] for a in logs.args("watershed flood")]
+    new = sitk_io.load_registered_img(base, "annotation.mhd")
+    lost = atlas_refiner.find_labels_lost(np.unique(labels), np.unique(new))
+    print(f"merge_atlas_segs: watershed sweeps {sweeps}; "
+          f"{json.dumps(metr)}; labels lost {lost.tolist()}", flush=True)
+
+    sub = step("make_subsegs", ["--img", base, "--register",
+                                "make_subsegs"])
+    nz = sub != 0
+    # sub-labels are sign(id) * (|id| * 100 + k), k the component: // 100
+    # gives the parent while a label has under 100 components (as in the
+    # reference, whose numbering runs on into the next ID's range past 99)
+    k = np.abs(sub[nz]).astype(np.int64) - np.abs(new[nz]).astype(
+        np.int64) * 100
+    wide = np.unique(new[nz][k >= 100])
+    under = ~np.isin(new[nz], wide)
+    parents = bool(np.array_equal(nz, new != 0) and k.min() >= 0
+                   and np.array_equal(np.sign(sub[nz]), np.sign(new[nz]))
+                   and np.array_equal(np.abs(sub[nz][under]) // 100,
+                                      np.abs(new[nz][under])))
+    print(f"make_subsegs: {len(np.unique(sub)) - 1} sub-labels of "
+          f"{len(np.unique(new)) - 1} labels, each its parent's (// 100 the "
+          f"parent's |ID| under 100 components): {parents}; {len(wide)} "
+          f"labels of 100 or more components, numbered on into the next "
+          f"ID's range: {wide.tolist()[:10]}", flush=True)
+    if not parents:
+        fail("make_subsegs: a sub-label is not its parent's")
+    launches["atlas"] = dict(dev_mod.LAUNCHES)
+    print("atlas refinement: " + json.dumps({
+        "shape": list(CCF25_SHAPE), "voxels": int(np.prod(CCF25_SHAPE)),
+        "labels": int(len(np.unique(labels)) - 1), "steps": steps,
+        "launches": launches["atlas"]}), flush=True)
+    return atlas, labels
+
+
+def atlas_crop(atlas, labels):
+    """A crop of the imported atlas on the card and on the CPU: the
+    markers, the watershed onto one edge image (the card's) and the
+    sub-labels exactly, the clipped LoG image within ``LOG_RTOL`` of its
+    range."""
+    from magellanmapper_torch.atlas import edge_seg
+    from magellanmapper_torch.cv import cv_nd, segmenter
+
+    a = np.ascontiguousarray(atlas[ATLAS_CROP])
+    lab = np.ascontiguousarray(labels[ATLAS_CROP])
+    edges = edge_seg.make_edge_images(a, lab, 5.0,
+                                      device="cuda")["atlas_edge"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        markers = edge_seg.erode_labels(lab, 8, device=dev)[0]
+        out[dev] = {
+            "markers": markers,
+            "watershed": segmenter.segment_from_labels(edges, markers, lab,
+                                                       device=dev),
+            "sub": edge_seg.make_sub_segmented_labels(lab, edges,
+                                                      device=dev),
+            "log": cv_nd.laplacian_of_gaussian_img(a, 5.0, lab,
+                                                   device=dev),
+            "s": time.perf_counter() - t0}
+    card, cpu = out["cuda"], out["cpu"]
+    same = {k: bool(np.array_equal(card[k], cpu[k]))
+            for k in ("markers", "watershed", "sub")}
+    log_err = float(np.abs(card["log"] - cpu["log"]).max()
+                    / max(np.ptp(cpu["log"]), 1e-30))
+    print(f"atlas crop {lab.shape}: card {card['s']:.2f} s, CPU "
+          f"{cpu['s']:.2f} s; equal {json.dumps(same)}; LoG max difference "
+          f"{log_err:.3g} of its range", flush=True)
+    if not all(same.values()) or not log_err <= LOG_RTOL:
+        fail(f"atlas crop: the card differs from the CPU: {same}, LoG "
+             f"{log_err}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1157,11 +1550,25 @@ def main() -> None:
     vol_stats_25um(torch, pair, spec_blobs)
     torch.cuda.empty_cache()
     gauntlet_path(pair)
-    del pair
     register_crop()
 
     # 7. detect_blobs, card against CPU
     detect_blobs_crop(torch, det_crop, launches)
+
+    # 8. atlas construction: groupwise registration, stage checkpoints,
+    # atlas import and edge-aware reannotation at the 25 um atlas's size
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        groupwise_path(torch, pair, tmp, launches)
+    torch.cuda.empty_cache()
+    groupwise_crop()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        resume_path(torch, tmp)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        atlas, labels = atlas_path(torch, pair, tmp, launches)
+    del pair
+    torch.cuda.empty_cache()
+    atlas_crop(atlas, labels)
+    del atlas, labels
 
     for name in results:
         n = sum(path[name] for path in launches.values())
@@ -1176,7 +1583,7 @@ def main() -> None:
         fail(f"the port must run without jax and the reference package, "
              f"but these were imported: {loaded[:10]}")
 
-    # 8. results
+    # 9. results
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ error can be scored against the truth. The anatomy and the modality gap
 are host numpy (copies of the reference); the two ground-truth warps run
 through the port's :mod:`.transform` on the device asked for.
 
-Not ported yet: ``run_gauntlet_suite`` (ROADMAP queue item 8).
+Not ported yet: ``run_gauntlet_suite`` (ROADMAP queue item 6).
 """
 
 from __future__ import annotations

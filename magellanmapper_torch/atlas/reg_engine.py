@@ -19,9 +19,13 @@ out to match ``optax.adam(1.0)`` (b1 0.9, b2 0.999, eps 1e-8 after the
 square root, bias correction from step 1), scaled per leaf by
 ``_LEARNING_RATES`` times ``0.05 ** (i / iters)``.
 
-Not ported yet: the mesh-sharded level (``mesh``; ROADMAP queue item 11),
-stage checkpoints (``checkpoint_dir``; queue item 9, ``utils/checkpoint``)
-and groupwise registration (queue item 8).
+Groupwise registration (:func:`register_groupwise`) optimises every
+image's transform together against the group's per-voxel variance, the
+K images' warps taken as one gather. ``register_duo(checkpoint_dir=...)``
+saves each completed stage (:mod:`magellanmapper_torch.utils.checkpoint`)
+and restores it on a rerun instead of optimising it again.
+
+Not ported yet: the mesh-sharded level (``mesh``; ROADMAP queue item 10).
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import torch.nn.functional as F
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.atlas import metrics, transform
 from magellanmapper_torch.ops import filters
+from magellanmapper_torch.utils import checkpoint
 
 _logger = logging.getLogger(__name__)
 
@@ -127,12 +132,15 @@ def _metric_stride(
     return tuple(stride)
 
 
-def _adam_level_loop(loss_fn, params, iters: int, lrs, stride, jitter):
-    """``iters`` Adam steps (``optax.adam(1.0)``) with per-leaf learning
-    rates and the within-level decay to ``_LR_DECAY_FLOOR``; with
-    ``jitter``, each step draws a new offset into the strided sample grid
-    from a CPU generator seeded 0. Returns the parameters and the loss
-    on the unjittered grid (a tensor: nothing here waits for the card)."""
+def _adam_level_loop(loss_fn, params, iters: int, lrs, stride, jitter,
+                     decay: bool = True):
+    """``iters`` Adam steps (``optax.adam(1.0)``, its moments and bias
+    correction in its order of operations) with per-leaf learning rates
+    and, with ``decay``, the within-level decay to ``_LR_DECAY_FLOOR``;
+    with ``jitter``, each step draws a new offset into the strided sample
+    grid from a CPU generator seeded 0. Returns the parameters and the
+    loss on the unjittered grid (a tensor: nothing here waits for the
+    card)."""
     lr_map = dict(lrs)
     p = {k: v.detach().clone().requires_grad_(True)
          for k, v in params.items()}
@@ -151,13 +159,14 @@ def _adam_level_loop(loss_fn, params, iters: int, lrs, stride, jitter):
         count = i + 1
         bc1 = float(f32(1) - f32(_B1) ** f32(count))
         bc2 = float(f32(1) - f32(_B2) ** f32(count))
-        decay = float(f32(_LR_DECAY_FLOOR) ** (f32(i) / f32(max(iters, 1))))
+        scale = float(f32(_LR_DECAY_FLOOR) ** (f32(i) / f32(max(iters, 1)))
+                      ) if decay else 1.0
         with torch.no_grad():
             for (k, v), g in zip(p.items(), grads):
-                mu[k].mul_(_B1).add_(g, alpha=1 - _B1)
-                nu[k].mul_(_B2).addcmul_(g, g, value=1 - _B2)
+                mu[k] = g * (1 - _B1) + mu[k] * _B1
+                nu[k] = (g * g) * (1 - _B2) + nu[k] * _B2
                 step = (mu[k] / bc1) / (torch.sqrt(nu[k] / bc2) + _EPS)
-                v.sub_(step * (lr_map.get(k, 1.0) * decay))
+                v.sub_(step * (lr_map.get(k, 1.0) * scale))
     out = {k: v.detach() for k, v in p.items()}
     with torch.no_grad():
         final = loss_fn(out, None)
@@ -175,11 +184,31 @@ def _optimize_level(
         mov_pts: Optional[torch.Tensor] = None,
         pt_weight: float = 0.0, jitter: bool = True,
         moving_mask: Optional[torch.Tensor] = None):
-    """``iters`` Adam steps at one pyramid level. ``fixed_mask`` restricts
-    the metric to mask samples; ``moving_mask`` drops samples that map
+    """``iters`` Adam steps at one pyramid level of
+    :func:`_level_loss_fn`'s loss."""
+    return _adam_level_loop(_level_loss_fn(
+        fixed, moving, pre_affine, kind, metric, spacing, stride,
+        fixed_mask, fix_pts, mov_pts, pt_weight, moving_mask),
+        params, iters, lrs, stride, jitter)
+
+
+def _level_loss_fn(
+        fixed: torch.Tensor, moving: torch.Tensor,
+        pre_affine: Optional[Dict], kind: str, metric: str,
+        spacing: Optional[Tuple[float, ...]],
+        stride: Tuple[int, int, int] = (1, 1, 1),
+        fixed_mask: Optional[torch.Tensor] = None,
+        fix_pts: Optional[torch.Tensor] = None,
+        mov_pts: Optional[torch.Tensor] = None,
+        pt_weight: float = 0.0,
+        moving_mask: Optional[torch.Tensor] = None):
+    """The loss of parameters ``p`` at one pyramid level, on the sample
+    grid shifted by ``offset`` (``reg_engine.py:182-204``): the metric of
+    the fixed image against the moved one. ``fixed_mask`` restricts the
+    metric to mask samples; ``moving_mask`` drops samples that map
     outside it (not differentiated through); ``fix_pts``/``mov_pts`` add
     the corresponding-points distance term weighted by ``pt_weight``."""
-    def loss_fn(p, offset):
+    def loss_fn(p, offset=None):
         moved = transform.resample(
             moving, p, kind, fixed.shape, spacing, pre_affine, order=1,
             stride=stride, offset=offset)
@@ -203,7 +232,7 @@ def _optimize_level(
             loss = loss + pt_weight * torch.mean(dist)
         return loss
 
-    return _adam_level_loop(loss_fn, params, iters, lrs, stride, jitter)
+    return loss_fn
 
 
 def _parse_grid_schedule(sched, levels_cap: int):
@@ -290,7 +319,7 @@ def register_stage(
     tensors on ``device``.
     """
     if mesh is not None:
-        _not_ported("the mesh-sharded registration level", "11")
+        _not_ported("the mesh-sharded registration level", "10")
     dev = device_mod.resolve(device)
     kind = kind or stage.get("map_name")
     if kind is None:
@@ -513,12 +542,14 @@ def register_duo(
     (translation -> affine -> bspline) on ``device``
     (``reg_engine.py:635-740``). Returns the moved image and the result,
     whose metrics hold ``dsc_fixed_moved`` (and ``dsc_stage_<kind>`` after
-    each stage with ``record_stage_dsc``)."""
-    if checkpoint_dir:
-        _not_ported("checkpoint_dir (stage checkpoints)", "9")
+    each optimised stage with ``record_stage_dsc``). With
+    ``checkpoint_dir`` each completed stage is saved there, and a stage
+    already saved is restored instead of optimised."""
     if mesh is not None:
-        _not_ported("the mesh-sharded registration level", "11")
+        _not_ported("the mesh-sharded registration level", "10")
     dev = device_mod.resolve(device)
+    ckpt = (checkpoint.RegistrationCheckpoint(checkpoint_dir)
+            if checkpoint_dir else None)
     stages_cfg = [(k, s) for k, s in (
         ("translation", profile["reg_translation"]),
         ("affine", profile["reg_affine"]),
@@ -539,22 +570,33 @@ def register_duo(
         if stage.get("point_based") and fix_pts is not None \
                 and mov_pts is not None:
             common.update(fix_pts=fix_pts, mov_pts=mov_pts)
-        if kind == "translation":
+        restored = ckpt.load_stage(kind) if ckpt else None
+        if restored is not None:
+            params = {k: v.to(dev) for k, v in restored.items()}
+        elif kind == "translation":
             params, loss = register_stage(fixed_t, moving_t, stage, **common)
-            init_affine = {"W": torch.zeros((3, 3), device=dev),
-                           "t": params["t"]}
         elif kind == "affine":
             params, loss = register_stage(
                 fixed_t, moving_t, stage, init_params=init_affine, **common)
-            pre_affine = params
         else:
             if pre_affine is None and init_affine is not None:
                 pre_affine = init_affine
             params, loss = register_stage(
                 fixed_t, moving_t, stage, pre_affine=pre_affine, **common)
+        if kind == "translation":
+            init_affine = {"W": torch.zeros((3, 3), device=dev),
+                           "t": params["t"]}
+        elif kind == "affine":
+            pre_affine = params
+        else:
             bspline_spacing = _bspline_spacing(stage)
-        _logger.info("stage %s done, loss %.5f", kind, loss)
         done.append((kind, params))
+        if restored is not None:
+            _logger.info("stage %s restored from checkpoint", kind)
+            continue
+        _logger.info("stage %s done, loss %.5f", kind, loss)
+        if ckpt:
+            ckpt.save_stage(kind, params)
         if record_stage_dsc:
             partial = RegResult(list(done), fixed_t.shape, bspline_spacing,
                                 dev)
@@ -569,3 +611,148 @@ def register_duo(
         result.metrics[f"dsc_stage_{kind}"] = dsc
     result.levels = clock.read()
     return moved.cpu().numpy(), result
+
+
+#: groupwise learning rates: the affine pass, then the joint B-spline
+#: refinement (``reg_engine.py:847,864``)
+_GROUP_LRS = (("W", 0.01), ("t", 1.0))
+_GROUP_LRS_BSPLINE = (("W", 0.003), ("grid", 0.5), ("t", 0.3))
+
+
+def _group_loss_fn(vols: torch.Tensor, stride: Tuple[int, int, int],
+                   spacing: Optional[Tuple[float, ...]] = None):
+    """The groupwise loss of parameters ``p`` (``W (K, 3, 3)``, ``t (K,
+    3)`` and optionally ``grid``): the mean over the ``stride``-th voxels
+    of the group's population variance, plus the anchors that keep the
+    transforms near identity, ``1e-4 mean(t^2) + 1e-2 mean(W^2)`` (``+
+    1e-3 mean(grid^2)``) (``reg_engine.py:745-792``). The K warps are one
+    gather."""
+    shape = tuple(vols.shape[1:])
+
+    def loss_fn(p, offset=None):
+        coords = transform.group_coords(p, shape, spacing, stride)
+        moved = transform.sample_volume(vols, coords)
+        var = torch.var(moved, dim=0, correction=0)
+        reg = torch.mean(p["t"] ** 2) * 1e-4 + torch.mean(p["W"] ** 2) * 1e-2
+        if "grid" in p:
+            reg = reg + torch.mean(p["grid"] ** 2) * 1e-3
+        return torch.mean(var) + reg
+
+    return loss_fn
+
+
+def _optimize_group_level(
+        vols: torch.Tensor, params_stack: Dict, iters: int,
+        lrs: Tuple[Tuple[str, float], ...],
+        stride: Tuple[int, int, int] = (1, 1, 1),
+        spacing: Optional[Tuple[float, ...]] = None):
+    """``iters`` Adam steps of the joint groupwise level, without decay or
+    jitter (``reg_engine.py:745-792``); returns the parameters and the
+    final loss (a tensor)."""
+    return _adam_level_loop(_group_loss_fn(vols, stride, spacing),
+                            params_stack, iters, lrs, stride, jitter=False,
+                            decay=False)
+
+
+def _group_pyramid(vols: torch.Tensor, levels: int) -> List[torch.Tensor]:
+    """Each image's Gaussian pyramid (``sigma`` 1, nearest border, every
+    second voxel), the group stacked, coarsest first."""
+    pyr = [vols]
+    for _ in range(levels - 1):
+        sm = filters.gaussian_filter(pyr[0], 1.0, mode="nearest")
+        pyr.insert(0, sm[:, ::2, ::2, ::2].contiguous())
+    return pyr
+
+
+def _group_schedule(grid_spacing_schedule) -> List[Tuple[float, ...]]:
+    """The groupwise B-spline levels' spacing multipliers: triplets when
+    the schedule holds more than one, one value a level otherwise
+    (``reg_engine.py:855-862``)."""
+    if not grid_spacing_schedule:
+        return [(1.0, 1.0, 1.0)]
+    s = [float(v) for v in grid_spacing_schedule]
+    if len(s) % 3 == 0 and len(s) > 3:
+        return [tuple(s[i:i + 3]) for i in range(0, len(s), 3)]
+    return [(v,) * 3 for v in s]
+
+
+def register_groupwise(
+        imgs: Sequence[np.ndarray], max_iter: int = 256,
+        num_resolutions: int = 3, bspline_iter: int = 0,
+        grid_space_voxels: float = 130.0,
+        grid_spacing_schedule: Optional[Sequence[float]] = None,
+        mesh=None, device="cuda") -> Tuple[np.ndarray, list]:
+    """Joint groupwise registration on ``device`` (``reg_engine.py:
+    795-911``): every image's affine optimised together against the
+    group's variance over a pyramid of up to ``num_resolutions`` levels
+    (``max_iter // 2**level`` steps, the coarsest level first, only the
+    translations doubled between levels); with ``bspline_iter``, per-image
+    B-spline lattices (spacing ``grid_space_voxels`` times each level's
+    multiplier of ``grid_spacing_schedule``, re-sampled between levels)
+    then refine jointly at full resolution, composed with the affines.
+    Images are cut to their common shape. Each level's steps and seconds
+    are logged. Returns ``(mean_image, per_image_params)``, numpy."""
+    if mesh is not None:
+        _not_ported("the subject-sharded groupwise registration", "10")
+    dev = device_mod.resolve(device)
+    target = tuple(int(s) for s in np.asarray(
+        [im.shape for im in imgs]).min(axis=0))
+    vols = torch.stack([_tensor(np.asarray(
+        im[:target[0], :target[1], :target[2]], np.float32), dev)
+        for im in imgs])
+    k = len(imgs)
+    levels = max(1, min(num_resolutions, int(np.floor(
+        np.log2(max(min(target) / 8, 1)))) + 1))
+    pyr = _group_pyramid(vols, levels)
+    clock = _LevelClock(dev)
+
+    def run(v, params, iters, lrs, stride, spacing=None, kind="affine"):
+        start = clock.mark()
+        params, loss = _optimize_group_level(v, params, iters, lrs, stride,
+                                             spacing)
+        clock.add(start, dict(kind=kind, shape=list(v.shape[1:]),
+                              stride=list(stride), iters=iters))
+        return params, loss
+
+    params = {"W": torch.zeros((k, 3, 3), device=dev),
+              "t": torch.zeros((k, 3), device=dev)}
+    loss = None
+    for lvl, v_l in enumerate(pyr):
+        iters = max(1, max_iter // (2 ** lvl))
+        params, loss = run(v_l, params, iters, _GROUP_LRS,
+                           _metric_stride(v_l.shape[1:]))
+        if lvl < levels - 1:
+            params = {"W": params["W"], "t": params["t"] * 2.0}
+
+    spacing = None
+    if bspline_iter:
+        sched = _group_schedule(grid_spacing_schedule)
+        stride = _metric_stride(target)
+        level_iters = max(1, int(bspline_iter) // len(sched))
+        prev_spacing = None
+        for mult in sched:
+            spacing = tuple(float(grid_space_voxels) * m for m in mult)
+            gshape = transform.bspline_grid_shape(target, spacing)
+            if "grid" not in params:
+                params["grid"] = torch.zeros((k, 3) + gshape, device=dev)
+            elif tuple(params["grid"].shape[2:]) != gshape:
+                params["grid"] = transform.resample_grid(
+                    params["grid"], prev_spacing, gshape, spacing)
+            params, loss = run(vols, params, level_iters, _GROUP_LRS_BSPLINE,
+                               stride, spacing, kind="bspline")
+            prev_spacing = spacing
+    _logger.info("groupwise registration done, loss %.6f", float(loss))
+    _logger.info("groupwise levels: %s", clock.read())
+
+    with torch.no_grad():
+        moved = transform.sample_volume(
+            vols, transform.group_coords(params, target, spacing))
+    mean = moved.mean(dim=0).cpu().numpy()
+    host = {n: v.cpu().numpy() for n, v in params.items()}
+    per_img = []
+    for i in range(k):
+        row = {n: v[i] for n, v in host.items()}
+        if "grid" in row:
+            row["spacing"] = spacing
+        per_img.append(row)
+    return mean, per_img

@@ -8,10 +8,10 @@ with the profile's fallback metric when the overlap is poor, carry the
 labels over at order 0, curate them (carve to the sample's foreground,
 in-paint its unlabeled voxels), and write ``exp``, ``atlasVolume`` and
 ``annotation`` ``.mhd`` images with a stats CSV beside the sample, as the
-reference does. ``register_rev`` swaps the roles.
-
-Not ported yet: ``register_group`` and the volume statistics
-(ROADMAP queue item 8).
+reference does. ``register_rev`` swaps the roles. ``register_group``
+registers a group of images to each other (``--register group``): jointly
+against the group's variance, or by rounds of ``register_duo`` to the
+evolving mean.
 """
 
 from __future__ import annotations
@@ -21,7 +21,7 @@ import logging
 import os
 import time
 from enum import Enum
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import pandas as pd
@@ -134,6 +134,9 @@ def register(
         reg_suffixes: ``atlas``/``annotation`` names in the atlas
             directory, ``fixed_mask``/``moving_mask`` suffixes of masks
             beside the fixed image.
+        checkpoint_dir: directory of stage checkpoints, so a stopped
+            registration resumes at its last completed stage (the
+            fallback metric's retry under ``fallback`` inside it).
 
     Returns:
         dict with ``moved_atlas``, ``moved_labels``, ``transform``
@@ -216,6 +219,8 @@ def register(
             if prof2.get(stage_key):
                 prof2[stage_key] = dict(prof2[stage_key])
                 prof2[stage_key]["metric_similarity"] = fallback[1]
+        if checkpoint_dir:
+            duo["checkpoint_dir"] = os.path.join(checkpoint_dir, "fallback")
         moved2, result2 = reg_engine.register_duo(
             fixed, moving_atlas, prof2, **duo)
         dsc2 = reg_metrics.measure_overlap(fixed, moved2, device=dev)
@@ -276,3 +281,49 @@ def register_rev(
          else np_io.read_file(fixed_path_or_img).img[0],
          "labels": np.zeros_like(np.asarray(atlas))},
         profile, **kwargs)
+
+
+def register_group(
+        imgs: Sequence[np.ndarray], profile, n_iters: int = 2,
+        iters_scale: float = 1.0, joint: bool = True, mesh=None,
+        device="cuda") -> Tuple[np.ndarray, list]:
+    """Groupwise registration on ``device`` (``register.py:297-340``).
+
+    ``joint=True`` optimises every image's transform together against the
+    group's variance (:func:`reg_engine.register_groupwise`): an affine
+    pass of ``groupwise_iter_max`` steps, then, when the profile has a
+    B-spline stage, its ``max_iter`` steps of joint B-spline refinement
+    on its grid and spacing schedule. ``joint=False`` runs ``n_iters``
+    rounds of :func:`reg_engine.register_duo` of every image onto the
+    group's mean, the mean taken anew after each round.
+
+    Returns the final mean image and the per-image parameters (joint) or
+    :class:`reg_engine.RegResult` objects (rounds).
+    """
+    if mesh is not None:
+        reg_engine._not_ported("the subject-sharded groupwise registration",
+                               "10")
+    dev = device_mod.resolve(device)
+    if joint:
+        bs = profile["reg_bspline"] or {}
+        return reg_engine.register_groupwise(
+            imgs, max_iter=int(profile["groupwise_iter_max"] * iters_scale),
+            bspline_iter=int((bs.get("max_iter") or 0) * iters_scale),
+            grid_space_voxels=float(bs.get("grid_space_voxels") or 130),
+            grid_spacing_schedule=bs.get("grid_spacing_schedule"),
+            device=dev)
+    target = np.asarray([im.shape for im in imgs]).min(axis=0)
+    vols = [np.asarray(im[:target[0], :target[1], :target[2]], np.float32)
+            for im in imgs]
+    mean_img = np.mean(vols, axis=0)
+    results = []
+    for _ in range(n_iters):
+        moved_all = []
+        results = []
+        for vol in vols:
+            moved, res = reg_engine.register_duo(
+                mean_img, vol, profile, iters_scale=iters_scale, device=dev)
+            moved_all.append(moved)
+            results.append(res)
+        mean_img = np.mean(moved_all, axis=0)
+    return mean_img, results

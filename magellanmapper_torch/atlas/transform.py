@@ -124,12 +124,14 @@ def bspline_displacement(
         stride: Sequence[int] = (1, 1, 1)) -> torch.Tensor:
     """Dense displacement field ``(3, Z, Y, X)`` from the control grid
     ``(3, gz, gy, gx)``: three fp32 products, one per axis, each taking a
-    control axis to a voxel axis appended at the end."""
+    control axis to a voxel axis appended at the end. A batch of grids
+    ``(K, 3, gz, gy, gx)`` gives ``(K, 3, Z, Y, X)``."""
     out = grid
+    first = grid.dim() - 3
     for ax in range(3):
-        basis = _basis_on(int(shape[ax]), int(grid.shape[ax + 1]),
+        basis = _basis_on(int(shape[ax]), int(grid.shape[first + ax]),
                           float(spacing[ax]), int(stride[ax]), grid.device)
-        out = torch.tensordot(out, basis, dims=([1], [1]))
+        out = torch.tensordot(out, basis, dims=([first], [1]))
     return out
 
 
@@ -154,15 +156,17 @@ def bspline_displacement_at(
         grid: torch.Tensor, pts: torch.Tensor,
         spacing: Sequence[float]) -> torch.Tensor:
     """FFD displacement at points ``pts (N, 3)`` -> ``(N, 3)``: per-axis
-    ``(N, g_ax)`` basis weights contracted against the control grid."""
+    ``(N, g_ax)`` basis weights contracted against the control grid (a
+    batch of grids ``(K, 3, gz, gy, gx)`` gives ``(K, N, 3)``)."""
     ws = []
+    first = grid.dim() - 3
     for ax in range(3):
-        j = torch.arange(grid.shape[ax + 1], dtype=torch.float32,
+        j = torch.arange(grid.shape[first + ax], dtype=torch.float32,
                          device=grid.device)
         u = pts[:, ax:ax + 1] / float(np.float32(spacing[ax])) \
             - (j[None, :] - 1.0)
         ws.append(_cubic_bspline_t(u))
-    return torch.einsum("ni,nj,nk,cijk->nc", ws[0], ws[1], ws[2], grid)
+    return torch.einsum("ni,nj,nk,...cijk->...nc", ws[0], ws[1], ws[2], grid)
 
 
 @functools.lru_cache(maxsize=64)
@@ -175,11 +179,15 @@ def _center(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
 
 def _apply_affine(params: Params, coords: torch.Tensor,
                   shape) -> torch.Tensor:
+    """The affine ``params`` applied to ``coords (3, ...)``; a batch of
+    affines (``W (K, 3, 3)``, ``t (K, 3)``) maps ``coords`` (shared) or
+    ``(K, 3, ...)`` to ``(K, 3, ...)``."""
     center = _center(tuple(shape), coords.device)
     a = torch.eye(3, device=coords.device) + params["W"]
-    flat = coords.reshape(3, -1) - center[:, None]
-    out = a @ flat + (center + params["t"])[:, None]
-    return out.reshape(coords.shape)
+    lead = coords.shape[:-len(shape) - 1]
+    flat = coords.reshape(lead + (3, -1)) - center[:, None]
+    out = a @ flat + (center + params["t"])[..., None]
+    return out.reshape(out.shape[:-2] + coords.shape[-len(shape) - 1:])
 
 
 def transform_coords(
@@ -213,6 +221,22 @@ def transform_coords(
     raise ValueError(kind)
 
 
+def group_coords(
+        params: Params, shape: Sequence[int],
+        spacing: Optional[Sequence[float]] = None,
+        stride: Sequence[int] = (1, 1, 1)) -> torch.Tensor:
+    """Moving coordinates ``(K, 3, Z, Y, X)`` of a group of K images on
+    the ``stride``-th voxels of ``shape``: each image's affine (``W (K, 3,
+    3)``, ``t (K, 3)``) and, when ``params`` holds ``grid (K, 3, gz, gy,
+    gx)``, its B-spline warp first (the groupwise registration's transform,
+    what the reference maps over the images one by one)."""
+    coords = _coords(shape, stride, None, params["t"].device)
+    if "grid" in params:
+        coords = coords + bspline_displacement(
+            params["grid"], shape, spacing, stride)
+    return _apply_affine(params, coords, shape)
+
+
 def transform_points(
         pts: torch.Tensor, params: Params, kind: str, shape: Sequence[int],
         spacing: Optional[Sequence[float]] = None,
@@ -242,15 +266,17 @@ def resample_grid(
         grid: torch.Tensor, old_spacing: Sequence[float],
         new_grid_shape: Sequence[int],
         new_spacing: Sequence[float]) -> torch.Tensor:
-    """Re-lattice an FFD control grid: the old grid's displacement at the
-    new control points ``(j - 1) * new_spacing``."""
+    """Re-lattice an FFD control grid (or a batch ``(K, 3, ...)`` of them):
+    the old grid's displacement at the new control points ``(j - 1) *
+    new_spacing``."""
     axes = [(torch.arange(n, dtype=torch.float32, device=grid.device) - 1.0)
             * float(np.float32(sp))
             for n, sp in zip(new_grid_shape, new_spacing)]
     pts = torch.stack(torch.meshgrid(*axes, indexing="ij"),
                       dim=-1).reshape(-1, 3)
     disp = bspline_displacement_at(grid, pts, old_spacing)
-    return disp.T.reshape((3,) + tuple(new_grid_shape))
+    return disp.transpose(-1, -2).reshape(
+        grid.shape[:-4] + (3,) + tuple(new_grid_shape))
 
 
 def _round_half_away(x: torch.Tensor) -> torch.Tensor:
@@ -264,10 +290,18 @@ def sample_volume(vol: torch.Tensor, coords: torch.Tensor, order: int = 1,
                   cval: float = 0.0) -> torch.Tensor:
     """``vol`` at ``coords (3, ...)`` with ``map_coordinates(mode=
     "constant")`` semantics: order 0 nearest (in ``vol``'s dtype), order 1
-    trilinear (float)."""
-    shape = vol.shape
+    trilinear (float). A batch of volumes ``(K, Z, Y, X)`` takes
+    ``coords (K, 3, ...)``, each volume at its own coordinates, all in one
+    gather."""
+    shape = vol.shape[-3:]
     flat = vol.reshape(-1)
     fill = float(cval) if vol.is_floating_point() else int(cval)
+    base = None
+    if vol.dim() == 4:
+        coords = coords.movedim(1, 0)
+        base = torch.arange(vol.shape[0], device=vol.device).reshape(
+            (-1,) + (1,) * (coords.dim() - 2)) * (shape[0] * shape[1]
+                                                  * shape[2])
 
     def gather(idx):
         valid = functools.reduce(torch.logical_and, (
@@ -275,6 +309,8 @@ def sample_volume(vol: torch.Tensor, coords: torch.Tensor, order: int = 1,
         lin = torch.clamp(idx[0], 0, shape[0] - 1)
         for i, n in zip(idx[1:], shape[1:]):
             lin = lin * n + torch.clamp(i, 0, n - 1)
+        if base is not None:
+            lin = lin + base
         return torch.where(valid, flat[lin], fill)
 
     if order == 0:

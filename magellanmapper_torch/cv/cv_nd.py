@@ -6,7 +6,11 @@ transform with nearest-seed indices, in-painting from those indices,
 carving a foreground by threshold with small holes filled, perimeters (an
 erosion on the device), the blob heat map (an integer ``bincount`` on the
 device), rescaling through ``ops.resize``, and the host-side plane
-rotation (scipy) and intensity remap, as in the reference.
+rotation (scipy) and intensity remap, as in the reference; and what atlas
+refinement needs: structuring elements, label bounding boxes (on the
+device for a whole labels image), cropping to the labels, the clipped
+LoG image (the LoG on the device, its percentiles numpy's), zero
+crossings, exteriors, and surface area and compactness (host copies).
 
 The distance transform keeps the reference's 1+JFA schedule (halving
 steps from the next power of two, then one more pass at 1), its offset
@@ -18,7 +22,7 @@ does :func:`in_paint`. Connected components stay on the host
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -153,6 +157,21 @@ def carve(roi: np.ndarray, thresh: Optional[float] = None,
     return roi_carved, mask
 
 
+def _as_vol(arr: np.ndarray) -> np.ndarray:
+    """``arr`` with leading axes of 1 up to three axes (the port's
+    erosion and dilation act on the last three)."""
+    return arr.reshape((1,) * (3 - arr.ndim) + arr.shape)
+
+
+def _morph_nd(img: np.ndarray, footprint: np.ndarray, dilate: bool,
+              dev) -> torch.Tensor:
+    """Grayscale erosion (or dilation) of a 2D or 3D float32 image by a
+    full footprint with a symmetric border, on ``dev``, in 3D."""
+    vol = torch.from_numpy(_as_vol(np.asarray(img, np.float32))).to(dev)
+    fp = _as_vol(np.asarray(footprint, bool))
+    return (filters.dilation if dilate else filters.erosion)(vol, fp)
+
+
 def perimeter_nd(
         img: np.ndarray, largest_only: bool = False,
         device="cuda") -> np.ndarray:
@@ -167,12 +186,8 @@ def perimeter_nd(
             counts = np.bincount(labeled.ravel())
             counts[0] = 0
             mask = labeled == np.argmax(counts)
-    # the port's erosion acts on the last three axes: a 2D mask gets a
-    # leading axis of 1 and a footprint of one plane
-    vol = mask.reshape((1,) * (3 - mask.ndim) + mask.shape)
-    fp = np.ones((1,) * (3 - mask.ndim) + (3,) * mask.ndim, bool)
-    eroded = filters.erosion(
-        torch.from_numpy(vol.astype(np.float32)).to(dev), fp) > 0.5
+    eroded = _morph_nd(mask, np.ones((3,) * mask.ndim, bool), False,
+                       dev) > 0.5
     return mask ^ eroded.cpu().numpy().reshape(mask.shape)
 
 
@@ -259,3 +274,186 @@ def rescale_resize(
     else:
         out = one(roi)
     return out.astype(dtype) if preserve_range else out
+
+
+def exterior_nd(img: np.ndarray, device="cuda") -> np.ndarray:
+    """One-voxel shell just outside the mask: the mask's dilation by a
+    full 3^ndim footprint (symmetric border, on ``device``) minus the
+    mask (reference ``cv_nd.exterior_nd``)."""
+    dev = device_mod.resolve(device)
+    mask = np.asarray(img).astype(bool)
+    dilated = _morph_nd(mask, np.ones((3,) * mask.ndim, bool), True,
+                        dev) > 0.5
+    return dilated.cpu().numpy().reshape(mask.shape) ^ mask
+
+
+def surface_area_3d(mask: np.ndarray, spacing=(1.0, 1.0, 1.0)) -> float:
+    """Surface area by exposed-face counting with the 2/3 orientation
+    factor, on the host (copy of the reference's ``cv_nd.surface_area_3d``,
+    which replaces the original's marching cubes)."""
+    m = np.asarray(mask).astype(bool)
+    area = 0.0
+    face = [spacing[1] * spacing[2], spacing[0] * spacing[2],
+            spacing[0] * spacing[1]]
+    for ax in range(3):
+        padded = np.pad(m, [(1, 1) if i == ax else (0, 0)
+                            for i in range(3)])
+        diff = np.diff(padded.astype(np.int8), axis=ax)
+        area += np.abs(diff).sum() * face[ax]
+    return float(area) * (2.0 / 3.0)
+
+
+def compactness_3d(
+        mask: np.ndarray, spacing=(1.0, 1.0, 1.0)
+) -> Tuple[float, float, float]:
+    """``(compactness, surface area, volume)``, compactness ``SA^1.5 /
+    volume`` (reference ``cv_nd.compactness_3d``)."""
+    sa = surface_area_3d(mask, spacing)
+    vol = float(np.sum(mask) * np.prod(spacing))
+    comp = sa ** 1.5 / vol if vol > 0 else np.nan
+    return comp, sa, vol
+
+
+def get_bbox_region(bbox: Sequence[int], padding: int = 0, img_shape=None):
+    """Slices of a ``[lo..., hi...]`` bounding box, padded and clipped to
+    ``img_shape`` (reference ``cv_nd.get_bbox_region``)."""
+    ndim = len(bbox) // 2
+    lo = np.asarray(bbox[:ndim]) - padding
+    hi = np.asarray(bbox[ndim:]) + padding
+    if img_shape is not None:
+        lo = np.clip(lo, 0, img_shape)
+        hi = np.clip(hi, 0, img_shape)
+    return [slice(int(a), int(b)) for a, b in zip(lo, hi)]
+
+
+def get_label_bbox(labels_img: np.ndarray, label_id) -> Optional[list]:
+    """Bounding box ``[lo..., hi...]`` (``hi`` exclusive) of a label's
+    voxels (or of any of several labels'), None when absent, on the host
+    (reference ``cv_nd.get_label_bbox``)."""
+    mask = np.isin(labels_img, label_id) if np.ndim(label_id) else (
+        labels_img == label_id)
+    if not mask.any():
+        return None
+    coords = np.argwhere(mask)
+    return list(coords.min(axis=0)) + list(coords.max(axis=0) + 1)
+
+
+def mask_bbox(mask: torch.Tensor) -> Optional[List[int]]:
+    """:func:`get_label_bbox` of a boolean tensor, on its device: one
+    reduction per axis and one copy to the host."""
+    lo, hi = [], []
+    for ax in range(mask.dim()):
+        other = tuple(a for a in range(mask.dim()) if a != ax)
+        idx = torch.nonzero(mask.any(dim=other) if other else mask)
+        if len(idx) == 0:
+            return None
+        lo.append(idx[0, 0])
+        hi.append(idx[-1, 0] + 1)
+    return [int(v) for v in torch.stack(lo + hi).cpu()]
+
+
+def label_bboxes(labels: torch.Tensor, ids: torch.Tensor) -> np.ndarray:
+    """Bounding boxes ``(len(ids), 2 * ndim)`` (``[lo..., hi...]``, ``hi``
+    exclusive) of every label in the sorted ``ids`` in one pass over the
+    labels image on its device; an absent ID's row is all 0."""
+    flat_labels = labels.reshape(-1)
+    codes = torch.searchsorted(ids, flat_labels).clamp_max(len(ids) - 1)
+    found = ids[codes] == flat_labels
+    codes = codes[found]
+    flat = torch.nonzero(found)[:, 0]
+    out = torch.zeros((len(ids), 2 * labels.dim()), dtype=torch.int64,
+                      device=labels.device)
+    for ax in reversed(range(labels.dim())):
+        coord = flat % labels.shape[ax]
+        flat = flat // labels.shape[ax]
+        out[:, ax].scatter_reduce_(0, codes, coord, "amin",
+                                   include_self=False)
+        out[:, labels.dim() + ax].scatter_reduce_(
+            0, codes, coord + 1, "amax", include_self=False)
+    return out.cpu().numpy()
+
+
+def crop_to_labels(img: np.ndarray, labels_img: np.ndarray, mask=None,
+                   dil_size: int = 2, padding: int = 5, device="cuda"):
+    """Crop the image and labels to the labels' foreground, dilated by a
+    ball of ``dil_size`` (symmetric border, on ``device``) and padded by
+    ``padding``; image voxels outside the mask are zeroed. Returns
+    ``(img_crop, labels_crop, slices)`` (reference
+    ``cv_nd.crop_to_labels``)."""
+    if mask is None:
+        mask = labels_img != 0
+        if dil_size:
+            mask = _morph_nd(mask, filters.ball_footprint(dil_size), True,
+                             device_mod.resolve(device)) > 0.5
+            mask = mask.cpu().numpy().reshape(labels_img.shape)
+    bbox = get_label_bbox(mask.astype(np.int8), 1)
+    slices = get_bbox_region(bbox, padding, img.shape)
+    img_crop = np.array(img[tuple(slices)])
+    labels_crop = np.array(labels_img[tuple(slices)])
+    img_crop[~mask[tuple(slices)]] = 0
+    return img_crop, labels_crop, slices
+
+
+def log_clip(log: torch.Tensor, img: np.ndarray, labels_img=None,
+             thresh: Optional[float] = None) -> np.ndarray:
+    """The LoG ``log`` (a tensor) clipped to the 2nd and 98th percentiles
+    of its values in the labels' foreground (or above ``thresh`` in
+    ``img``, or everywhere) and inverted, ``vmax - clip(log)``: float64
+    as in the reference, the percentiles numpy's of the same float32
+    values."""
+    if labels_img is not None:
+        mask = torch.from_numpy(np.asarray(labels_img) != 0)
+    elif thresh is not None:
+        mask = torch.from_numpy(np.asarray(img) > thresh)
+    else:
+        mask = torch.ones(log.shape, dtype=torch.bool)
+    vals = log[mask.to(log.device)].cpu().numpy()
+    vmin, vmax = np.percentile(vals, (2, 98))
+    clipped = torch.clamp(log.to(torch.float64), float(vmin), float(vmax))
+    return (float(vmax) - clipped).cpu().numpy()
+
+
+def laplacian_of_gaussian_img(
+        img: np.ndarray, sigma: float = 5, labels_img=None,
+        thresh: Optional[float] = None, device="cuda") -> np.ndarray:
+    """Laplacian of Gaussian of ``img`` on ``device``, clipped to the 2nd
+    and 98th percentiles of the labels' foreground and inverted so edges
+    are bright (:func:`log_clip`; reference
+    ``cv_nd.laplacian_of_gaussian_img``)."""
+    dev = device_mod.resolve(device)
+    log = filters.gaussian_laplace(
+        torch.from_numpy(np.array(img, np.float32)).to(dev), sigma)
+    return log_clip(log, img, labels_img, thresh)
+
+
+def zero_crossing_t(img: torch.Tensor, filter_size: int = 1
+                    ) -> torch.Tensor:
+    """:func:`zero_crossing` of a 2D or 3D float32 tensor, on its
+    device."""
+    vol = img.reshape((1,) * (3 - img.dim()) + tuple(img.shape))
+    fp = _as_vol(np.ones((2 * filter_size + 1,) * img.dim(), bool))
+    out = (filters.erosion(vol, fp) < 0) & (filters.dilation(vol, fp) > 0)
+    return out.reshape(img.shape)
+
+
+def zero_crossing(img: np.ndarray, filter_size: int = 1,
+                  device="cuda") -> np.ndarray:
+    """Voxels whose ``(2 filter_size + 1)^ndim`` neighbourhood holds both
+    signs: the neighbourhood's minimum below 0 and maximum above (grayscale
+    erosion and dilation with a symmetric border, on ``device``;
+    reference ``cv_nd.zero_crossing``)."""
+    dev = device_mod.resolve(device)
+    return zero_crossing_t(torch.from_numpy(
+        np.array(img, np.float32)).to(dev), filter_size).cpu().numpy()
+
+
+def get_selem(ndim: int):
+    """Structuring-element factory for the dimensionality: a ball for 3D,
+    a disk for 2D (reference ``cv_nd.get_selem``)."""
+    return filters.ball_footprint if ndim >= 3 else _disk
+
+
+def _disk(radius: int) -> np.ndarray:
+    n = 2 * radius + 1
+    grid = ((np.indices((n, n)) - radius) ** 2).sum(axis=0)
+    return grid <= radius * radius

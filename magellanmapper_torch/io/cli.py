@@ -38,6 +38,23 @@ path_ref=ontology.json [level=N]`` writes the ontology's regions to
 ``vol_stats`` measures the labels as they are: ``level=`` is read only by
 ``export_regions``.
 
+Atlas construction: ``--img s1.npy s2.npy ... --register group
+--atlas_profile groupwise`` registers the images to each other (jointly
+against the group's variance; writes nothing, as in the reference);
+``--img atlas_dir --register import_atlas --atlas_profile abap56``
+curates an atlas directory's ``atlasVolume``/``annotation`` by the
+profile (edge extension, mirroring, smoothing) into
+``<atlas_dir>_imported_{atlasVolume,annotation}.mhd`` and a metrics CSV
+(``new_atlas``: named after ``--prefix``, default ``<atlas_dir>_new``);
+``--img base --register make_edge_images`` writes the edge images of
+``base_atlasVolume.mhd`` and ``base_annotation.mhd`` (``atlasEdge``,
+``atlasLoG``, ``annotationEdge``, ``annotationDist``,
+``annotationMarkers``, ``annotationInterior``); ``--register
+merge_atlas_segs`` rewrites each image's ``annotation.mhd`` by an
+edge-aware watershed; ``--register make_subsegs`` writes
+``annotationSubseg.mhd``. The ``_exp`` forms run as the plain ones, as in
+the reference.
+
 ``python -m magellanmapper_torch.io.cli --img roi.npy --grid_search
 gridtest --roi_profile 4xnuc --truth_db truth.db`` runs the named
 grid-search profile over the image and scores every combination against
@@ -49,7 +66,9 @@ reference, ``--grid_search`` takes precedence over ``--proc``.
 The parser takes the reference's flag names
 (``magellanmapper_tpu/io/cli.py:124-194``) for what the port accepts:
 ``--img``, ``--proc detect|transform|preprocess``, ``--register
-single|register_rev|make_density_images|vol_stats|export_regions``,
+single|register_rev|make_density_images|vol_stats|export_regions|group|
+import_atlas|new_atlas|make_edge_images[_exp]|merge_atlas_segs[_exp]|
+make_subsegs``,
 ``--roi_profile`` (one per channel), ``--atlas_profile``,
 ``--reg_suffixes``, ``--transform``, ``--plane``, ``--labels``,
 ``--channel``, ``--series``, ``--prefix``,
@@ -66,6 +85,7 @@ versions, is used only when ``--device cpu`` asks for it.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 from dataclasses import dataclass, field
@@ -76,7 +96,8 @@ import numpy as np
 import pandas as pd
 
 from magellanmapper_torch import device as device_mod
-from magellanmapper_torch.atlas import ontology, transformer
+from magellanmapper_torch.atlas import (
+    atlas_refiner, edge_seg, ontology, transformer)
 from magellanmapper_torch.atlas import register as register_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.cv import stack_detect
@@ -140,13 +161,18 @@ class RegisterTypes(Enum):
 REGISTER_TASKS = (
     RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV,
     RegisterTypes.MAKE_DENSITY_IMAGES, RegisterTypes.VOL_STATS,
-    RegisterTypes.EXPORT_REGIONS)
+    RegisterTypes.EXPORT_REGIONS, RegisterTypes.GROUP,
+    RegisterTypes.IMPORT_ATLAS, RegisterTypes.NEW_ATLAS,
+    RegisterTypes.MAKE_EDGE_IMAGES, RegisterTypes.MAKE_EDGE_IMAGES_EXP,
+    RegisterTypes.MERGE_ATLAS_SEGS, RegisterTypes.MERGE_ATLAS_SEGS_EXP,
+    RegisterTypes.MAKE_SUBSEGS)
 #: the tasks that register an atlas directory onto a sample
 PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 #: what the port runs, for the messages that reject the rest
 SUPPORTED = ("--proc detect/transform/preprocess, --grid_search and "
              "--register single/register_rev/make_density_images/"
-             "vol_stats/export_regions")
+             "vol_stats/export_regions/group/import_atlas/new_atlas/"
+             "make_edge_images[_exp]/merge_atlas_segs[_exp]/make_subsegs")
 
 
 @dataclass
@@ -205,7 +231,9 @@ def build_parser() -> argparse.ArgumentParser:
                    "<tasks>")
     p.add_argument("--register",
                    help="registration task: single, register_rev, "
-                   "make_density_images, vol_stats or export_regions")
+                   "make_density_images, vol_stats, export_regions, group, "
+                   "import_atlas, new_atlas, make_edge_images[_exp], "
+                   "merge_atlas_segs[_exp] or make_subsegs")
     p.add_argument("--roi_profile", nargs="*", help="ROI profile(s)")
     p.add_argument("--atlas_profile", help="atlas profile")
     p.add_argument("--reg_suffixes", nargs="*",
@@ -340,8 +368,57 @@ def process_register(rc: RunConfig, device):
     ``single`` registers the atlas directory ``filenames[1]`` onto the
     sample ``filenames[0]``, ``register_rev`` the sample onto the atlas;
     ``make_density_images``, ``vol_stats`` and ``export_regions`` measure
-    a registered sample and export its ontology."""
+    a registered sample and export its ontology; ``group`` registers the
+    images to each other; ``import_atlas``/``new_atlas``,
+    ``make_edge_images``, ``merge_atlas_segs`` and ``make_subsegs`` build
+    and reannotate an atlas."""
     task = rc.register_type
+    if task in (RegisterTypes.MAKE_EDGE_IMAGES_EXP,
+                RegisterTypes.MERGE_ATLAS_SEGS_EXP):
+        # as in the reference: the experiment image's suffix is set, and
+        # the plain task runs (it reads the atlas volume all the same)
+        plain = (RegisterTypes.MAKE_EDGE_IMAGES
+                 if task is RegisterTypes.MAKE_EDGE_IMAGES_EXP
+                 else RegisterTypes.MERGE_ATLAS_SEGS)
+        return process_register(dataclasses.replace(
+            rc, register_type=plain,
+            reg_suffixes={"atlas": "exp.mhd", **rc.reg_suffixes}), device)
+    if task is RegisterTypes.GROUP:
+        imgs = [np.asarray(np_io.read_file(f).img[0]) for f in rc.filenames]
+        return register_mod.register_group(imgs, rc.atlas_profile,
+                                           device=device)
+    if task in (RegisterTypes.IMPORT_ATLAS, RegisterTypes.NEW_ATLAS):
+        prefix = rc.prefix
+        if task is RegisterTypes.NEW_ATLAS:
+            prefix = prefix or rc.filenames[0] + "_new"
+        return atlas_refiner.import_atlas(
+            rc.filenames[0], rc.atlas_profile, prefix=prefix, device=device)
+    if task is RegisterTypes.MAKE_EDGE_IMAGES:
+        return make_edge_images(rc, device)
+    if task is RegisterTypes.MERGE_ATLAS_SEGS:
+        outs = []
+        for path in rc.filenames:
+            atlas = sitk_io.load_registered_img(path, "atlasVolume.mhd")
+            labels = sitk_io.load_registered_img(path, "annotation.mhd")
+            seg, metr = edge_seg.edge_aware_segmentation(
+                atlas, labels, log_sigma=rc.atlas_profile["log_sigma"],
+                device=device)
+            sitk_io.write_med_img(
+                sitk_io.reg_out_path(path, "annotation.mhd"),
+                sitk_io.MedImage(seg.astype(np.int32)))
+            _logger.info("reannotated %s: %s", path, metr)
+            outs.append(metr)
+        return outs
+    if task is RegisterTypes.MAKE_SUBSEGS:
+        path = rc.filenames[0]
+        sub = edge_seg.make_sub_segmented_labels(
+            sitk_io.load_registered_img(path, "annotation.mhd"),
+            sitk_io.load_registered_img(path, "atlasEdge.mhd"),
+            device=device)
+        sitk_io.write_med_img(
+            sitk_io.reg_out_path(rc.prefix or path, "annotationSubseg.mhd"),
+            sitk_io.MedImage(sub.astype(np.int32)))
+        return sub
     if task is RegisterTypes.SINGLE:
         return register_mod.register(
             rc.filenames[0], rc.filenames[1], rc.atlas_profile,
@@ -365,6 +442,36 @@ def process_register(rc: RunConfig, device):
             rc.filenames, device=device)
     return export_regions.make_density_image(rc.filenames[0],
                                              device=device)
+
+
+def make_edge_images(rc: RunConfig, device) -> Dict[str, np.ndarray]:
+    """The ``--register make_edge_images`` task: the edge images of the
+    registered atlas and labels at ``filenames[0]``
+    (:func:`edge_seg.make_edge_images`) and the labels eroded into markers
+    and interiors, written beside it (or at ``--prefix``)."""
+    path = rc.filenames[0]
+    atlas = sitk_io.load_registered_img(path, "atlasVolume.mhd")
+    labels = sitk_io.load_registered_img(path, "annotation.mhd")
+    imgs = edge_seg.make_edge_images(
+        atlas, labels, log_sigma=rc.atlas_profile["log_sigma"],
+        device=device)
+    eros = rc.atlas_profile["edge_aware_reannotation"]["marker_erosion"]
+    markers, interior, _ = edge_seg.erode_labels(
+        labels, filter_size=int(eros), device=device)
+    sitk_io.write_reg_images({
+        "atlasEdge.mhd": sitk_io.MedImage(
+            imgs["atlas_edge"].astype(np.uint8)),
+        "atlasLoG.mhd": sitk_io.MedImage(
+            imgs["atlas_log"].astype(np.float32)),
+        "annotationEdge.mhd": sitk_io.MedImage(
+            imgs["labels_edge"].astype(np.uint8)),
+        "annotationDist.mhd": sitk_io.MedImage(
+            imgs["dist_to_edge"].astype(np.float32)),
+        "annotationMarkers.mhd": sitk_io.MedImage(markers.astype(np.int32)),
+        "annotationInterior.mhd": sitk_io.MedImage(
+            interior.astype(np.int32)),
+    }, rc.prefix or path)
+    return imgs
 
 
 def vol_stats(rc: RunConfig, device) -> pd.DataFrame:

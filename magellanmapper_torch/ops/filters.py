@@ -10,6 +10,14 @@ Past ``_MATMUL_MAX_LEN`` samples an axis takes taps instead, as in the
 reference: a padded ``F.conv1d`` over every 1D line of that axis
 (:func:`conv1d`), and :func:`log_pyramid` becomes a per-sigma
 :func:`gaussian_laplace` stack in which each axis picks its route.
+
+Morphology: grayscale :func:`erosion`/:func:`dilation` with the
+reference's symmetric border, and binary erosion, dilation, opening and
+closing with ``scipy.ndimage``'s (a zero border, one iteration), which
+the reference runs on the host per label: here a structuring element is
+cut into rows along x, each row one ``max_pool1d`` window, and the rows
+are combined shifted in z and y, so a ball of radius 8 costs ~200
+elementwise passes on the card instead of 2,000 shifted copies.
 """
 
 from __future__ import annotations
@@ -282,6 +290,18 @@ def pad_symmetric(
 def erosion(vol: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
     """Grayscale erosion of the last three axes by a boolean footprint,
     with a symmetric border."""
+    return _morph(vol, footprint, torch.minimum)
+
+
+def dilation(vol: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
+    """Grayscale dilation of the last three axes by a boolean footprint
+    (not reflected), with a symmetric border (``filters.py:283-287``)."""
+    return _morph(vol, footprint, torch.maximum)
+
+
+def _morph(vol: torch.Tensor, footprint: np.ndarray, reduce_fn):
+    """``reduce_fn`` over the footprint's offsets of the symmetrically
+    padded volume (``filters.py:290-308``)."""
     footprint = np.asarray(footprint).astype(bool)
     r = [s // 2 for s in footprint.shape]
     padded = pad_symmetric(vol, [(ri, ri) for ri in r])
@@ -290,8 +310,101 @@ def erosion(vol: torch.Tensor, footprint: np.ndarray) -> torch.Tensor:
     for offset in np.argwhere(footprint):
         term = padded[(...,) + tuple(
             slice(int(o), int(o) + s) for o, s in zip(offset, spatial))]
-        out = term if out is None else torch.minimum(out, term)
+        out = term if out is None else reduce_fn(out, term)
     return out
+
+
+def ball_footprint(radius: int) -> np.ndarray:
+    """Ball (L2) structuring element (skimage ``ball``)."""
+    n = 2 * radius + 1
+    grid = ((np.indices((n, n, n)) - radius) ** 2).sum(axis=0)
+    return grid <= radius * radius
+
+
+def cube_footprint(width: int) -> np.ndarray:
+    """Cube structuring element (skimage ``cube``)."""
+    return np.ones((width,) * 3, dtype=bool)
+
+
+def _x_runs(structure: np.ndarray):
+    """The structuring element ``(nz, ny, nx)`` as rows along x: ``{(lo,
+    hi): [(dz, dy), ...]}``, each row's x offsets ``lo..hi`` about the
+    centre; raises unless every row is one run."""
+    structure = np.asarray(structure).astype(bool)
+    c = [s // 2 for s in structure.shape]
+    runs = {}
+    for iz, iy in zip(*np.nonzero(structure.any(axis=2))):
+        xs = np.flatnonzero(structure[iz, iy]) - c[2]
+        if xs[-1] - xs[0] + 1 != len(xs):
+            raise ValueError("each row of the structuring element along x "
+                             "must be one run")
+        runs.setdefault((int(xs[0]), int(xs[-1])), []).append(
+            (int(iz - c[0]), int(iy - c[1])))
+    return runs
+
+
+def window_reduce(vol: torch.Tensor, structure: np.ndarray,
+                  maximum: bool, fill: float = 0.0) -> torch.Tensor:
+    """Minimum (or ``maximum``) of a 3D float volume over ``structure``'s
+    offsets about each voxel, ``out[v] = reduce(vol[v + o])``, with
+    ``fill`` outside the volume: one ``max_pool1d`` window a distinct row
+    of the structure, then the rows shifted in z and y."""
+    structure = np.asarray(structure).astype(bool)
+    rz, ry, rx = (s // 2 for s in structure.shape)
+    nz, ny, nx = vol.shape
+    # a minimum is the negated maximum of the negated volume
+    padded = F.pad(vol if maximum else -vol, (rx, rx, ry, ry, rz, rz),
+                   value=fill if maximum else -fill)
+    out = None
+    for (lo, hi), rows in _x_runs(structure).items():
+        lines = padded[..., rx + lo:rx + nx + hi]
+        run = F.max_pool1d(lines.reshape(1, -1, lines.shape[-1]),
+                           hi - lo + 1, stride=1).reshape(
+            nz + 2 * rz, ny + 2 * ry, nx)
+        for dz, dy in rows:
+            term = run[rz + dz:rz + dz + nz, ry + dy:ry + dy + ny]
+            out = term.clone() if out is None else torch.maximum(
+                out, term, out=out)
+    return out if maximum else -out
+
+
+def _binary(mask: torch.Tensor, structure, maximum: bool) -> torch.Tensor:
+    """``window_reduce`` of a 2D or 3D boolean mask with a zero border;
+    a 2D mask takes a 2D structure."""
+    structure = np.asarray(structure).astype(bool)
+    flat = mask.dim() == 2
+    vol = (mask[None] if flat else mask).to(torch.float32)
+    if flat:
+        structure = structure[None]
+    out = window_reduce(vol, structure, maximum) > 0.5
+    return out[0] if flat else out
+
+
+def binary_erosion(mask: torch.Tensor, structure) -> torch.Tensor:
+    """``scipy.ndimage.binary_erosion(mask, structure)`` (one iteration,
+    ``border_value=0``): a voxel stays where every offset of the structure
+    about it lies in the mask."""
+    return _binary(mask, structure, maximum=False)
+
+
+def binary_dilation(mask: torch.Tensor, structure) -> torch.Tensor:
+    """``scipy.ndimage.binary_dilation(mask, structure)`` (one iteration,
+    ``border_value=0``): the structure, reflected, placed on every mask
+    voxel."""
+    structure = np.asarray(structure).astype(bool)
+    return _binary(mask, structure[(slice(None, None, -1),)
+                                   * structure.ndim], maximum=True)
+
+
+def binary_opening(mask: torch.Tensor, structure) -> torch.Tensor:
+    """``scipy.ndimage.binary_opening``: dilation of the erosion."""
+    return binary_dilation(binary_erosion(mask, structure), structure)
+
+
+def binary_closing(mask: torch.Tensor, structure) -> torch.Tensor:
+    """``scipy.ndimage.binary_closing``: erosion of the dilation, both
+    with a zero border (so the border itself erodes, as in scipy)."""
+    return binary_erosion(binary_dilation(mask, structure), structure)
 
 
 def octahedron_footprint(radius: int = 1) -> np.ndarray:

@@ -1,9 +1,10 @@
 """Synthetic fixtures and checks shared by the port's tests and
 ``chip_smoke.py``: a seeded volume of planted nuclei, a full-resolution
 specimen made from a registration pair with nuclei planted in its brain,
-a truth database of the centres, blob-row equality, detection quality
-against the planted centres, and the edge cases of the percentile kernel
-(K4)."""
+a group of brains for groupwise registration, a one-sided atlas to
+import and reannotate, a truth database of the centres, blob-row
+equality, detection quality against the planted centres, and the edge
+cases of the percentile kernel (K4)."""
 
 from __future__ import annotations
 
@@ -130,6 +131,93 @@ def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda"
     # truncate to uint16 as make_nuclei_volume does; int16 holds the bits
     vol = torch.clamp(vol, 0, 65535).to(torch.int32).to(torch.int16)
     return vol.cpu().numpy().view(np.uint16), centres
+
+
+def make_group(pair, seeds: Sequence[int] = (1, 2, 3, 4),
+               device="cuda", **gt_kwargs) -> dict:
+    """A group of brains for groupwise registration: the pair's fixed
+    image and its ground-truth labels, each carried through its own known
+    affine and B-spline warp (``gauntlet.make_ground_truth`` at each seed,
+    on ``device``). Returns ``imgs`` (float32) and ``labels`` (int32),
+    lists in seed order, and the warps ``gts``."""
+    from magellanmapper_torch.atlas import gauntlet, reg_engine
+
+    dev = device_mod.resolve(device)
+    shape = np.asarray(pair["fixed"]).shape
+    imgs, labels, gts = [], [], []
+    for seed in seeds:
+        gt = gauntlet.make_ground_truth(shape, seed=seed, device=dev,
+                                        **gt_kwargs)
+        warp = reg_engine.RegResult.from_numpy(
+            [("affine", gt["affine"]), ("bspline", {"grid": gt["grid"]})],
+            shape, gt["spacing"], dev)
+        imgs.append(warp.transform_img(pair["fixed"], order=1))
+        labels.append(warp.transform_img(
+            pair["labels_fixed_gt"], order=0).astype(np.int32))
+        gts.append(gt)
+    return {"imgs": imgs, "labels": labels, "gts": gts}
+
+
+def mean_pairwise_dsc(labels: Sequence[np.ndarray]) -> float:
+    """The mean over every pair of label images of their mean per-label
+    Dice (labels in either image, background left out)."""
+    vals = []
+    for i in range(len(labels)):
+        for j in range(i + 1, len(labels)):
+            a, b = np.asarray(labels[i]), np.asarray(labels[j])
+            ids = np.union1d(np.unique(a), np.unique(b))
+            ids = ids[ids != 0]
+            inter = np.bincount(np.searchsorted(ids, a[(a == b) & (a != 0)]),
+                                minlength=len(ids))
+            sizes = (np.bincount(np.searchsorted(ids, a[a != 0]),
+                                 minlength=len(ids))
+                     + np.bincount(np.searchsorted(ids, b[b != 0]),
+                                   minlength=len(ids)))
+            vals.append(float(np.mean(2.0 * inter / sizes)))
+    return float(np.mean(vals))
+
+
+#: :func:`make_atlas`'s intensity scale: the pair's fixed image (0 to ~1)
+#: in counts, so the profiles' ``atlas_threshold`` of 10 parts the brain
+#: from the background
+ATLAS_COUNTS = 100.0
+
+
+def make_atlas(pair, shape: Sequence[int], split: Sequence[int] = (6, 4, 6),
+               cut_planes: int = 4, device="cuda") -> dict:
+    """A one-sided atlas to import, made on ``device`` from a pair: its
+    fixed image (times :data:`ATLAS_COUNTS`) and ground-truth labels
+    resized to ``shape`` (linear, nearest), both made symmetric across
+    axis 0 (the first half mirrored onto the second), the labels split
+    into ``label * 1000 + cell`` IDs by a ``split`` grid of cells, then
+    kept on the first half only (as the ADMBA's one-sided annotations
+    are), and their ``cut_planes`` outermost labelled planes along axis 0
+    cleared, so that mirroring and lateral edge extension both have work.
+    Returns ``atlas`` (float32), ``labels`` (int32, cut), ``truth`` (the
+    one-sided labels before the cut) and ``cut`` (the cleared planes'
+    slice)."""
+    dev = device_mod.resolve(device)
+    shape = tuple(int(s) for s in shape)
+    half = shape[0] // 2
+    atlas = resize_ops.resize(torch.from_numpy(np.asarray(
+        pair["fixed"], np.float32)).to(dev), shape) * np.float32(ATLAS_COUNTS)
+    labels = resize_ops.resize(torch.from_numpy(np.asarray(
+        pair["labels_fixed_gt"], np.int32)).to(dev), shape, order=0)
+    grid = [torch.arange(s, device=dev) * n // s
+            for s, n in zip(shape, split)]
+    cell = (grid[0][:, None, None] * split[1]
+            + grid[1][None, :, None]) * split[2] + grid[2][None, None]
+    labels = torch.where(labels > 0, labels * 1000 + cell, 0).to(torch.int32)
+    for img in (atlas, labels):
+        img[half:2 * half] = img[:half].flip(0)
+    labels[half:] = 0
+    truth = labels.cpu().numpy().copy()
+    planes = torch.nonzero(labels.flatten(1).any(dim=1))[:, 0]
+    first = int(planes[0]) if len(planes) else 0
+    cut = slice(first, first + cut_planes)
+    labels[cut] = 0
+    return {"atlas": atlas.cpu().numpy(), "labels": labels.cpu().numpy(),
+            "truth": truth, "cut": cut}
 
 
 #: percentile pairs K4 is held to on its edge cases: lightsheet's clip,

@@ -26,12 +26,15 @@ from magellanmapper_tpu.settings import grid_search_prof as ref_gs_prof
 from magellanmapper_tpu.settings import roi_prof as ref_roi_prof
 from magellanmapper_tpu.utils import libmag as ref_libmag
 from magellanmapper_torch import testing
-from magellanmapper_torch.atlas import gauntlet, ontology, transformer
-from magellanmapper_torch.cv import blobs, chunking, cv_nd, stack_detect
-from magellanmapper_torch.cv import verifier
+from magellanmapper_torch.atlas import (
+    atlas_refiner, edge_seg, gauntlet, ontology, reg_engine, register,
+    transformer)
+from magellanmapper_torch.cv import blobs, chunking, cv_nd, segmenter
+from magellanmapper_torch.cv import stack_detect, verifier
 from magellanmapper_torch.io import cli, export_regions, np_io, sitk_io
 from magellanmapper_torch.io import sqlite, yaml_io
-from magellanmapper_torch.settings import grid_search_prof, roi_prof
+from magellanmapper_torch.settings import (
+    atlas_prof, grid_search_prof, roi_prof)
 from magellanmapper_torch.stats import mlearn, vols
 from magellanmapper_torch.utils import libmag
 
@@ -453,7 +456,7 @@ def test_cli_parses_as_the_reference(argv):
 
 
 @pytest.mark.parametrize("argv,named", [
-    (["--proc", "detect", "--register", "group"], "--register"),
+    (["--proc", "detect", "--register", "overlays"], "--register"),
     (["--proc", "detect", "--mesh", "1,1"], "--mesh"),
     (["--proc", "detect", "--save_subimg"], "--save_subimg"),
     (["--proc", "detect", "--df", "sum"], "--df"),
@@ -461,7 +464,7 @@ def test_cli_parses_as_the_reference(argv):
     (["--proc", "detect", "--notify", "x"], "--notify"),
     (["--proc", "export_planes"], "--proc export_planes"),
     (["--proc", "detect", "--truth_db", "t.db"], "--truth_db"),
-    (["--register", "group"], "--register"),
+    (["--register", "merge_images"], "--register"),
 ])
 def test_cli_rejects_and_names_what_is_not_ported(argv, named):
     with pytest.raises(SystemExit) as err:
@@ -499,6 +502,7 @@ def no_card():
 
 def _entry_points(tmp_path):
     vol = np.zeros((8, 16, 16), np.uint16)
+    labels = np.ones(vol.shape, np.int32)
     prof = roi_prof.ROIProfile()
     img = str(tmp_path / "roi.npy")
     np.save(img, vol.astype(np.float32))
@@ -534,6 +538,29 @@ def _entry_points(tmp_path):
              "rescale=0.5"]),
         "cli.main vol_stats": lambda: cli.main(
             ["--img", img, "--register", "vol_stats"]),
+        "register_groupwise": lambda: reg_engine.register_groupwise(
+            [vol, vol]),
+        "register_group": lambda: register.register_group(
+            [vol, vol], atlas_prof.AtlasProfile()),
+        "cli.main group": lambda: cli.main(
+            ["--img", img, img, "--register", "group"]),
+        "import_atlas": lambda: atlas_refiner.import_atlas(
+            str(tmp_path), atlas_prof.AtlasProfile()),
+        "extend_edge": lambda: atlas_refiner.extend_edge(
+            labels, vol, 0.5, 0),
+        "smooth_labels": lambda: atlas_refiner.smooth_labels(labels, 2),
+        "make_edge_images": lambda: edge_seg.make_edge_images(vol, labels),
+        "edge_aware_segmentation": lambda: edge_seg.edge_aware_segmentation(
+            vol, labels),
+        "make_sub_segmented_labels": lambda:
+            edge_seg.make_sub_segmented_labels(labels, labels),
+        "labels_to_markers_erosion": lambda:
+            segmenter.labels_to_markers_erosion(labels),
+        "watershed": lambda: segmenter.watershed(vol, labels),
+        "laplacian_of_gaussian_img": lambda:
+            cv_nd.laplacian_of_gaussian_img(vol),
+        "cli.main make_edge_images": lambda: cli.main(
+            ["--img", img, "--register", "make_edge_images"]),
     }
 
 
@@ -542,7 +569,11 @@ def _entry_points(tmp_path):
     "make_fn_detect_multi", "grid_search_from_cli", "cli.main",
     "transpose_img", "preprocess_img", "Downsampler", "build_heat_map",
     "perimeter_nd", "make_density_image", "measure_labels_metrics",
-    "cli.main transform", "cli.main vol_stats"])
+    "cli.main transform", "cli.main vol_stats", "register_groupwise",
+    "register_group", "cli.main group", "import_atlas", "extend_edge",
+    "smooth_labels", "make_edge_images", "edge_aware_segmentation",
+    "make_sub_segmented_labels", "labels_to_markers_erosion", "watershed",
+    "laplacian_of_gaussian_img", "cli.main make_edge_images"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()

@@ -72,7 +72,26 @@ result, on any fault. Phases:
    step's wall and peak memory; a crop of it card against CPU (markers,
    watershed and sub-labels exactly, the LoG image within 1e-4 of its
    range);
-9. a JSON line of per-kernel results (launches summed over the paths,
+9. blob analysis on a (256, 1024, 1024, 2) uint16 volume (channel 0 the
+   detect slice's, channel 1 a seeded half of its nuclei and its own
+   between them, ``testing.make_coloc_channel``): ``--proc detect_coloc
+   --channel 0 1 --roi_profile lightsheet`` through the CLI (launches of
+   the ``coloc`` path; each channel's sensitivity and PPV against its
+   planted nuclei at the detect slice's bars; the archive's ``colocs``;
+   the flags against the planted co-expression; wall and Mvox/s), the
+   whole stack matched between the channels in blocks, a (64, 256, 256,
+   2) crop through ``detect_coloc`` and ``coloc_match`` on the card and
+   on the CPU (blobs, flags and matches exactly equal); the patch
+   classifier trained on channel 0's blobs (held-out accuracy beside the
+   all-true baseline, steps per second), ``--proc classify --classifier``
+   through the CLI (blobs per second) and the same weights card against
+   CPU on 4,096 patches; ``--register cluster_blobs`` through the CLI
+   (labels equal to the CPU's); ``cluster_dbscan`` on a seeded cloud of
+   4,194,304 points with eps by the reference's rule (wall, peak memory)
+   and a sub-block of 262,144 card against CPU. Phase 6's ``vol_stats``
+   at 25 um also runs with the specimen's blobs and their regions, no
+   cluster column (the per-region clusters card against CPU);
+10. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --k4-times [--root DIR]`` times K4
@@ -180,6 +199,17 @@ RESUME_ITERS = {"reg_translation": 48, "reg_affine": 32, "reg_bspline": 16}
 ATLAS_CUT_PLANES = 8
 ATLAS_CROP = (slice(40, 88), slice(96, 192), slice(96, 192))
 LOG_RTOL = 1e-4
+#: blob analysis: channel 1's own nuclei sit on the lattice shifted by
+#: half a step, so their verification tiles shift by this much; patches
+#: held card against CPU and the probabilities' limit (float32 CNN,
+#: convolutions in other orders); the DBSCAN cloud (a fifteenth of a mouse
+#: brain's nuclei at the detect slice's density) and its sub-block held
+#: card against CPU
+COLOC_OWN_SHIFT = 10
+CLASSIFY_PATCHES = 4096
+CLASSIFY_ATOL = 1e-5
+CLOUD_POINTS = 4194304
+CLOUD_SUB = 262144
 #: detect_blobs: a crop of the detect volume, read as 2 um in z
 DETECT_CROP = (48, 192, 192)
 DETECT_RES = (2.0, 1.0, 1.0)
@@ -968,6 +998,38 @@ def vol_stats_25um(torch, pair, blobs):
             or sums["volpx"] != sums["labelled"]:
         fail(f"vol_stats at 25 um: the sums do not add up: {sums}")
 
+    # the specimen's blobs with their regions and no cluster column: each
+    # region's blobs clustered by DBSCAN in the same call
+    from magellanmapper_torch.stats import clustering
+    region = ontology.get_label_ids_from_position(ontology.scale_coords(
+        blobs[:, :3], scaling, CCF25_SHAPE), labels)
+    with_regions = np.column_stack([blobs[:, :3], region])
+    df_c, step = timed(torch, lambda: vols.measure_labels_metrics(
+        intensity, labels, heat_map=heat, blobs=with_regions,
+        device="cuda"))
+    ids = df_c["Region"].to_numpy()
+    m = np.isin(np.abs(region), ids)
+    _, clus_step = timed(torch, lambda: clustering.cluster_dbscan(
+        blobs[m, :3], 20.0, 5, device="cuda", groups=np.abs(region[m])))
+    t0 = time.perf_counter()
+    cpu = clustering.cluster_dbscan(blobs[m, :3], 20.0, 5, device="cpu",
+                                    groups=np.abs(region[m]))
+    t_cpu = time.perf_counter() - t0
+    want = np.array([clustering.cluster_dbscan_metrics(
+        cpu[np.abs(region[m]) == r]) if np.any(np.abs(region[m]) == r)
+        else (np.nan,) * 3 for r in ids], float)
+    got = df_c[["NucCluster", "NucClusNoise", "NucClusLarg"]].to_numpy()
+    print("vol_stats 25um with blobs: " + json.dumps({
+        "blobs": len(blobs), "in_regions": int(m.sum()),
+        "nuc_cluster_sum": float(np.nansum(df_c["NucCluster"])),
+        "nuc_noise_sum": float(np.nansum(df_c["NucClusNoise"])),
+        "without_blobs_s": wall, **step,
+        "clustering_alone_s": clus_step["wall_s"],
+        "cpu_clustering_s": t_cpu}), flush=True)
+    if not np.array_equal(got, want, equal_nan=True):
+        fail("vol_stats 25um: the card's cluster columns differ from the "
+             "CPU's")
+
 
 def gauntlet_path(pair):
     """``run_gauntlet`` on the pair, on the card, with the reference's
@@ -1401,6 +1463,309 @@ def atlas_crop(atlas, labels):
              f"{log_err}")
 
 
+def channel_sens_ppv(det, families, shifts):
+    """Sensitivity and PPV of one channel's detections against planted
+    nuclei of several lattices (``families``): each detection is scored
+    with the lattice of its nearest nucleus, in verification tiles
+    shifted by that lattice's ``shifts`` so that no tile edge passes near
+    its nuclei (:func:`testing.sens_ppv`)."""
+    from scipy.spatial import cKDTree
+    from magellanmapper_torch import testing
+
+    planted = np.concatenate(families)
+    family = np.concatenate([np.full(len(f), i)
+                             for i, f in enumerate(families)])
+    _, nearest = cKDTree(planted).query(det[:, :3])
+    tp = 0
+    for i, (truth, shift) in enumerate(zip(families, shifts)):
+        mine = det[family[nearest] == i][:, :3] + shift
+        sens, _ = testing.sens_ppv(
+            mine, truth + shift, np.add(SLICE_SHAPE, shift), VERIFY_TILE,
+            VERIFY_TOL)
+        tp += int(round(sens * len(truth)))
+    return tp / len(planted), tp / len(det)
+
+
+def sorted_with(blobs, *others):
+    """``blobs`` in lexicographic row order, and ``others`` (arrays with a
+    row per blob) in the same order."""
+    order = np.lexsort(blobs.T[::-1])
+    return (blobs[order],) + tuple(o[order] for o in others)
+
+
+def match_rows(matches):
+    """Every channel pair's matches as sorted rows of blob 1, blob 2 and
+    the distance."""
+    out = {}
+    for pair, bm in matches.items():
+        rows = np.array([np.concatenate([r["Blob1"], r["Blob2"],
+                                         [r["Distance"]]])
+                         for _, r in bm.df.iterrows()]).reshape(-1, 21)
+        out[pair] = rows[np.lexsort(rows.T[::-1])]
+    return out
+
+
+def coloc_volume(vol, centres, work):
+    """The two-channel volume of the blob-analysis phase: channel 0 the
+    detect slice's ``vol``, channel 1 a seeded half of its nuclei plus its
+    own between them (``testing.make_coloc_channel``), written as a 5D
+    image5d at ``work/coloc.npy``. Returns the path and the planted
+    truth (centres, co-expression mask, channel 1's own centres)."""
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import np_io
+
+    t0 = time.perf_counter()
+    ch1, co, own = testing.make_coloc_channel(SLICE_SHAPE, centres, SEED)
+    path = os.path.join(work, "coloc.npy")
+    np_io.write_npy(path, np.stack([vol, ch1], axis=-1)[None])
+    print(f"coloc volume {SLICE_SHAPE + (2,)}: {int(co.sum())} of "
+          f"{len(centres)} nuclei co-expressed, {len(own)} of channel 1 "
+          f"alone, made and written in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return path, (centres, co, own)
+
+
+def coloc_path(torch, path, truth, work, launches):
+    """``--proc detect_coloc --channel 0 1`` through the CLI on the
+    two-channel volume (launches of the ``coloc`` path; sensitivity and
+    PPV of each channel against its planted nuclei at the detect slice's
+    bars; the archive's ``colocs`` the returned ones; the flags against
+    the planted co-expression), the whole stack matched between the
+    channels in blocks, and a crop through both tasks on the card and on
+    the CPU (blobs, ``colocs`` and matches exactly equal). Returns the
+    blobs."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.cv import colocalizer, detector
+    from magellanmapper_torch.io import cli, np_io
+
+    centres, co, own = truth
+    argv = ["--img", path, "--proc", "detect_coloc", "--channel", "0", "1",
+            "--roi_profile", "lightsheet"]
+    dev_mod.reset_launches()
+    out, step = timed(torch, lambda: cli.main(argv + ["--device", "cuda"]))
+    launches["coloc"] = dict(dev_mod.LAUNCHES)
+    print(f"coloc: launches {launches['coloc']}", flush=True)
+    for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        if launches["coloc"][name] <= 0:
+            fail(f"kernel {name} was not launched on the coloc path")
+    det, colocs = out.blobs, out.colocalizations
+    if det is None or det.ndim != 2 or det.shape[1] != 10 \
+            or not np.all(np.isfinite(det)) or colocs is None \
+            or colocs.shape != (len(det), 2) or colocs.dtype != np.uint8:
+        fail(f"detect_coloc returned {None if det is None else det.shape} "
+             f"blobs, colocs {None if colocs is None else colocs.shape}")
+    with np.load(path.replace(".npy", "_blobs.npz")) as archive:
+        if not (np.array_equal(archive["segments"], det)
+                and np.array_equal(archive["colocs"], colocs)):
+            fail("blobs.npz differs from the returned blobs or colocs")
+    with open(path.replace(".npy", "_stack_detection_times.csv")) as f:
+        detection_s = float(next(csv.DictReader(f))["Total_stack"])
+    chl = det[:, 6].astype(int)
+    quality = {
+        0: testing.sens_ppv(det[chl == 0], centres, SLICE_SHAPE,
+                            VERIFY_TILE, VERIFY_TOL),
+        1: channel_sens_ppv(det[chl == 1], [centres[co], own],
+                            [0, COLOC_OWN_SHIFT])}
+    want = testing.coloc_truth(det, centres, co, own)
+    other = 1 - chl
+    flag = colocs[np.arange(len(det)), other]
+    known = want[np.arange(len(det)), other]
+    tp = int(np.sum((flag == 1) & (known == 1)))
+    recall = tp / max(int(np.sum(known == 1)), 1)
+    precision = tp / max(int(np.sum((flag == 1) & (known >= 0))), 1)
+    voxels = float(np.prod(SLICE_SHAPE)) * 2
+    print("coloc: " + json.dumps({
+        "blobs": len(det), "by_channel": [int(np.sum(chl == c))
+                                          for c in (0, 1)],
+        "sens_ppv": {c: [float(v) for v in q] for c, q in quality.items()},
+        "flags_recall": recall, "flags_precision": precision,
+        "flags_unknown": int(np.sum(known < 0)),
+        "colocs_per_channel": colocs.sum(0).tolist(),
+        "detection_s": detection_s, **step,
+        "mvox_per_s": voxels / 1e6 / step["wall_s"]}), flush=True)
+    for c, (sens, ppv) in quality.items():
+        if not (sens > 0.85 and ppv > 0.7):
+            fail(f"coloc channel {c} below the bars: sens {sens} ppv {ppv}")
+
+    # the whole stack matched between the channels in blocks (the CLI's
+    # task is one assignment over the whole image, for an ROI)
+    tol = detector.calc_overlap((1.0, 1.0, 1.0))
+    t0 = time.perf_counter()
+    matches = colocalizer.StackColocalizer.colocalize_stack(
+        SLICE_SHAPE, det, tol)
+    t_match = time.perf_counter() - t0
+    rows = match_rows(matches).get((0, 1), np.zeros((0, 21)))
+    from scipy.spatial import cKDTree
+    _, near1 = cKDTree(centres).query(rows[:, :3])
+    _, near2 = cKDTree(centres).query(rows[:, 10:13])
+    planted_pairs = int(np.sum((near1 == near2) & co[near1]))
+    print("coloc_match (stack): " + json.dumps({
+        "matches": len(rows), "of_planted_pairs": planted_pairs,
+        "planted_coexpressed": int(co.sum()), "wall_s": t_match}),
+        flush=True)
+
+    # a crop through both tasks, card against CPU
+    crop = np.ascontiguousarray(
+        np_io.read_file(path).img[0][:CROP[0], :CROP[1], :CROP[2]])
+    got = {}
+    for name in ("cuda", "cpu"):
+        sub = os.path.join(work, f"crop_{name}.npy")
+        np_io.write_npy(sub, crop[None])
+        t0 = time.perf_counter()
+        res = cli.main(["--img", sub] + argv[2:] + ["--device", name])
+        pairs = cli.main(["--img", sub, "--proc", "coloc_match",
+                          "--device", name])
+        got[name] = (sorted_with(res.blobs, res.colocalizations),
+                     match_rows(pairs), time.perf_counter() - t0)
+    (b_card, c_card), m_card, t_card = got["cuda"]
+    (b_cpu, c_cpu), m_cpu, t_cpu = got["cpu"]
+    same = (testing.rows_equal(b_card, b_cpu)
+            and np.array_equal(c_card, c_cpu)
+            and m_card.keys() == m_cpu.keys()
+            and all(np.array_equal(m_card[k], m_cpu[k]) for k in m_card))
+    print(f"coloc crop {CROP + (2,)}: {len(b_card)} blobs, "
+          f"{int(c_card.sum())} flags, "
+          f"{sum(len(v) for v in m_card.values())} matches on the card "
+          f"({t_card:.2f} s), the CPU's {len(b_cpu)}, {int(c_cpu.sum())}, "
+          f"{sum(len(v) for v in m_cpu.values())} ({t_cpu:.2f} s)",
+          flush=True)
+    if not same:
+        fail("the coloc crop on the card differs from the CPU's")
+    return det
+
+
+def classifier_path(torch, path, det, centres, work):
+    """The patch classifier: trained on channel 0's blobs (even-indexed;
+    label 1 within the verify tolerance of a planted nucleus), held out on
+    the odd-indexed ones, saved; then ``--proc classify --classifier``
+    through the CLI on the two-channel volume, and the same weights on
+    the card and on the CPU on 4,096 patches of channel 0 (patches exactly
+    equal, probabilities within :data:`CLASSIFY_ATOL`, flags equal where a
+    probability is further than that from 0.5)."""
+    from scipy.spatial import cKDTree
+    from magellanmapper_torch.cv import classifier
+    from magellanmapper_torch.io import cli, np_io
+
+    ch0 = det[det[:, 6] == 0]
+    dist, _ = cKDTree(centres).query(ch0[:, :3])
+    labels = (dist < max(VERIFY_TOL)).astype(np.float32)
+    image = np_io.read_file(path).img[0][..., 0]
+    t0 = time.perf_counter()
+    patches = classifier.extract_patches(image, ch0, device="cuda")
+    t_patch = time.perf_counter() - t0
+    # the process's first training step initialises cuDNN and loads its
+    # kernels (seconds); a step of a throwaway model takes that out of
+    # the timed run
+    _, warm = timed(torch, lambda: classifier.BlobClassifier(
+        seed=SEED + 1, device="cuda").train(patches[:128], labels[:128],
+                                            epochs=1))
+    clf = classifier.BlobClassifier(seed=SEED, device="cuda")
+    train_x, train_y = patches[0::2], labels[0::2]
+    out, step = timed(torch, lambda: clf.train(train_x, train_y))
+    n_steps = 10 * -(-len(train_x) // 128)
+    held = (clf.predict(patches[1::2]) > 0.5) == (labels[1::2] > 0.5)
+    model = os.path.join(work, "classifier.pkl")
+    clf.save(model)
+    print("classifier train: " + json.dumps({
+        "patches": len(patches), "train": len(train_x),
+        "true_share": float(labels.mean()), "loss": out["loss"],
+        "train_accuracy": out["accuracy"],
+        "held_out_accuracy": float(held.mean()),
+        "all_true_baseline": float(labels[1::2].mean()), "steps": n_steps,
+        "steps_per_s": n_steps / step["wall_s"], "patch_s": t_patch,
+        "first_step_s": warm["wall_s"], **step}), flush=True)
+
+    res, step = timed(torch, lambda: cli.main([
+        "--img", path, "--proc", "classify", "--classifier", model,
+        "--device", "cuda"]))
+    flags = res.blobs[:, 4]
+    if not np.array_equal(res.blobs[:, :4], det[:, :4]) \
+            or not set(np.unique(flags)) <= {0.0, 1.0}:
+        fail("classify changed the blobs or left flags outside {0, 1}")
+    print("classify: " + json.dumps({
+        "blobs": len(res.blobs), "confirmed": int(np.sum(flags == 1)),
+        "blobs_per_s": len(res.blobs) / step["wall_s"], **step}),
+        flush=True)
+
+    first = ch0[ch0[:, 0] < 100][:CLASSIFY_PATCHES]
+    chunk = np.ascontiguousarray(image[:100])
+    x = classifier.extract_patches(chunk, first, device="cuda")
+    x_cpu = classifier.extract_patches(chunk, first, device="cpu")
+    p_card = clf.predict(x)
+    p_cpu = classifier.BlobClassifier.load(model, device="cpu").predict(x)
+    err = float(np.abs(p_card - p_cpu).max())
+    clear = np.abs(p_cpu - 0.5) > CLASSIFY_ATOL
+    print(f"classify card vs CPU: {len(x)} patches, patches equal "
+          f"{np.array_equal(x, x_cpu)}, probabilities {err:.3e} apart",
+          flush=True)
+    if len(x) != CLASSIFY_PATCHES or not np.array_equal(x, x_cpu) \
+            or err > CLASSIFY_ATOL or not np.array_equal(
+                (p_card >= 0.5)[clear], (p_cpu >= 0.5)[clear]):
+        fail("the classifier on the card differs from the CPU's")
+
+
+def cluster_path(torch, path, det):
+    """``--register cluster_blobs`` through the CLI on the coloc run's
+    blobs (labels equal to the CPU's), then ``cluster_dbscan`` at scale on
+    a seeded cloud of :data:`CLOUD_POINTS` points with eps by the
+    reference's 90th-percentile rule (wall, peak memory) and a sub-block
+    of it on the card and on the CPU (labels equal)."""
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import cli
+    from magellanmapper_torch.stats import clustering
+
+    got, step = timed(torch, lambda: cli.main([
+        "--img", path, "--register", "cluster_blobs", "--device", "cuda"]))
+    t0 = time.perf_counter()
+    want, stats = clustering.cluster_blobs(det, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    print("cluster_blobs: " + json.dumps({
+        "blobs": len(got), **stats, **step, "cpu_s": t_cpu}), flush=True)
+    if not np.array_equal(got[:, -1], want[:, -1]):
+        fail("cluster_blobs on the card differs from the CPU's")
+
+    t0 = time.perf_counter()
+    pts = testing.make_point_cloud(CLOUD_POINTS, SEED)
+    t_make = time.perf_counter() - t0
+    dists, knn_step = timed(torch, lambda: clustering.knn_dist(
+        pts, 5, return_sorted=False, device="cuda"))
+    eps = float(np.percentile(dists, 90))
+    labels, db_step = timed(torch, lambda: clustering.cluster_dbscan(
+        pts, eps, 5, device="cuda"))
+    found = labels[labels >= 0]
+    print("dbscan at scale: " + json.dumps({
+        "points": len(pts), "made_s": t_make, "eps": eps,
+        "clusters": int(len(np.unique(found))),
+        "noise": int(np.sum(labels < 0)),
+        "largest": int(np.bincount(found).max()) if len(found) else 0,
+        "knn": knn_step, "dbscan": db_step,
+        "dbscan_points_per_s": len(pts) / db_step["wall_s"]}), flush=True)
+    corner = pts.max(1)
+    sub = pts[corner <= np.sort(corner)[CLOUD_SUB - 1]][:CLOUD_SUB]
+    card, sub_step = timed(torch, lambda: clustering.cluster_dbscan(
+        sub, eps, 5, device="cuda"))
+    t0 = time.perf_counter()
+    cpu = clustering.cluster_dbscan(sub, eps, 5, device="cpu")
+    print(f"dbscan sub-block: {len(sub)} points, "
+          f"{len(np.unique(cpu[cpu >= 0]))} clusters, card "
+          f"{sub_step['wall_s']:.3f} s, CPU {time.perf_counter() - t0:.3f} "
+          f"s", flush=True)
+    if len(sub) != CLOUD_SUB or not np.array_equal(card, cpu):
+        fail("dbscan of the sub-block on the card differs from the CPU's")
+
+
+def blob_analysis(torch, path, truth, work, launches):
+    """Phase 9: colocalization, the classifier and clustering on the
+    two-channel volume (:func:`coloc_path`, :func:`classifier_path`,
+    :func:`cluster_path`)."""
+    t0 = time.perf_counter()
+    det = coloc_path(torch, path, truth, work, launches)
+    classifier_path(torch, path, det, truth[0], work)
+    cluster_path(torch, path, det)
+    print(f"blob analysis: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -1526,6 +1891,8 @@ def main() -> None:
         fail("the crop's blobs on the card differ from the CPU's")
     det_crop = np.ascontiguousarray(vol[:DETECT_CROP[0], :DETECT_CROP[1],
                                         :DETECT_CROP[2]])
+    coloc_work = tempfile.TemporaryDirectory(dir=work)
+    coloc, coloc_truth = coloc_volume(vol, centres, coloc_work.name)
     del vol
 
     # 5. the grid search through the port's CLI, its crop, the tap route
@@ -1570,6 +1937,12 @@ def main() -> None:
     atlas_crop(atlas, labels)
     del atlas, labels
 
+    # 9. blob analysis: colocalization, the classifier and clustering on
+    # the two-channel volume
+    blob_analysis(torch, coloc, coloc_truth, coloc_work.name, launches)
+    coloc_work.cleanup()
+    torch.cuda.empty_cache()
+
     for name in results:
         n = sum(path[name] for path in launches.values())
         if n <= 0:
@@ -1583,7 +1956,7 @@ def main() -> None:
         fail(f"the port must run without jax and the reference package, "
              f"but these were imported: {loaded[:10]}")
 
-    # 9. results
+    # 10. results
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

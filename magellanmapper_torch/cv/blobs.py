@@ -12,7 +12,7 @@ reads the reference's archives.
 from __future__ import annotations
 
 from enum import Enum
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -94,6 +94,22 @@ class Blobs:
     @classmethod
     def set_blob_channel(cls, blobs: np.ndarray, channel) -> np.ndarray:
         return cls.set_blob_col(blobs, BlobCols.CHANNEL, channel)
+
+    @classmethod
+    def get_blob_confirmed(cls, blobs: np.ndarray) -> np.ndarray:
+        return cls.get_blob_col(blobs, BlobCols.CONFIRMED)
+
+    @classmethod
+    def set_blob_confirmed(cls, blobs: np.ndarray, val) -> np.ndarray:
+        return cls.set_blob_col(blobs, BlobCols.CONFIRMED, val)
+
+    @classmethod
+    def get_blob_truth(cls, blobs: np.ndarray) -> np.ndarray:
+        return cls.get_blob_col(blobs, BlobCols.TRUTH)
+
+    @classmethod
+    def set_blob_truth(cls, blobs: np.ndarray, val) -> np.ndarray:
+        return cls.set_blob_col(blobs, BlobCols.TRUTH, val)
 
     @staticmethod
     def get_blob_abs_coords(blobs: np.ndarray) -> np.ndarray:
@@ -212,6 +228,21 @@ class Blobs:
 
     def __len__(self) -> int:
         return 0 if self.blobs is None else len(self.blobs)
+
+
+def get_blobs_in_roi(
+        blobs: np.ndarray, offset: Sequence[int], size: Sequence[int],
+        margin: Sequence[int] = (0, 0, 0), reverse: bool = True
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Blobs within an ROI and their mask; ``offset``/``size``/``margin``
+    are x,y,z when ``reverse``, else z,y,x."""
+    if reverse:
+        offset, size, margin = offset[::-1], size[::-1], margin[::-1]
+    coords = blobs[:, :3]
+    lo = np.asarray(offset) - np.asarray(margin)
+    hi = np.asarray(offset) + np.asarray(size) + np.asarray(margin)
+    mask = np.all((coords >= lo) & (coords < hi), axis=1)
+    return blobs[mask], mask
 
 
 def get_blobs_interior(

@@ -582,11 +582,15 @@ def detect_blobs_stack(
         profiles,
         resolutions: Sequence[float],
         channels: Optional[Sequence[int]] = None,
+        classifier_model=None,
         **kwargs,
 ) -> Tuple[blobs_mod.Blobs, Dict[str, float]]:
     """Detect blobs across all channels, grouping channels whose profiles
     share block geometry; ``kwargs`` go to :func:`detect_blobs_blocks`
-    (``device`` defaults to the card there).
+    (``device`` defaults to the card there). With ``classifier_model`` (a
+    ``cv.classifier.BlobClassifier``), the merged blobs of every channel
+    are classified on channel 0's image into their ``confirmed`` column,
+    as the reference does.
 
     Returns ``(Blobs, timing)`` with blobs merged across channel groups.
     """
@@ -622,7 +626,13 @@ def detect_blobs_stack(
             if isinstance(v, (int, float)):
                 timing[k] = timing.get(k, 0.0) + v
 
-    blobs = blobs_mod.Blobs(np.vstack(all_blobs) if all_blobs else None)
+    merged = np.vstack(all_blobs) if all_blobs else None
+    if merged is not None and classifier_model is not None:
+        from magellanmapper_torch.cv import classifier as classifier_mod
+        vol = image[..., 0] if image.ndim > 3 else image
+        merged = classifier_mod.classify_whole_image(
+            classifier_model, vol, merged)
+    blobs = blobs_mod.Blobs(merged)
     blobs.resolutions = np.atleast_2d(np.asarray(resolutions, float))
     return blobs, timing
 

@@ -1,11 +1,27 @@
-"""Command-line entry of the port: blob detection, its grid search,
-single-sample atlas registration, and the specimen pipeline around it.
+"""Command-line entry of the port: blob detection and the analysis of its
+blobs, its grid search, single-sample atlas registration, and the
+specimen pipeline around it.
 
 ``python -m magellanmapper_torch.io.cli --img vol.npy --proc detect
 --roi_profile lightsheet [--device cuda]`` runs the port's
 :func:`~magellanmapper_torch.cv.stack_detect.detect_blobs_stack` and
 writes ``blobs.npz`` and ``stack_detection_times.csv`` next to the image
-as the reference's ``--proc detect`` task does.
+as the reference's ``--proc detect`` task does; ``--truth_db <db>``
+also matches the blobs to the database's confirmed blobs and writes
+sensitivity and PPV to ``verify.csv``, and ``--save_subimg`` saves the
+``--subimg_offset``/``--subimg_size`` sub-image as
+``<image>_(x,y,z)x(x,y,z)_subimg.npy``.
+
+Blob analysis: ``--proc detect_coloc --channel 0 1`` detects every
+channel and flags each blob's colocalization with the other channels
+(``colocs`` in ``blobs.npz``, :func:`cv.colocalizer.colocalize_blobs`);
+``--proc coloc_match`` matches the saved blobs between channel pairs
+(:func:`cv.colocalizer.colocalize_blobs_match`; returns the matches);
+``--proc classify [--classifier model.pkl]`` classifies the saved blobs
+with the patch CNN (an untrained one without a model, as in the
+reference) into their ``confirmed`` column; ``--register cluster_blobs``
+clusters the saved blobs with DBSCAN (eps from their 5-nearest-neighbour
+distances) into ``<prefix or image>_clusters.npy``.
 
 ``python -m magellanmapper_torch.io.cli --img vol.npy --proc transform
 --transform rescale=0.25 [--plane xz]`` shrinks (and reorients) the
@@ -65,17 +81,18 @@ reference, ``--grid_search`` takes precedence over ``--proc``.
 
 The parser takes the reference's flag names
 (``magellanmapper_tpu/io/cli.py:124-194``) for what the port accepts:
-``--img``, ``--proc detect|transform|preprocess``, ``--register
-single|register_rev|make_density_images|vol_stats|export_regions|group|
-import_atlas|new_atlas|make_edge_images[_exp]|merge_atlas_segs[_exp]|
-make_subsegs``,
+``--img``, ``--proc detect|detect_coloc|coloc_match|classify|transform|
+preprocess``, ``--register single|register_rev|make_density_images|
+vol_stats|export_regions|group|import_atlas|new_atlas|
+make_edge_images[_exp]|merge_atlas_segs[_exp]|make_subsegs|
+cluster_blobs``, ``--classifier``,
 ``--roi_profile`` (one per channel), ``--atlas_profile``,
 ``--reg_suffixes``, ``--transform``, ``--plane``, ``--labels``,
 ``--channel``, ``--series``, ``--prefix``,
 ``--subimg_offset``/``--subimg_size``, ``--set_meta resolutions=z,y,x``,
-``--grid_search``, ``--truth_db`` (only with ``--grid_search``) and
-``--device``. Any other flag or task is rejected with a message that
-names it.
+``--grid_search``, ``--truth_db`` (with ``--grid_search`` or the detect
+tasks), ``--save_subimg`` (with the detect tasks) and ``--device``. Any
+other flag or task is rejected with a message that names it.
 
 ``--device`` picks where the device step runs: ``cuda`` (the default)
 fails without a card, and the CPU, which runs the kernels' plain
@@ -100,17 +117,23 @@ from magellanmapper_torch.atlas import (
     atlas_refiner, edge_seg, ontology, transformer)
 from magellanmapper_torch.atlas import register as register_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
-from magellanmapper_torch.cv import stack_detect
-from magellanmapper_torch.io import export_regions, np_io, sitk_io
+from magellanmapper_torch.cv import (
+    classifier as classifier_mod, colocalizer, detector, stack_detect,
+    verifier)
+from magellanmapper_torch.io import (
+    export_regions, naming, np_io, sitk_io, sqlite)
 from magellanmapper_torch.settings.atlas_prof import AtlasProfile
 from magellanmapper_torch.settings.roi_prof import ROIProfile
-from magellanmapper_torch.stats import mlearn, vols
+from magellanmapper_torch.stats import clustering, mlearn, vols
 from magellanmapper_torch.utils import libmag
 
 _logger = logging.getLogger(__name__)
 
 #: ``--proc`` tasks the port runs
-TASKS = ("detect", "transform", "preprocess")
+TASKS = ("detect", "detect_coloc", "coloc_match", "classify", "transform",
+         "preprocess")
+#: the tasks that detect, which take ``--truth_db`` and ``--save_subimg``
+DETECT_TASKS = ("detect", "detect_coloc")
 
 
 class RegisterTypes(Enum):
@@ -165,14 +188,15 @@ REGISTER_TASKS = (
     RegisterTypes.IMPORT_ATLAS, RegisterTypes.NEW_ATLAS,
     RegisterTypes.MAKE_EDGE_IMAGES, RegisterTypes.MAKE_EDGE_IMAGES_EXP,
     RegisterTypes.MERGE_ATLAS_SEGS, RegisterTypes.MERGE_ATLAS_SEGS_EXP,
-    RegisterTypes.MAKE_SUBSEGS)
+    RegisterTypes.MAKE_SUBSEGS, RegisterTypes.CLUSTER_BLOBS)
 #: the tasks that register an atlas directory onto a sample
 PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 #: what the port runs, for the messages that reject the rest
-SUPPORTED = ("--proc detect/transform/preprocess, --grid_search and "
-             "--register single/register_rev/make_density_images/"
-             "vol_stats/export_regions/group/import_atlas/new_atlas/"
-             "make_edge_images[_exp]/merge_atlas_segs[_exp]/make_subsegs")
+SUPPORTED = ("--proc detect/detect_coloc/coloc_match/classify/transform/"
+             "preprocess, --grid_search and --register single/"
+             "register_rev/make_density_images/vol_stats/export_regions/"
+             "group/import_atlas/new_atlas/make_edge_images[_exp]/"
+             "merge_atlas_segs[_exp]/make_subsegs/cluster_blobs")
 
 
 @dataclass
@@ -200,6 +224,8 @@ class RunConfig:
     transform: Dict[str, str] = field(default_factory=dict)
     plane: Optional[str] = None
     labels: Dict[str, str] = field(default_factory=dict)
+    classifier: Optional[List[str]] = None
+    save_subimg: bool = False
     device: str = "cuda"
 
 
@@ -227,13 +253,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--subimg_size", nargs="*", help="sub-image size x,y,z")
     p.add_argument("--truth_db", nargs="*", help="truth DB mode and path")
     p.add_argument("--proc", nargs="*",
-                   help="processing task: detect, transform or preprocess "
-                   "<tasks>")
+                   help="processing task: detect, detect_coloc, "
+                   "coloc_match, classify, transform or preprocess <tasks>")
     p.add_argument("--register",
                    help="registration task: single, register_rev, "
                    "make_density_images, vol_stats, export_regions, group, "
                    "import_atlas, new_atlas, make_edge_images[_exp], "
-                   "merge_atlas_segs[_exp] or make_subsegs")
+                   "merge_atlas_segs[_exp], make_subsegs or cluster_blobs")
     p.add_argument("--roi_profile", nargs="*", help="ROI profile(s)")
     p.add_argument("--atlas_profile", help="atlas profile")
     p.add_argument("--reg_suffixes", nargs="*",
@@ -245,6 +271,10 @@ def build_parser() -> argparse.ArgumentParser:
                    "(rescale=...)")
     p.add_argument("--plane", help="plane orientation (xy/xz/yz)")
     p.add_argument("--grid_search", help="grid search profile")
+    p.add_argument("--classifier", nargs="*",
+                   help="blob classifier model file (--proc classify)")
+    p.add_argument("--save_subimg", action="store_true",
+                   help="save the sub-image that detection read")
     p.add_argument("--set_meta", nargs="*",
                    help="metadata overrides (resolutions=z,y,x)")
     p.add_argument("--device", default="cuda",
@@ -294,6 +324,8 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
     rc.labels = args_to_dict(args.labels)
     rc.plane = args.plane
     rc.grid_search = args.grid_search
+    rc.classifier = args.classifier
+    rc.save_subimg = args.save_subimg
     if args.proc:
         rc.proc = args.proc[0].lower()
         rc.proc_args = args_to_dict(args.proc[1:])
@@ -317,9 +349,16 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
                 f"magellanmapper_torch supports only {SUPPORTED} so far "
                 f"(got {task}); use magellanmapper_tpu.io.cli for other "
                 "tasks")
-    if rc.truth_db and not rc.grid_search:
+    detects = (rc.register_type is None and not rc.grid_search
+               and rc.proc in DETECT_TASKS)
+    if rc.truth_db and not (rc.grid_search or detects):
         raise SystemExit(
-            "magellanmapper_torch takes --truth_db only with --grid_search")
+            "magellanmapper_torch takes --truth_db only with --grid_search "
+            "or --proc detect/detect_coloc")
+    if rc.save_subimg and not detects:
+        raise SystemExit(
+            "magellanmapper_torch takes --save_subimg only with --proc "
+            "detect/detect_coloc")
     if not rc.filenames and rc.register_type is not \
             RegisterTypes.EXPORT_REGIONS:
         raise SystemExit(f"{task} needs --img")
@@ -338,18 +377,30 @@ def load_image(rc: RunConfig) -> np_io.Image5d:
     return img5d
 
 
-def detect(rc: RunConfig, device) -> blobs_mod.Blobs:
-    """The ``--proc detect`` task: detect, then save the blob archive and
-    the stage timings next to the image."""
+def detect(rc: RunConfig, device, coloc: bool = False) -> blobs_mod.Blobs:
+    """The ``--proc detect`` and ``detect_coloc`` tasks: detect (with
+    ``coloc``, flag each blob's colocalization with every channel), verify
+    against ``--truth_db`` into ``verify.csv``, save the sub-image with
+    ``--save_subimg``, then save the blob archive and the stage timings
+    next to the image."""
     img5d = load_image(rc)
     vol = img5d.img[0] if img5d.img.ndim >= 4 else img5d.img
-    res = (img5d.resolutions[0] if img5d.resolutions is not None
-           else (1.0, 1.0, 1.0))
+    res = _resolutions(img5d)
     blobs, timing = stack_detect.detect_blobs_stack(
         vol, rc.roi_profiles or rc.roi_profile, res, channels=rc.channel,
         device=device)
+    if coloc and blobs.blobs is not None and vol.ndim > 3:
+        blobs.colocalizations = colocalizer.colocalize_blobs(
+            vol, blobs.blobs, device=device)
     base = rc.prefix or rc.filenames[0]
     blobs.basename = os.path.basename(base)
+    if rc.truth_db:
+        verify_truth(rc, blobs.blobs, res, base)
+    if rc.save_subimg and img5d.subimg_offset is not None:
+        sub_name = naming.make_subimage_name(
+            base, img5d.subimg_offset, img5d.subimg_size)
+        np.save(libmag.combine_paths(sub_name, "subimg.npy"),
+                np.asarray(img5d.img[0]))
     blobs.path = libmag.combine_paths(base, "blobs.npz")
     blobs.save_archive()
     pd.DataFrame([{k: v for k, v in timing.items()
@@ -363,6 +414,68 @@ def detect(rc: RunConfig, device) -> blobs_mod.Blobs:
     return blobs
 
 
+def _resolutions(img5d: np_io.Image5d):
+    return (img5d.resolutions[0] if img5d.resolutions is not None
+            else (1.0, 1.0, 1.0))
+
+
+def verify_truth(rc: RunConfig, blobs: np.ndarray, res, base: str):
+    """Match ``blobs`` to the confirmed blobs of ``--truth_db`` within the
+    profile's tolerance and write sensitivity and PPV to ``verify.csv``
+    beside ``base`` (nothing when the database has no confirmed blob)."""
+    truth_db = sqlite.load_truth_db(rc.truth_db)
+    try:
+        truth = truth_db.select_blobs_confirmed(1)
+        if len(truth):
+            tol = detector.calc_overlap(res) * np.asarray(
+                rc.roi_profile["verify_tol_factor"])
+            sens, ppv, msg = verifier.verify_stack(blobs, truth, tol)
+            _logger.info("verification vs truth DB:\n%s", msg)
+            pd.DataFrame([{"sens": sens, "ppv": ppv}]).to_csv(
+                libmag.combine_paths(base, "verify.csv"), index=False)
+    finally:
+        truth_db.close()
+
+
+def load_blobs(rc: RunConfig) -> blobs_mod.Blobs:
+    """The blob archive saved beside ``--prefix`` or the image."""
+    path = libmag.combine_paths(rc.prefix or rc.filenames[0], "blobs.npz")
+    return blobs_mod.Blobs().load_blobs(path)
+
+
+def coloc_match(rc: RunConfig) -> Dict:
+    """The ``--proc coloc_match`` task: match the saved blobs between each
+    pair of channels within the detection overlap (host matching)."""
+    img5d = load_image(rc)
+    blobs = load_blobs(rc)
+    tol = detector.calc_overlap(_resolutions(img5d))
+    shape = img5d.img.shape[1:4]
+    return colocalizer.colocalize_blobs_match(
+        blobs.blobs, (0, 0, 0), shape[::-1], tol)
+
+
+def classify(rc: RunConfig, device) -> Optional[blobs_mod.Blobs]:
+    """The ``--proc classify`` task: classify the saved blobs on the
+    image's first channel with ``--classifier``'s model (an untrained
+    ``BlobClassifier(seed=0)`` without one) and save them back."""
+    img5d = load_image(rc)
+    blobs = load_blobs(rc)
+    if blobs.blobs is None or not len(blobs.blobs):
+        _logger.warning("no blobs loaded to classify, skipping")
+        return None
+    model_path = rc.classifier[0] if rc.classifier else None
+    clf = (classifier_mod.BlobClassifier.load(model_path, device=device)
+           if model_path else classifier_mod.BlobClassifier(
+               seed=0, device=device))
+    ci = classifier_mod.ClassifyImage(clf, img5d.img, blobs)
+    blobs.blobs = ci.classify_whole_image()
+    blobs.save_archive()
+    _logger.info(
+        "classified %d blobs (%d confirmed)", len(blobs.blobs),
+        int((blobs.blobs[:, 4] == 1).sum()))
+    return blobs
+
+
 def process_register(rc: RunConfig, device):
     """The ``--register`` tasks (reference ``cli._process_register``):
     ``single`` registers the atlas directory ``filenames[1]`` onto the
@@ -371,7 +484,7 @@ def process_register(rc: RunConfig, device):
     a registered sample and export its ontology; ``group`` registers the
     images to each other; ``import_atlas``/``new_atlas``,
     ``make_edge_images``, ``merge_atlas_segs`` and ``make_subsegs`` build
-    and reannotate an atlas."""
+    and reannotate an atlas; ``cluster_blobs`` clusters the saved blobs."""
     task = rc.register_type
     if task in (RegisterTypes.MAKE_EDGE_IMAGES_EXP,
                 RegisterTypes.MERGE_ATLAS_SEGS_EXP):
@@ -430,6 +543,12 @@ def process_register(rc: RunConfig, device):
             prefix=rc.prefix, device=device)
     if task is RegisterTypes.VOL_STATS:
         return vol_stats(rc, device)
+    if task is RegisterTypes.CLUSTER_BLOBS:
+        clustered, stats = clustering.cluster_blobs(
+            load_blobs(rc).blobs, device=device)
+        _logger.info("clustering stats: %s", stats)
+        np.save((rc.prefix or rc.filenames[0]) + "_clusters.npy", clustered)
+        return clustered
     if task is RegisterTypes.EXPORT_REGIONS:
         ref_path = rc.labels.get("path_ref") or rc.filenames[0]
         ref = ontology.LabelsRef(str(ref_path)).load()
@@ -498,9 +617,10 @@ def vol_stats(rc: RunConfig, device) -> pd.DataFrame:
 
 
 def process_file(rc: RunConfig, device):
-    """The ``--proc`` tasks (reference ``cli.process_file``): ``detect``,
-    ``transform`` (returns the output image's path) and ``preprocess``
-    (returns the processed image)."""
+    """The ``--proc`` tasks (reference ``cli.process_file``): ``detect``
+    and ``detect_coloc`` (return the blobs), ``coloc_match`` (the matches
+    by channel pair), ``classify`` (the classified blobs), ``transform``
+    (the output image's path) and ``preprocess`` (the processed image)."""
     path = rc.filenames[0]
     if rc.proc == "transform":
         rescale = rc.transform.get("rescale")
@@ -512,16 +632,21 @@ def process_file(rc: RunConfig, device):
         return transformer.preprocess_img(
             np.asarray(img5d.img), list(rc.proc_args),
             out_path=rc.prefix or path, device=device)
-    return detect(rc, device)
+    if rc.proc == "coloc_match":
+        return coloc_match(rc)
+    if rc.proc == "classify":
+        return classify(rc, device)
+    return detect(rc, device, coloc=rc.proc == "detect_coloc")
 
 
 def main(argv: Optional[Sequence[str]] = None
          ) -> Union[blobs_mod.Blobs, pd.DataFrame, Dict, str, list,
                     np.ndarray, tuple]:
     """CLI entry. Returns what the task's function returns: the detected
-    blobs, the grid search's table, the registration's result, the
-    transformed image's path, the preprocessed image, the heat map(s) or
-    the regions' table."""
+    or classified blobs, the channel pairs' matches, the grid search's
+    table, the registration's result, the transformed image's path, the
+    preprocessed image, the heat map(s), the regions' table or the
+    clustered blobs."""
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
     rc = process_cli_args(argv)

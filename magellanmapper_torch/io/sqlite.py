@@ -3,7 +3,8 @@
 Copy of what the port uses from ``magellanmapper_tpu/io/sqlite.py``: the
 same tables (``about``/``experiments``/``rois``/``blobs``/``blob_matches``,
 database version 4), so databases interchange with the reference, and the
-``ClrDB`` calls that write a truth ROI and read confirmed blobs.
+``ClrDB`` calls that write a truth ROI, read confirmed blobs or an ROI's
+blobs, and write and read blob matches between channels.
 
 Blob rows store x,y,z in database column order, but the API speaks z,y,x
 blob arrays.
@@ -14,7 +15,7 @@ from __future__ import annotations
 import datetime
 import os
 import sqlite3
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -132,6 +133,59 @@ class ClrDB:
             "confirmed, truth, channel) VALUES (?,?,?,?,?,?,?,?)", rows)
         self.conn.commit()
         return len(rows)
+
+    def select_blobs_by_roi(self, roi_id: int) -> np.ndarray:
+        """Blobs of an ROI as an N x 10 z,y,x array (absolute coordinates
+        from the stored ones)."""
+        self.cur.execute(
+            "SELECT z, y, x, radius, confirmed, truth, channel "
+            "FROM blobs WHERE roi_id = ?", (roi_id,))
+        rows = self.cur.fetchall()
+        if not rows:
+            return np.zeros((0, 10))
+        arr = np.array([[
+            r["z"], r["y"], r["x"], r["radius"], r["confirmed"],
+            r["truth"], r["channel"]] for r in rows], dtype=float)
+        return np.column_stack([arr, arr[:, :3]])
+
+    def delete_blobs(self, roi_id: int) -> None:
+        self.cur.execute("DELETE FROM blobs WHERE roi_id = ?", (roi_id,))
+        self.conn.commit()
+
+    def insert_blob_matches(self, roi_id: int, matches) -> None:
+        """Insert matches (a ``BlobMatch`` or ``(blob1, blob2, dist)``
+        tuples), each blob named by the ID of its row in the ROI."""
+        items = matches.df.iterrows() if hasattr(matches, "df") and \
+            matches.df is not None else enumerate(matches)
+        for _, m in items:
+            if hasattr(m, "get"):
+                b1 = m.get("Blob1")
+                b2 = m.get("Blob2")
+                dist = m.get("Distance")
+            else:
+                b1, b2, dist = m
+            id1 = self._blob_id_for(roi_id, b1)
+            id2 = self._blob_id_for(roi_id, b2)
+            self.cur.execute(
+                "INSERT INTO blob_matches (roi_id, blob1, blob2, dist) "
+                "VALUES (?,?,?,?)", (roi_id, id1, id2, float(dist)))
+        self.conn.commit()
+
+    def _blob_id_for(self, roi_id: int, blob) -> Optional[int]:
+        self.cur.execute(
+            "SELECT id FROM blobs WHERE roi_id = ? AND x = ? AND y = ? "
+            "AND z = ?",
+            (roi_id, int(round(blob[2])), int(round(blob[1])),
+             int(round(blob[0]))))
+        row = self.cur.fetchone()
+        return row["id"] if row else None
+
+    def select_blob_matches(self, roi_id: int) -> List[Tuple]:
+        """``(blob1 ID, blob2 ID, distance)`` of each match in an ROI."""
+        self.cur.execute(
+            "SELECT blob1, blob2, dist FROM blob_matches WHERE roi_id = ?",
+            (roi_id,))
+        return [tuple(r) for r in self.cur.fetchall()]
 
     def select_blobs_confirmed(self, confirmed: int) -> np.ndarray:
         """Blobs of every ROI with the given confirmation flag, as an

@@ -18,8 +18,10 @@ The rest is host code, copied: label overlap and distances, painting a
 metric into labels, per-level tables, the metric enums and the facades.
 ``mesh=`` (the reference's sharded segment sums) raises until ROADMAP
 queue item 10. Blobs with precomputed cluster IDs (column 4) give the
-cluster columns; without them the reference runs scikit-learn's DBSCAN,
-which is not ported yet, and the port raises.
+cluster columns; without them every region's blobs are clustered on the
+device in one pass (``clustering.cluster_dbscan`` grouped by region: only
+blobs of one region neighbour each other, and each region numbers its
+clusters from 0), as the reference's DBSCAN region by region.
 """
 
 from __future__ import annotations
@@ -214,9 +216,9 @@ def measure_labels_metrics(
         level: ontology level to remap labels to before measuring.
         blobs: optional blob array for the per-region cluster columns:
             column 3 = label ID, column 4 = precomputed DBSCAN cluster ID
-            (noise = -1). Without column 4 the reference clusters here
-            with DBSCAN (``cluster_eps``/``cluster_minpts``), which the
-            port does not have yet: it raises.
+            (noise = -1). Without column 4 each region's blobs are
+            clustered here with DBSCAN (``cluster_eps``/
+            ``cluster_minpts``) on ``device``.
         mesh: the reference's device mesh; not ported (raises).
         device: where the voxel passes run.
 
@@ -230,9 +232,6 @@ def measure_labels_metrics(
             "measure_labels_metrics(mesh=...): the sharded segment sums "
             "(_segment_stats_sharded) are not ported yet (ROADMAP queue "
             "item 10)")
-    if blobs is not None and len(blobs) > 0 and np.shape(blobs)[1] <= 4:
-        clustering.cluster_dbscan(np.asarray(blobs)[:, :3], cluster_eps,
-                                  cluster_minpts)
     dev = device_mod.resolve(device)
     labels_proc = labels_img
     if level is not None and labels_ref is not None:
@@ -303,7 +302,8 @@ def measure_labels_metrics(
     sa = _surface_areas(codes.reshape(labels_img.shape), n, spacing)
     compactness = np.divide(sa ** 1.5, np.maximum(volume, 1e-12))
 
-    # per-region point-cloud cluster metrics from precomputed IDs
+    # per-region point-cloud cluster metrics, from precomputed IDs or
+    # DBSCAN within each measured region
     nuc_cluster = np.full(n, np.nan)
     nuc_noise = np.full(n, np.nan)
     nuc_larg = np.full(n, np.nan)
@@ -312,7 +312,15 @@ def measure_labels_metrics(
         blob_lbl = b[:, 3].astype(int)
         if combine_sides:
             blob_lbl = np.abs(blob_lbl)
-        clus = b[:, 4].astype(int)
+        if b.shape[1] > 4:
+            clus = b[:, 4].astype(int)
+        else:
+            clus = np.full(len(b), -1, dtype=int)
+            m = np.isin(blob_lbl, ids)
+            if m.any():
+                clus[m] = clustering.cluster_dbscan(
+                    b[m, :3], cluster_eps, cluster_minpts, device=dev,
+                    groups=blob_lbl[m])
         for i, lid in enumerate(ids):
             m = blob_lbl == lid
             if not m.any():

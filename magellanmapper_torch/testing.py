@@ -2,9 +2,10 @@
 ``chip_smoke.py``: a seeded volume of planted nuclei, a full-resolution
 specimen made from a registration pair with nuclei planted in its brain,
 a group of brains for groupwise registration, a one-sided atlas to
-import and reannotate, a truth database of the centres, blob-row
-equality, detection quality against the planted centres, and the edge
-cases of the percentile kernel (K4)."""
+import and reannotate, a second channel with known co-expression, a point
+cloud of dense, sparse and empty parts for clustering, a truth database
+of the centres, blob-row equality, detection quality against the planted
+centres, and the edge cases of the percentile kernel (K4)."""
 
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Sequence, Tuple
 
 import numpy as np
 import torch
-from scipy import optimize
+from scipy import optimize, spatial
 from scipy.spatial import distance
 
 from magellanmapper_torch import device as device_mod
@@ -48,6 +49,96 @@ def make_nuclei_volume(shape, seed, spacing=20, sigma=2.7, jitter=4):
         vol[z] += rng.normal(200, 30, shape[1:]).astype(np.float32)
     np.clip(vol, 0, 65535, out=vol)
     return vol.astype(np.uint16), centres
+
+
+def make_coloc_channel(shape, centres: np.ndarray, seed: int,
+                       spacing: int = 20, sigma: float = 2.7,
+                       jitter: int = 4
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A second channel for the nuclei of :func:`make_nuclei_volume`
+    (``centres``, made with the same ``spacing``): a seeded half of those
+    nuclei co-express, and half of a lattice shifted by half a step on
+    every axis (between the first channel's nuclei) holds nuclei of this
+    channel alone, over the same noise.
+
+    Returns ``(channel, coexpressed, own)``: the uint16 channel, a mask
+    over ``centres`` of the co-expressing nuclei, and the z,y,x centres of
+    the channel's own nuclei.
+    """
+    rng = np.random.default_rng(seed + 1000)
+    co = rng.random(len(centres)) < 0.5
+    grids = [np.arange(spacing, s - spacing + 1, spacing) for s in shape]
+    own = np.stack(np.meshgrid(*grids, indexing="ij"), -1).reshape(-1, 3)
+    own = own[rng.random(len(own)) < 0.5]
+    own = own + rng.integers(-jitter, jitter + 1, own.shape)
+    r = int(3 * sigma) + 1
+    g = np.arange(-r, r + 1, dtype=np.float32)
+    stamp = np.exp(-(g[:, None, None] ** 2 + g[None, :, None] ** 2
+                     + g[None, None, :] ** 2) / np.float32(2 * sigma ** 2))
+    vol = np.zeros([s + 2 * r for s in shape], np.float32)
+    planted = np.concatenate([centres[co], own])
+    amps = rng.uniform(1500, 3000, len(planted)).astype(np.float32)
+    w = 2 * r + 1
+    for (z, y, x), a in zip(planted, amps):
+        vol[z:z + w, y:y + w, x:x + w] += a * stamp
+    vol = vol[r:-r, r:-r, r:-r]
+    for z in range(shape[0]):
+        vol[z] += rng.normal(200, 30, shape[1:]).astype(np.float32)
+    np.clip(vol, 0, 65535, out=vol)
+    return vol.astype(np.uint16), co, own
+
+
+def make_coloc_volume(shape, seed: int, spacing: int = 20):
+    """A (z, y, x, 2) uint16 volume: channel 0 :func:`make_nuclei_volume`,
+    channel 1 :func:`make_coloc_channel`. Returns ``(volume, centres,
+    coexpressed, own)``."""
+    ch0, centres = make_nuclei_volume(shape, seed, spacing)
+    ch1, co, own = make_coloc_channel(shape, centres, seed, spacing)
+    return np.stack([ch0, ch1], axis=-1), centres, co, own
+
+
+def coloc_truth(blobs: np.ndarray, centres: np.ndarray, co: np.ndarray,
+                own: np.ndarray, tol: float = 3.0) -> np.ndarray:
+    """The planted co-expression of each blob, an ``(n, 2)`` 0/1 matrix
+    like ``colocalize_blobs``' (a blob always expresses its own channel):
+    a channel-0 blob within ``tol`` (Chebyshev) of a co-expressing nucleus
+    expresses channel 1; a channel-1 blob within ``tol`` of one expresses
+    channel 0, and one near a nucleus of channel 1 alone does not. Blobs
+    near no planted nucleus get -1 in the other channel."""
+    out = np.full((len(blobs), 2), -1, np.int8)
+    chl = blobs[:, 6].astype(int)
+    out[np.arange(len(blobs)), chl] = 1
+    planted = np.concatenate([centres, own]).astype(float)
+    both = np.concatenate([co, np.zeros(len(own), bool)])
+    dist, idx = spatial.cKDTree(planted).query(blobs[:, :3], p=np.inf)
+    near = dist <= tol
+    other = 1 - chl
+    out[near, other[near]] = both[idx[near]]
+    return out
+
+
+def make_point_cloud(n: int, seed: int, spacing: int = 20,
+                     jitter: int = 4, region: int = 8) -> np.ndarray:
+    """A seeded cloud of ``n`` integer z,y,x points, nuclei as detection
+    gives them: a jittered lattice of ``spacing`` whose blocks of
+    ``region`` lattice steps are, at random, dense (the lattice and its
+    half-step shift), normal, sparse (a quarter of the lattice) or empty,
+    so that DBSCAN finds clusters, border points and noise. Returns an
+    ``(n, 3)`` float64 array."""
+    rng = np.random.default_rng(seed)
+    side = int(np.ceil((n / 0.7) ** (1 / 3) / region)) * region
+    kinds = rng.integers(0, 4, (side // region,) * 3)
+    lattice = np.stack(np.meshgrid(*(np.arange(side),) * 3, indexing="ij"),
+                       -1).reshape(-1, 3)
+    kind = kinds[tuple((lattice // region).T)]
+    keep = (kind == 0) | (kind == 1) | ((kind == 2)
+                                        & (rng.random(len(kind)) < 0.25))
+    pts = [lattice[keep] * spacing, lattice[kind == 0] * spacing
+           + spacing // 2]
+    pts = np.concatenate(pts)
+    pts = pts[np.sort(rng.permutation(len(pts))[:n])]
+    pts = pts + rng.integers(-jitter, jitter + 1, pts.shape)
+    return rng.permutation(pts).astype(np.float64)
 
 
 #: :func:`make_specimen`'s texture at its brightest, its tissue level in

@@ -2,11 +2,13 @@
 stage's parameters, so a stopped multi-stage registration resumes at its
 last completed stage instead of restarting the schedule.
 
-Port of ``magellanmapper_tpu/utils/checkpoint.py:23-71``. The reference
-writes Orbax directories; the port writes one file per checkpoint, a flat
-dict of CPU tensors read back with ``torch.load(weights_only=True)``, so
-it does not read the reference's directories (a difference of format, not
-of results). The classifier's helpers wait for ``cv/classifier``.
+Port of ``magellanmapper_tpu/utils/checkpoint.py``, with the blob
+classifier's helpers. The reference writes Orbax directories; the port
+writes one file per checkpoint, a flat dict of CPU tensors read back with
+``torch.load(weights_only=True)``, so it does not read the reference's
+directories (a difference of format, not of results). A classifier's
+checkpoint is its ``PatchCNN`` state dict; its model files
+(``BlobClassifier.save``) are the reference's pickle and move both ways.
 """
 
 from __future__ import annotations
@@ -66,3 +68,17 @@ class RegistrationCheckpoint:
 
     def save_stage(self, kind: str, params: Dict[str, Any]) -> None:
         save_pytree(self.stage_path(kind), dict(params))
+
+
+def save_classifier_state(path: str, clf) -> str:
+    """Save a ``BlobClassifier``'s weights (its state dict) at ``path``."""
+    return save_pytree(path, clf.model.state_dict())
+
+
+def load_classifier_state(path: str, device="cuda"):
+    """The ``BlobClassifier`` saved at ``path`` on ``device``, or None."""
+    state = load_pytree(path)
+    if state is None:
+        return None
+    from magellanmapper_torch.cv.classifier import BlobClassifier
+    return BlobClassifier(params=state, device=device)

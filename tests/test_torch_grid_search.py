@@ -126,10 +126,23 @@ def test_grid_search_host_helpers_copy(roi):
 
 
 def test_cli_truth_db_needs_grid_search(tmp_path, roi):
+    """``--truth_db`` with ``--proc detect`` verifies the detections into
+    ``verify.csv``, as the reference's task does (the table equal), and
+    ``--grid_search`` still needs a truth database."""
+    (tmp_path / "ref").mkdir()
     img, truth = _write_inputs(tmp_path, roi)
-    with pytest.raises(SystemExit):
-        cli.main(["--img", img, "--proc", "detect", "--truth_db", truth,
-                  "--device", "cpu"])
+    ref_img, _ = _write_inputs(tmp_path / "ref", roi)
+    argv = ["--proc", "detect", "--roi_profile", "4xnuc", "--truth_db",
+            truth]
+    got = cli.main(["--img", img] + argv + ["--device", "cpu"])
+    want = ref_cli.main(["--img", ref_img] + argv)
+    pd.testing.assert_frame_equal(pd.DataFrame(got.blobs),
+                                  pd.DataFrame(want.blobs))
+    table = pd.read_csv(img.replace(".npy", "_verify.csv"))
+    pd.testing.assert_frame_equal(
+        table, pd.read_csv(ref_img.replace(".npy", "_verify.csv")))
+    assert list(table.columns) == ["sens", "ppv"]
+    assert table["sens"][0] > 0.5 and table["ppv"][0] > 0.3
     with pytest.raises(SystemExit):
         cli.main(["--img", img, "--grid_search", "gridtest",
                   "--roi_profile", "4xnuc", "--device", "cpu"])

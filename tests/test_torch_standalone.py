@@ -30,12 +30,13 @@ from magellanmapper_torch.atlas import (
     atlas_refiner, edge_seg, gauntlet, ontology, reg_engine, register,
     transformer)
 from magellanmapper_torch.cv import blobs, chunking, cv_nd, segmenter
-from magellanmapper_torch.cv import stack_detect, verifier
+from magellanmapper_torch.cv import (
+    classifier, colocalizer, stack_detect, verifier)
 from magellanmapper_torch.io import cli, export_regions, np_io, sitk_io
 from magellanmapper_torch.io import sqlite, yaml_io
 from magellanmapper_torch.settings import (
     atlas_prof, grid_search_prof, roi_prof)
-from magellanmapper_torch.stats import mlearn, vols
+from magellanmapper_torch.stats import clustering, mlearn, vols
 from magellanmapper_torch.utils import libmag
 
 torch.set_num_threads(1)
@@ -436,6 +437,12 @@ _ACCEPTED = [
      "4xnuc", "--truth_db", "verify", "truth.db"],
     ["--img", "r.npy", "--grid_search", "gridtest", "--proc", "detect",
      "--truth_db", "t.db"],
+    ["--img", "v.npy", "--proc", "detect_coloc", "--channel", "0", "1"],
+    ["--img", "v.npy", "--proc", "detect", "--truth_db", "t.db",
+     "--subimg_offset", "1,2,3", "--subimg_size", "10,20,30",
+     "--save_subimg"],
+    ["--img", "v.npy", "--proc", "classify", "--classifier", "m.pkl"],
+    ["--img", "v.npy", "--proc", "coloc_match"],
 ]
 
 
@@ -445,7 +452,7 @@ def test_cli_parses_as_the_reference(argv):
     want = ref_cli.process_cli_args(argv)
     for name in ("filenames", "channel", "series", "subimg_offsets",
                  "subimg_sizes", "proc_args", "resolutions", "truth_db",
-                 "prefix", "grid_search"):
+                 "prefix", "grid_search", "classifier", "save_subimg"):
         assert getattr(got, name) == getattr(want, name), name
     assert got.proc == (want.proc.name.lower() if want.proc else None)
     assert dict(got.roi_profile) == dict(want.roi_profile)
@@ -458,12 +465,12 @@ def test_cli_parses_as_the_reference(argv):
 @pytest.mark.parametrize("argv,named", [
     (["--proc", "detect", "--register", "overlays"], "--register"),
     (["--proc", "detect", "--mesh", "1,1"], "--mesh"),
-    (["--proc", "detect", "--save_subimg"], "--save_subimg"),
+    (["--proc", "transform", "--save_subimg"], "--save_subimg"),
     (["--proc", "detect", "--df", "sum"], "--df"),
     (["--proc", "detect", "--plot_2d", "bar"], "--plot_2d"),
     (["--proc", "detect", "--notify", "x"], "--notify"),
     (["--proc", "export_planes"], "--proc export_planes"),
-    (["--proc", "detect", "--truth_db", "t.db"], "--truth_db"),
+    (["--proc", "transform", "--truth_db", "t.db"], "--truth_db"),
     (["--register", "merge_images"], "--register"),
 ])
 def test_cli_rejects_and_names_what_is_not_ported(argv, named):
@@ -510,6 +517,8 @@ def _entry_points(tmp_path):
                                    vol.shape)
     rc = cli.process_cli_args(["--img", img, "--grid_search", "gridtest",
                                "--truth_db", truth])
+    blob_rows = np.array([[4.0, 8, 8, 3, -1, -1, 0, 4, 8, 8]])
+    cloud = np.random.default_rng(0).integers(0, 8, (12, 3)).astype(float)
     return {
         "detect_blobs_blocks": lambda: stack_detect.detect_blobs_blocks(
             vol, prof, (1.0, 1.0, 1.0)),
@@ -561,6 +570,27 @@ def _entry_points(tmp_path):
             cv_nd.laplacian_of_gaussian_img(vol),
         "cli.main make_edge_images": lambda: cli.main(
             ["--img", img, "--register", "make_edge_images"]),
+        "colocalize_blobs": lambda: colocalizer.colocalize_blobs(
+            vol[..., None], blob_rows),
+        "extract_patches": lambda: classifier.extract_patches(
+            vol, blob_rows),
+        "BlobClassifier": lambda: classifier.BlobClassifier(),
+        "detect_blobs_stack classifier": lambda:
+            stack_detect.detect_blobs_stack(
+                vol, prof, (1.0, 1.0, 1.0), device="cpu",
+                classifier_model=classifier.BlobClassifier()),
+        "cluster_dbscan": lambda: clustering.cluster_dbscan(
+            cloud, 1.0, 5),
+        "knn_dist": lambda: clustering.knn_dist(cloud, 5),
+        "cluster_blobs": lambda: clustering.cluster_blobs(cloud),
+        "cluster_by_label": lambda: clustering.cluster_by_label(
+            cloud, labels, (1.0, 1.0, 1.0)),
+        "cli.main detect_coloc": lambda: cli.main(
+            ["--img", img, "--proc", "detect_coloc"]),
+        "cli.main classify": lambda: cli.main(
+            ["--img", img, "--proc", "classify"]),
+        "cli.main cluster_blobs": lambda: cli.main(
+            ["--img", img, "--register", "cluster_blobs"]),
     }
 
 
@@ -573,7 +603,11 @@ def _entry_points(tmp_path):
     "register_group", "cli.main group", "import_atlas", "extend_edge",
     "smooth_labels", "make_edge_images", "edge_aware_segmentation",
     "make_sub_segmented_labels", "labels_to_markers_erosion", "watershed",
-    "laplacian_of_gaussian_img", "cli.main make_edge_images"])
+    "laplacian_of_gaussian_img", "cli.main make_edge_images",
+    "colocalize_blobs", "extract_patches", "BlobClassifier",
+    "detect_blobs_stack classifier", "cluster_dbscan", "knn_dist",
+    "cluster_blobs", "cluster_by_label", "cli.main detect_coloc", "cli.main classify",
+    "cli.main cluster_blobs"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()
@@ -609,6 +643,17 @@ ids = cli.main(["--register", "export_regions", "--labels",
                 "cpu"])
 assert int(heat.sum()) > 0 and int(vols["Nuclei"].sum()) > 0
 assert pre.shape[0] == 1 and len(ids) > 0
+two = sys.argv[7]
+coloc = cli.main(["--img", two, "--proc", "detect_coloc", "--channel", "0",
+                  "1", "--roi_profile", "lightsheet", "--device", "cpu"])
+matches = cli.main(["--img", two, "--proc", "coloc_match", "--device",
+                    "cpu"])
+classified = cli.main(["--img", two, "--proc", "classify", "--device",
+                       "cpu"])
+clusters = cli.main(["--img", two, "--register", "cluster_blobs",
+                     "--device", "cpu"])
+assert coloc.colocalizations.shape == (len(coloc), 2) and len(matches)
+assert len(classified) == len(coloc) == len(clusters)
 loaded = sorted(m for m in sys.modules
                 if m.split(".")[0] in ("jax", "jaxlib", "magellanmapper_tpu"))
 assert not loaded, loaded
@@ -620,7 +665,8 @@ def test_both_cli_tasks_run_without_the_reference(tmp_path):
     """A fresh interpreter imports every port module and runs detection,
     the grid search, ``--register single`` and the specimen pipeline's
     tasks (transform, preprocess, make_density_images, vol_stats,
-    export_regions) on the CPU; neither jax nor any module of the
+    export_regions) and the blob analysis (detect_coloc, coloc_match,
+    classify, cluster_blobs) on the CPU; neither jax nor any module of the
     reference package is loaded (conftest imports jax here)."""
     roi, centres = testing.make_grid_roi((24, 48, 48), 0, spacing=12,
                                          jitter=2)
@@ -641,9 +687,11 @@ def test_both_cli_tasks_run_without_the_reference(tmp_path):
     prof = tmp_path / "atlas_short.yml"
     prof.write_text("reg_translation:\n  max_iter: 16\nreg_affine:\n"
                     "  max_iter: 8\nreg_bspline:\n  max_iter: 4\n")
+    two = str(tmp_path / "two.npy")
+    np_io.write_npy(two, testing.make_coloc_volume((24, 64, 64), 0)[0][None])
     out = subprocess.run(
         [sys.executable, "-c", _BOTH_TASKS_ALONE, img, truth, fixed,
-         str(atlas), str(prof), _ontology_files(tmp_path)[0]],
+         str(atlas), str(prof), _ontology_files(tmp_path)[0], two],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     n_mods, n_blobs, n_rows, n_paths, n_regions = map(

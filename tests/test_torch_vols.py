@@ -291,9 +291,20 @@ def test_unported_options_raise_by_name():
     with pytest.raises(NotImplementedError, match="_segment_stats_sharded"):
         vols.measure_labels_metrics(None, labels, mesh=object(),
                                     device="cpu")
-    blobs = np.array([[1, 1, 1, 1]], float)
-    with pytest.raises(NotImplementedError, match="DBSCAN"):
-        vols.measure_labels_metrics(None, labels, blobs=blobs, device="cpu")
+    # blobs without a cluster column are clustered here, as the
+    # reference clusters them (DBSCAN within each region)
+    grid = np.stack(np.meshgrid(*(np.arange(3.0),) * 3, indexing="ij"),
+                    -1).reshape(-1, 3)
+    blobs = np.column_stack([np.concatenate([grid, grid * 9]),
+                             np.ones(2 * len(grid))])
+    got = vols.measure_labels_metrics(None, labels, blobs=blobs,
+                                      cluster_eps=1.5, device="cpu")
+    want = ref_vols.measure_labels_metrics(None, labels, blobs=blobs,
+                                           cluster_eps=1.5)
+    cols = ["NucCluster", "NucClusNoise", "NucClusLarg"]
+    pd.testing.assert_frame_equal(got[cols], want[cols].astype(float))
+    # the second grid's origin repeats the first's: 28 in the cluster
+    assert got[cols].values.tolist() == [[1.0, 26.0, 28.0]]
 
 
 # -- recorded deviations ------------------------------------------------------

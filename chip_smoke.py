@@ -6,7 +6,8 @@ CUDA card, ``nvcc`` and ``nvidia-smi``, and exits non-zero, printing no
 result, on any fault. Phases:
 
 1. device: the card's name and power limit;
-2. build: the CUDA kernels from ``magellanmapper_torch/csrc`` (first use);
+2. build: the CUDA kernels from ``magellanmapper_torch/csrc`` (first use)
+   and the host's native TIFF decoders (``csrc/host/tiffcodec.cpp``, g++);
 3. each kernel against its plain PyTorch version on the card, bit for
    bit, at the shapes of the detection path (K1, K3, K4) and of the grid
    search (K2) and on edge cases (NaNs, ragged widths, masks that are no
@@ -91,7 +92,37 @@ result, on any fault. Phases:
    and a sub-block of 262,144 card against CPU. Phase 6's ``vol_stats``
    at 25 um also runs with the specimen's blobs and their regions, no
    cluster column (the per-region clusters card against CPU);
-10. a JSON line of per-kernel results (launches summed over the paths,
+10. acquisition: phase 6's specimen as a scene (its nuclei at a random z
+   phase a column, so no plane the detector samples for its near-max is
+   favoured, and no noise) cut into a seeded 3 x 3 tile set
+   (``testing.make_tiles``: 10% nominal overlap, y/x offsets within +-6,
+   z 0-4 planes, each tile its own noise of the specimen's 15 counts, as
+   one acquisition has), written as uncompressed
+   ``tile_<t>_ch_0.tif`` files, then ``io.pipelines.run_pipeline("full",
+   ..., rescale=0.25, tile_grid=...)`` on the card: stitching (tile
+   reads, pairwise phase correlation checked by the overlap's
+   cross-correlation, the global optimisation, fusion), transformation
+   and detection of the fused volume (launches of the ``acquisition``
+   path). Gates: every position within 1.0 voxel of the planted one;
+   voxels under one tile equal to that tile; detection sensitivity > 0.85
+   and PPV > 0.7 against the planted nuclei more than ``ACQ_EDGE`` voxels
+   inside the tiles, and PPV over every covered voxel above
+   ``ACQ_COVERED_PPV`` (the fused volume is 0 where no tile lies, as the
+   reference's, and the detector finds false blobs as deep as a denoise
+   tile and the LoG reach from that border, so the whole volume cannot
+   meet 0.7; blobs and nuclei by depth are printed); the detector's
+   near-max at the fused depth and a plane less within 5%; the
+   transformation's shape and metadata by the reference formula; a 3 x 3
+   set of (24, 96, 96) tiles, 30% overlap, stitched card against CPU
+   (positions within 1e-3, fused volumes bit-equal where the rounded
+   layouts agree), and at 10% overlap by the port's route and the
+   reference's (tile errors printed, not gated); ``--proc import_only``
+   of phase 6's specimen as one
+   multi-page TIFF and ``--proc export_tif`` back, a deflate tile, an
+   LZW (64, 343, 286) tile and two mesoSPIM RAW tiles converted, each
+   equal to its source. Printed: each stage's wall, fusion GB/s,
+   detection Mvox/s, peak device memory;
+11. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --k4-times [--root DIR]`` times K4
@@ -210,6 +241,41 @@ CLASSIFY_PATCHES = 4096
 CLASSIFY_ATOL = 1e-5
 CLOUD_POINTS = 4194304
 CLOUD_SUB = 262144
+#: acquisition (phase 10): the specimen cut into a 3 x 3 grid of tiles
+#: with 10% nominal overlap (``testing.make_tiles``: y/x offsets within
+#: +-6, z 0-4 planes), stitched, transformed and detected by
+#: ``run_pipeline``; the reference test's bar on the recovered positions;
+#: the card-against-CPU tile set (30% overlap: tiles of 96 voxels
+#: overlapping by 10% hold too little for phase correlation, so that set
+#: is stitched too but its errors are only printed) and its limit on the
+#: positions; the
+#: LZW-compressed tile and the mesoSPIM RAW tiles
+ACQ_GRID = (3, 3)
+ACQ_OVERLAP = 0.1
+ACQ_POS_TOL = 1.0
+#: the fused volume is 0 where no tile lies, as the reference's, and the
+#: detector finds false blobs as deep as that border reaches: a
+#: ``lightsheet`` denoise tile (25 voxels) holding an uncovered voxel is
+#: saturated by percentiles that count its zeros, and the LoG reaches 3
+#: times its largest scale (under 8) further. Detection is held to the
+#: detect slice's bars on the voxels farther than that from every
+#: uncovered one, and over every covered voxel, the border's blobs
+#: included, to a PPV above the second value, set under the H100's
+#: readings of phase 10 (0.2556-0.2637); blobs and nuclei are counted in
+#: ``ACQ_BANDS`` bands of ``ACQ_BAND`` voxels of depth
+ACQ_EDGE = 25 + 8
+ACQ_COVERED_PPV = 0.2
+ACQ_BAND = 8
+ACQ_BANDS = 6
+#: the near-max of the fused volume at its depth and a plane less agree
+#: within this share (the z lattice of phase 6's specimen moved it from
+#: 1848 to 1220 for one plane)
+ACQ_NEAR_MAX_RTOL = 0.05
+ACQ_SMALL_TILE = (24, 96, 96)
+ACQ_SMALL_OVERLAP = 0.3
+ACQ_POS_ATOL = 1e-3
+ACQ_LZW_SHAPE = (64, 343, 286)
+ACQ_RAW_SHAPE = (64, 128, 128)
 #: detect_blobs: a crop of the detect volume, read as 2 um in z
 DETECT_CROP = (48, 192, 192)
 DETECT_RES = (2.0, 1.0, 1.0)
@@ -839,7 +905,8 @@ def specimen_chain(torch, pair, work, launches):
     meets the detect slice's bars, the transform's shape and metadata are
     the reference formula's and its crop agrees with the CPU, the heat map
     holds every blob, the regions' sums equal the heat map's and the
-    labels', and ``vol_stats`` on the CPU agrees with the card's."""
+    labels', and ``vol_stats`` on the CPU agrees with the card's. Returns
+    the blobs, and the specimen for phase 10's TIFF round trips."""
     from magellanmapper_torch import device as dev_mod
     from magellanmapper_torch import testing
     from magellanmapper_torch.io import cli, np_io, sitk_io
@@ -860,7 +927,6 @@ def specimen_chain(torch, pair, work, launches):
           f"planted nuclei, made and written in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     transform_crop(torch, vol, os.path.join(work, "crop"))
-    del vol
     atlas = os.path.join(work, "atlas")
     os.makedirs(atlas)
     sitk_io.write_med_img(os.path.join(atlas, "atlasVolume.mhd"),
@@ -943,7 +1009,7 @@ def specimen_chain(torch, pair, work, launches):
         "shape": list(shape), "nuclei": len(centres), "regions": len(df),
         "steps": steps, "mvox_per_s": mvox, "vol_stats_cpu_s": t_cpu}),
         flush=True)
-    return blobs
+    return blobs, vol
 
 
 def vol_stats_25um(torch, pair, blobs):
@@ -1766,6 +1832,360 @@ def blob_analysis(torch, path, truth, work, launches):
     print(f"blob analysis: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def coverage(torch, tiles, ipos, extent, device="cuda"):
+    """The number of tiles over each voxel of the fused volume, uint8 on
+    ``device``."""
+    cover = torch.zeros(extent, dtype=torch.uint8, device=device)
+    for pos in ipos:
+        cover[tuple(slice(p, p + n) for p, n in zip(pos, tiles[0].shape))] \
+            += 1
+    return cover
+
+
+def fused_detection(torch, blobs, centres, cover, origin, vol_shape):
+    """Detection on a fused volume against the planted ``centres`` (its
+    origin at ``origin`` in the specimen): sensitivity and PPV over the
+    voxels farther than ``ACQ_EDGE`` (Chebyshev) from every voxel no tile
+    covers, and over every covered voxel; and the blobs and nuclei at
+    each depth from those voxels, in bands of ``ACQ_BAND`` voxels (blobs
+    past the nuclei are false ones, wherever the border reaches). Blobs
+    move into the specimen's frame and are verified in its tiles, whose
+    edges keep off the nuclei."""
+    from magellanmapper_torch import testing
+
+    import torch.nn.functional as F
+
+    def inside(margin):
+        # covered voxels farther than margin from every uncovered one
+        k = 2 * margin + 1
+        bare = (cover == 0).to(torch.float16)[None, None]
+        for size in ((k, 1, 1), (1, k, 1), (1, 1, k)):
+            bare = F.max_pool3d(bare, size, stride=1,
+                                padding=tuple(s // 2 for s in size))
+        return (bare[0, 0] == 0) & (cover > 0)
+
+    extent = np.asarray(cover.shape)
+
+    def where(mask, pts):
+        pts = np.asarray(pts, np.int64)
+        ok = np.all((pts >= 0) & (pts < extent), 1)
+        ok[ok] = mask[tuple(torch.from_numpy(pts[ok]).to(
+            mask.device).T)].cpu().numpy()
+        return ok
+
+    out = {"blobs": len(blobs)}
+    for name, mask in (("interior", inside(ACQ_EDGE)),
+                       ("covered", cover > 0)):
+        det = blobs[where(mask, blobs[:, :3])]
+        truth = centres[where(mask, centres - origin)]
+        sens, ppv = testing.sens_ppv(
+            det[:, :3] + origin, truth, vol_shape,
+            (vol_shape[0],) + SPEC_TILE_YX, VERIFY_TOL)
+        out[name] = {"blobs": len(det), "nuclei": len(truth),
+                     "sensitivity": sens, "ppv": ppv}
+    # depth bands: a point's band is the number of margins it lies past
+    det_band = where(cover > 0, blobs[:, :3]).astype(int)
+    truth_band = where(cover > 0, centres - origin).astype(int)
+    for margin in range(ACQ_BAND, ACQ_BAND * ACQ_BANDS, ACQ_BAND):
+        mask = inside(margin)
+        det_band += where(mask, blobs[:, :3])
+        truth_band += where(mask, centres - origin)
+    out["by_depth"] = {
+        f"{(b - 1) * ACQ_BAND}+": [int(np.sum(det_band == b)),
+                                   int(np.sum(truth_band == b))]
+        for b in range(1, ACQ_BANDS + 1)}
+    return out
+
+
+def small_tile_set(scene, overlap):
+    """A 3 x 3 set of ``ACQ_SMALL_TILE`` tiles overlapping by ``overlap``,
+    cut from the interior of phase 10's scene with y/x offsets within
+    +-3 (a third of the nominal overlap at 10%) and none in z, each tile
+    its own noise: the tiles, their planted origins and their grid."""
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.stitch import stitcher
+
+    tz, ty, tx = ACQ_SMALL_TILE
+    shift = 3
+    span = [round(2 * t * (1 - overlap)) + t + 2 * shift for t in (ty, tx)]
+    z0, y0, x0 = (np.asarray(scene.shape) - (tz, *span)) // 2
+    crop = scene[z0:z0 + tz, y0:y0 + span[0], x0:x0 + span[1]]
+    tiles, planted = testing.make_tiles(crop, *ACQ_GRID, overlap, SEED,
+                                        max_shift=shift, max_dz=0,
+                                        noise=testing.SPECIMEN_NOISE,
+                                        device="cuda")
+    if tiles[0].shape != ACQ_SMALL_TILE:
+        fail(f"small tile set: tiles {tiles[0].shape}, not {ACQ_SMALL_TILE}")
+    return tiles, planted, stitcher.TileGrid(*ACQ_GRID, tiles[0].shape,
+                                             overlap)
+
+
+def tile_grid_crop(torch, scene):
+    """Stitching on a 3 x 3 set of ``ACQ_SMALL_TILE`` tiles overlapping by
+    ``ACQ_SMALL_OVERLAP``, on the card and on the CPU: positions within
+    ``ACQ_POS_ATOL`` and, where their rounded layouts agree, fused
+    volumes equal bit for bit. The same tiles at ``ACQ_OVERLAP`` are
+    stitched on the card by the port's route and by the reference's
+    (:func:`stitcher.phase_shifts`), each tile's error printed: the
+    whole-tile phase peak lies tens of voxels off there and the overlap
+    check cannot climb that far (ROADMAP section 3)."""
+    from magellanmapper_torch.stitch import stitcher
+
+    tiles, planted, grid = small_tile_set(scene, ACQ_SMALL_OVERLAP)
+    (card, p_card), t_card = timed(torch, lambda: stitcher.stitch(
+        tiles, grid, device="cuda"))
+    t0 = time.perf_counter()
+    cpu, p_cpu = stitcher.stitch(tiles, grid, device="cpu")
+    t_cpu = time.perf_counter() - t0
+    diff = float(np.abs(p_card - p_cpu).max())
+    same_layout = np.array_equal(stitcher.fuse_layout(tiles, p_card)[0],
+                                 stitcher.fuse_layout(tiles, p_cpu)[0])
+    err = float(np.abs((p_card - p_card[0]) - (planted - planted[0])).max())
+    print(f"tile set {ACQ_GRID} x {ACQ_SMALL_TILE}, overlap "
+          f"{ACQ_SMALL_OVERLAP}: positions card vs CPU {diff:.3g} apart, "
+          f"{err:.3f} from the planted ones; rounded layouts "
+          f"{'equal' if same_layout else 'differ'}; card "
+          f"{t_card['wall_s']:.3f} s, CPU {t_cpu:.3f} s", flush=True)
+    if diff > ACQ_POS_ATOL:
+        fail(f"small tile set: card and CPU positions {diff} apart")
+    if same_layout and not np.array_equal(card.view(np.int32),
+                                          cpu.view(np.int32)):
+        fail("small tile set: the card's fused volume differs from the CPU's")
+
+    tiles, planted, grid = small_tile_set(scene, ACQ_OVERLAP)
+    nominal = grid.nominal_positions()
+    errs = {}
+    for name, fn in (("port", stitcher.compute_pairwise_shifts),
+                     ("reference", stitcher.phase_shifts)):
+        pos = stitcher.globally_optimize(fn(tiles, grid, "cuda"),
+                                         len(tiles), nominal)
+        errs[name] = np.round(np.abs((pos - pos[0]) - (
+            planted - planted[0])).max(axis=1), 3).tolist()
+    print(f"tile set {ACQ_GRID} x {ACQ_SMALL_TILE}, overlap {ACQ_OVERLAP}: "
+          f"tile errors {json.dumps(errs)} voxels (not gated)", flush=True)
+
+
+def tiff_round_trips(vol, tiles, work):
+    """``--proc import_only`` of the specimen written as one multi-page
+    TIFF, ``--proc export_tif`` back, a deflate tile and an LZW
+    ``ACQ_LZW_SHAPE`` tile read back, and mesoSPIM RAW tiles converted:
+    each equal to its source. Returns the walls."""
+    from magellanmapper_torch.io import cli, tiff
+    from magellanmapper_torch.stitch import acquisition
+
+    walls = {}
+
+    def wall(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    spec_tif = os.path.join(work, "spec.tif")
+    wall("write_tif", lambda: tiff.write_tiff(spec_tif, vol))
+    img5d = wall("import_only", lambda: cli.main(
+        ["--img", spec_tif, "--proc", "import_only"]))
+    if img5d.img.shape != (1,) + vol.shape or img5d.img.dtype != vol.dtype \
+            or not np.array_equal(img5d.img[0], vol):
+        fail(f"import_only: {img5d.img.shape} {img5d.img.dtype} differs "
+             f"from the specimen")
+    exported = wall("export_tif", lambda: cli.main(
+        ["--img", spec_tif, "--proc", "export_tif", "--prefix",
+         os.path.join(work, "spec_export")]))
+    if not np.array_equal(tiff.read_tiff(exported), vol):
+        fail("export_tif: the written TIFF differs from the specimen")
+    del img5d
+    for path in (spec_tif, exported):
+        os.remove(path)
+    walls["import_mb_per_s"] = vol.nbytes / 1e6 / walls["import_only"]
+
+    deflate = os.path.join(work, "tile_deflate.tif")
+    wall("deflate_write", lambda: tiff.write_tiff(deflate, tiles[0],
+                                                  compression="deflate"))
+    if not np.array_equal(wall("deflate_read",
+                               lambda: tiff.read_tiff(deflate)), tiles[0]):
+        fail("the deflate-compressed tile reads back different")
+    z0, y0, x0 = (np.asarray(vol.shape) - ACQ_LZW_SHAPE) // 2
+    lzw_tile = np.ascontiguousarray(vol[
+        z0:z0 + ACQ_LZW_SHAPE[0], y0:y0 + ACQ_LZW_SHAPE[1],
+        x0:x0 + ACQ_LZW_SHAPE[2]])
+    lzw = os.path.join(work, "tile_lzw.tif")
+    wall("lzw_write", lambda: tiff.write_tiff(lzw, lzw_tile,
+                                              compression="lzw"))
+    if not np.array_equal(wall("lzw_read", lambda: tiff.read_tiff(lzw)),
+                          lzw_tile):
+        fail("the LZW-compressed tile reads back different")
+
+    raw_dir = os.path.join(work, "mesospim")
+    os.makedirs(raw_dir)
+    raws = {}
+    for k, key in enumerate(("X0Y0", "X1Y0")):
+        x0 = k * ACQ_RAW_SHAPE[2]
+        arr = np.ascontiguousarray(lzw_tile[:ACQ_RAW_SHAPE[0],
+                                            :ACQ_RAW_SHAPE[1],
+                                            x0:x0 + ACQ_RAW_SHAPE[2]])
+        raws[key] = arr
+        path = os.path.join(raw_dir, f"488_{key}.raw")
+        arr.tofile(path)
+        with open(f"{path}_meta.txt", "w") as f:
+            f.write(f"[z_planes] {arr.shape[0]}\n[y_pixels] {arr.shape[1]}\n"
+                    f"[x_pixels] {arr.shape[2]}\n[z_stepsize] 5.0\n"
+                    "[Pixelsize in um] 2.6\n")
+    converted = wall("mesospim", lambda: acquisition.mesospim_to_tif(
+        raw_dir))
+    for (path, t, c), key in zip(converted, ("X0Y0", "X1Y0")):
+        if os.path.basename(path) != f"tile_{t}_ch_{c}.tif" or c != 0 \
+                or not np.array_equal(tiff.read_tiff(path), raws[key]):
+            fail(f"mesoSPIM conversion of {key} differs: {path}")
+    print("acquisition TIFF round trips: " + json.dumps(walls), flush=True)
+    return walls
+
+
+def acquisition_path(torch, spec, scene, centres, work, launches):
+    """Phase 10: ``scene`` (phase 6's specimen with its nuclei, ``centres``,
+    at a random z phase a column and no noise) cut into a seeded 3 x 3
+    tile set (``testing.make_tiles``, each tile its own noise of the
+    specimen's ``SPECIMEN_NOISE``), written as uncompressed
+    ``tile_<t>_ch_0.tif`` files, and ``run_pipeline("full", ...)`` on the
+    card: stitching (tile reads, pairwise phase correlation, the global
+    optimisation, fusion), transformation (``rescale`` ``SPEC_RESCALE``)
+    and detection (``lightsheet``) of the fused volume. Fails unless every
+    recovered position lies within ``ACQ_POS_TOL`` of the planted one,
+    every voxel under one tile only holds that tile's value, detection
+    meets the detect slice's bars against the planted nuclei more than
+    ``ACQ_EDGE`` voxels inside the tiles and its PPV over every covered
+    voxel exceeds ``ACQ_COVERED_PPV`` (:func:`fused_detection`), the
+    near-max at the fused depth and a plane less agree within
+    ``ACQ_NEAR_MAX_RTOL``, the
+    transform's shape and metadata are the reference formula's, K1, K3
+    and K4 ran, the small tile set agrees card against CPU
+    (:func:`tile_grid_crop`) and every TIFF round trip is exact
+    (:func:`tiff_round_trips`)."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.cv import blobs as blobs_mod
+    from magellanmapper_torch.io import np_io, pipelines, tiff
+    from magellanmapper_torch.settings.roi_prof import ROIProfile
+    from magellanmapper_torch.stitch import stitcher
+
+    t0 = time.perf_counter()
+    tiles, planted = testing.make_tiles(scene, *ACQ_GRID, ACQ_OVERLAP, SEED,
+                                        noise=testing.SPECIMEN_NOISE,
+                                        device="cuda")
+    t_make = time.perf_counter() - t0
+    tile_dir = os.path.join(work, "tiles")
+    os.makedirs(tile_dir)
+    t0 = time.perf_counter()
+    for t, tile in enumerate(tiles):
+        tiff.write_tiff(os.path.join(tile_dir, f"tile_{t}_ch_0.tif"), tile)
+    t_write = time.perf_counter() - t0
+    tile_bytes = sum(tile.nbytes for tile in tiles)
+    print(f"acquisition: {len(tiles)} tiles of {tiles[0].shape} uint16 "
+          f"({tile_bytes} B) from the scene {scene.shape}, made in "
+          f"{t_make:.2f} s, written in {t_write:.2f} s; planted origins "
+          f"{planted.tolist()}", flush=True)
+
+    prof = ROIProfile()
+    prof.add_profiles("lightsheet")
+    dev_mod.reset_launches()
+    with LogRecords("magellanmapper_torch.io.pipelines") as plog, \
+            LogRecords("magellanmapper_torch.stitch.stitcher") as slog:
+        out, step = timed(torch, lambda: pipelines.run_pipeline(
+            "full", os.path.join(work, "acq.tif"), prof,
+            rescale=SPEC_RESCALE, device="cuda", tile_grid={
+                "dir": tile_dir, "rows": ACQ_GRID[0], "cols": ACQ_GRID[1],
+                "overlap": ACQ_OVERLAP}))
+    launches["acquisition"] = dict(dev_mod.LAUNCHES)
+    print(f"acquisition: launches {launches['acquisition']}", flush=True)
+    for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        if launches["acquisition"][name] <= 0:
+            fail(f"kernel {name} was not launched on the acquisition path")
+    stages = dict(plog.args("pipeline stage"))
+    _, t_read = plog.args("stitching: read")[0]
+    _, _, t_shifts, n_pairs, t_opt, t_fuse = slog.args("stitched %d")[0]
+    positions = slog.args("stitched positions")[0][0]
+
+    # positions against the planted ones, relative to tile 0
+    err = np.abs((positions - positions[0]) - (planted - planted[0]))
+    print(f"acquisition positions: largest error {err.max():.4f} voxels; "
+          f"by tile {np.round(err.max(axis=1), 4).tolist()}", flush=True)
+    if err.max() > ACQ_POS_TOL:
+        fail(f"stitched positions off the planted ones by {err.max()}")
+
+    # voxels under one tile hold that tile's value
+    ipos, extent = stitcher.fuse_layout(tiles, positions)
+    fused = np_io.read_file(out["stitching"]).img[0]
+    if fused.shape != extent or fused.dtype != np.float32:
+        fail(f"fused volume {fused.shape} {fused.dtype}, not {extent}")
+    dev = torch.device("cuda")
+    cover = coverage(torch, tiles, ipos, extent, dev)
+    single = bad = 0
+    for tile, pos in zip(tiles, ipos):
+        sl = tuple(slice(p, p + n) for p, n in zip(pos, tile.shape))
+        alone = cover[sl] == 1
+        got = torch.from_numpy(np.ascontiguousarray(fused[sl])).to(dev)
+        want = torch.from_numpy(tile.astype(np.float32)).to(dev)
+        single += int(alone.sum())
+        bad += int((got[alone] != want[alone]).sum())
+    print(f"acquisition fusion: {extent} float32, {single} voxels under one "
+          f"tile, {bad} of them off the tile's value", flush=True)
+    if bad:
+        fail(f"fusion: {bad} voxels under one tile differ from its value")
+
+    # the detector's near-max (the 99.5th percentile of every Z // 16-th
+    # plane) at the fused depth and one plane less: the scene favours no
+    # plane, so a depth off by one moves it little
+    near_max = [float(np.percentile(v[::max(1, v.shape[0] // 16)], 99.5))
+                for v in (fused, fused[1:])]
+    print(f"acquisition near-max: {near_max[0]} at the fused depth, "
+          f"{near_max[1]} a plane less", flush=True)
+    if abs(near_max[1] - near_max[0]) > ACQ_NEAR_MAX_RTOL * near_max[0]:
+        fail(f"the fused volume's near-max hangs on its depth: {near_max}")
+
+    # detection against the planted nuclei: the fused frame's origin lies
+    # at planted[0] - ipos[0] in the specimen
+    blobs = blobs_mod.Blobs().load_blobs(out["detection"]).blobs
+    if blobs is None or not np.all(np.isfinite(blobs)):
+        fail("detection on the fused volume gave no finite blobs")
+    quality = fused_detection(torch, blobs, centres, cover,
+                              planted[0] - ipos[0], scene.shape)
+    del cover
+    print("acquisition detect: " + json.dumps(quality), flush=True)
+    inner = quality["interior"]
+    if not (inner["sensitivity"] > 0.85 and inner["ppv"] > 0.7):
+        fail(f"detection on the fused volume below the bars: {inner}")
+    if not quality["covered"]["ppv"] > ACQ_COVERED_PPV:
+        fail(f"detection on the fused volume: PPV over every covered voxel "
+             f"{quality['covered']['ppv']} not above {ACQ_COVERED_PPV}")
+
+    # the transformation: the reference formula's shape and metadata
+    small = np_io.read_file(out["transformation"])
+    want_shape = tuple(int(s * SPEC_RESCALE) for s in extent)
+    meta = small.meta
+    if small.img.shape != (1,) + want_shape \
+            or meta["scaling"] != np.divide(want_shape, extent).tolist() \
+            or meta["resolutions"] != [(np.ones(3) / SPEC_RESCALE).tolist()]:
+        fail(f"transformation wrote {small.img.shape} with {meta}, not the "
+             f"reference formula's {want_shape}")
+    del fused, small
+
+    fused_bytes = int(np.prod(extent)) * 4
+    print("acquisition pipeline: " + json.dumps({
+        "tiles": len(tiles), "tile_shape": list(tiles[0].shape),
+        "fused_shape": list(extent), "wall_s": step["wall_s"],
+        "stages_s": stages, "tile_reads_s": t_read,
+        "pairwise_shifts_s": t_shifts, "pairs": n_pairs,
+        "ms_per_pair": 1e3 * t_shifts / n_pairs, "optimisation_s": t_opt,
+        "fusion_s": t_fuse,
+        "fusion_gb_per_s": (tile_bytes + fused_bytes) / 1e9 / t_fuse,
+        "detection_mvox_per_s": np.prod(extent) / 1e6
+        / stages["detection"],
+        "peak_device_mib": step["peak_device_mib"]}), flush=True)
+
+    tile_grid_crop(torch, scene)
+    tiff_round_trips(spec, tiles, work)
+
+
 def main() -> None:
     try:
         import torch
@@ -1781,6 +2201,7 @@ def main() -> None:
     from magellanmapper_torch import testing
     from magellanmapper_torch.cv import stack_detect as sd
     from magellanmapper_torch.io import cli
+    from magellanmapper_torch.io import _tiffcodec
     from magellanmapper_torch.kernels import _build
     from magellanmapper_torch.cv import detector
     from magellanmapper_torch.kernels import (
@@ -1799,6 +2220,10 @@ def main() -> None:
     # 2. build
     _build.library()
     print(f"build: {_build.build_seconds:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    tiffcodec = _tiffcodec.library()
+    print(f"build: TIFF decoders {tiffcodec._name} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for line in _build.build_log.splitlines():
         if any(k in line for k in ("registers", "Compiling entry", "spill")):
             print("  ptxas:", line.strip(), flush=True)
@@ -1912,7 +2337,12 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s; ground-truth displacement "
           f"{json.dumps(pair['gt']['disp_stats'])}", flush=True)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
-        spec_blobs = specimen_chain(torch, pair, tmp, launches)
+        spec_blobs, spec = specimen_chain(torch, pair, tmp, launches)
+    # phase 10's scene: the specimen with its nuclei at a random z phase
+    # a column (so the detector's near-max does not hang on the depth)
+    # and no noise, each tile adding its own
+    scene, scene_centres = testing.make_specimen(
+        pair, SPEC_FACTOR, SEED, "cuda", z_lattice=False, noise=0.0)
     torch.cuda.empty_cache()
     vol_stats_25um(torch, pair, spec_blobs)
     torch.cuda.empty_cache()
@@ -1941,6 +2371,14 @@ def main() -> None:
     # the two-channel volume
     blob_analysis(torch, coloc, coloc_truth, coloc_work.name, launches)
     coloc_work.cleanup()
+    del coloc
+    torch.cuda.empty_cache()
+
+    # 10. acquisition: the specimen as tiles, stitched, transformed and
+    # detected by run_pipeline; import and export of TIFF files
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        acquisition_path(torch, spec, scene, scene_centres, tmp, launches)
+    del spec, scene
     torch.cuda.empty_cache()
 
     for name in results:
@@ -1956,7 +2394,7 @@ def main() -> None:
         fail(f"the port must run without jax and the reference package, "
              f"but these were imported: {loaded[:10]}")
 
-    # 10. results
+    # 11. results
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ reference so each counterpart is easy to find:
 - ``ops/``      device primitives: separable filters and the LoG pyramid,
                 preprocessing, resampling, peak finding and blob pruning.
 - ``kernels/``  hand-written CUDA kernels (sources in ``csrc/``), each with
-                its plain PyTorch twin and a launch counter.
+                its plain PyTorch twin and a launch counter; host C++
+                TIFF decoders in ``csrc/host/`` (built with g++).
 - ``cv/``       detection: single-block ``blob_log``/``detect_blobs`` and
                 whole-stack block detection; label curation, heat maps
                 and perimeters (``cv_nd``).
@@ -17,20 +18,26 @@ reference so each counterpart is easy to find:
                 whole-image transform (``transformer``) and the label
                 ontology (``ontology``).
 - ``io/``       the command-line entry (``--proc detect|transform|
-                preprocess``, ``--grid_search``, ``--register``), image,
-                medical-image, blob-archive and database I/O, region
+                preprocess|import_only|load|export_*``, ``--grid_search``,
+                ``--register``), TIFF, image, medical-image, blob-archive
+                and database I/O, import (``importer``), the pipeline
+                runner from raw tiles to blobs (``pipelines``), region
                 exports and density images (``export_regions``).
+- ``stitch/``   tile stitching: phase correlation and fusion on the device
+                (``stitcher``), tile grids and mesoSPIM conversion
+                (``acquisition``).
 - ``settings/`` ROI, grid-search and atlas profiles.
 - ``stats/``    the detection grid search, per-region metrics (``vols``)
                 and cluster counts (``clustering``).
 - ``utils/``    path helpers.
-- ``testing``   seeded planted-nuclei volumes and specimens, result
-                checks.
+- ``testing``   seeded planted-nuclei volumes, specimens and tile sets,
+                result checks.
 
 The package stands alone: it imports nothing of ``magellanmapper_tpu``
 and never imports jax. The host-side code it shares with the reference
 (profiles, ``cv.blobs``, ``cv.chunking``, ``cv.verifier``, ``io.np_io``,
-``io.sitk_io``, ``io.sqlite``, ``atlas.ontology``, path helpers) is
+``io.sitk_io``, ``io.sqlite``, ``io.tiff``, ``io.importer``,
+``stitch.acquisition``, ``atlas.ontology``, path helpers) is
 copied here under the reference's module names, keeping its behaviour
 and file formats. Every entry point that takes a ``device`` runs on the
 card unless ``"cpu"`` is asked for, and raises without a card.

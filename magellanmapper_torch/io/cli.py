@@ -1,6 +1,17 @@
-"""Command-line entry of the port: blob detection and the analysis of its
-blobs, its grid search, single-sample atlas registration, and the
-specimen pipeline around it.
+"""Command-line entry of the port: image import and export, blob
+detection and the analysis of its blobs, its grid search, single-sample
+atlas registration, and the specimen pipeline around it.
+
+``python -m magellanmapper_torch.io.cli --img stack.tif --proc
+import_only [--set_meta resolutions=z,y,x] [--prefix out]`` imports a
+(multi-page, OME-) TIFF into ``<prefix or stack>_image5d.npy`` and its
+metadata (:func:`~magellanmapper_torch.io.importer.import_tiff`); the
+vendor formats (``.czi``, ``.lif``, ``.nd2``, ``.oib``, ``.oif``,
+``.ims``) raise naming the reader they need. ``--proc load`` returns the
+image; ``--proc export_tif`` and ``export_raw`` write its first time
+point as ``<prefix or image base>.tif`` and the whole array as ``.raw``;
+``--proc export_blobs`` writes ``blobs.npz`` as ``<base>_blobs.csv``.
+These tasks run on the host whatever ``--device`` says.
 
 ``python -m magellanmapper_torch.io.cli --img vol.npy --proc detect
 --roi_profile lightsheet [--device cuda]`` runs the port's
@@ -82,7 +93,8 @@ reference, ``--grid_search`` takes precedence over ``--proc``.
 The parser takes the reference's flag names
 (``magellanmapper_tpu/io/cli.py:124-194``) for what the port accepts:
 ``--img``, ``--proc detect|detect_coloc|coloc_match|classify|transform|
-preprocess``, ``--register single|register_rev|make_density_images|
+preprocess|import_only|load|export_tif|export_raw|export_blobs``,
+``--register single|register_rev|make_density_images|
 vol_stats|export_regions|group|import_atlas|new_atlas|
 make_edge_images[_exp]|merge_atlas_segs[_exp]|make_subsegs|
 cluster_blobs``, ``--classifier``,
@@ -121,7 +133,8 @@ from magellanmapper_torch.cv import (
     classifier as classifier_mod, colocalizer, detector, stack_detect,
     verifier)
 from magellanmapper_torch.io import (
-    export_regions, naming, np_io, sitk_io, sqlite)
+    export_regions, export_rois, importer, naming, np_io, sitk_io, sqlite,
+    tiff)
 from magellanmapper_torch.settings.atlas_prof import AtlasProfile
 from magellanmapper_torch.settings.roi_prof import ROIProfile
 from magellanmapper_torch.stats import clustering, mlearn, vols
@@ -129,9 +142,12 @@ from magellanmapper_torch.utils import libmag
 
 _logger = logging.getLogger(__name__)
 
+#: ``--proc`` tasks that run on the host: import, load and export
+HOST_TASKS = ("import_only", "load", "export_tif", "export_raw",
+              "export_blobs")
 #: ``--proc`` tasks the port runs
 TASKS = ("detect", "detect_coloc", "coloc_match", "classify", "transform",
-         "preprocess")
+         "preprocess") + HOST_TASKS
 #: the tasks that detect, which take ``--truth_db`` and ``--save_subimg``
 DETECT_TASKS = ("detect", "detect_coloc")
 
@@ -193,7 +209,8 @@ REGISTER_TASKS = (
 PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 #: what the port runs, for the messages that reject the rest
 SUPPORTED = ("--proc detect/detect_coloc/coloc_match/classify/transform/"
-             "preprocess, --grid_search and --register single/"
+             "preprocess/import_only/load/export_tif/export_raw/"
+             "export_blobs, --grid_search and --register single/"
              "register_rev/make_density_images/vol_stats/export_regions/"
              "group/import_atlas/new_atlas/make_edge_images[_exp]/"
              "merge_atlas_segs[_exp]/make_subsegs/cluster_blobs")
@@ -254,7 +271,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--truth_db", nargs="*", help="truth DB mode and path")
     p.add_argument("--proc", nargs="*",
                    help="processing task: detect, detect_coloc, "
-                   "coloc_match, classify, transform or preprocess <tasks>")
+                   "coloc_match, classify, transform, preprocess <tasks>, "
+                   "import_only, load, export_tif, export_raw or "
+                   "export_blobs")
     p.add_argument("--register",
                    help="registration task: single, register_rev, "
                    "make_density_images, vol_stats, export_regions, group, "
@@ -616,11 +635,38 @@ def vol_stats(rc: RunConfig, device) -> pd.DataFrame:
     return df
 
 
+def process_host_task(rc: RunConfig):
+    """The ``--proc`` tasks that run on the host (reference
+    ``cli.process_file``): ``import_only`` (the imported image),
+    ``load`` (the image), ``export_tif`` and ``export_raw`` (the written
+    path) and ``export_blobs`` (the blobs' table)."""
+    path = rc.filenames[0]
+    if rc.proc == "import_only":
+        fn = importer.VENDOR_IMPORTERS.get(
+            os.path.splitext(path)[1].lower(), importer.import_tiff)
+        return fn(path, out_path=rc.prefix or path,
+                  resolutions=rc.resolutions)
+    if rc.proc == "export_blobs":
+        return export_rois.blobs_to_csv(rc)
+    img5d = load_image(rc)
+    if rc.proc == "load":
+        return img5d
+    out = rc.prefix or os.path.splitext(path)[0]
+    if rc.proc == "export_tif":
+        out += ".tif"
+        tiff.write_tiff(out, np.asarray(img5d.img[0]))
+    else:
+        out += ".raw"
+        np.asarray(img5d.img).tofile(out)
+    return out
+
+
 def process_file(rc: RunConfig, device):
-    """The ``--proc`` tasks (reference ``cli.process_file``): ``detect``
-    and ``detect_coloc`` (return the blobs), ``coloc_match`` (the matches
-    by channel pair), ``classify`` (the classified blobs), ``transform``
-    (the output image's path) and ``preprocess`` (the processed image)."""
+    """The ``--proc`` tasks on ``device`` (reference
+    ``cli.process_file``): ``detect`` and ``detect_coloc`` (return the
+    blobs), ``coloc_match`` (the matches by channel pair), ``classify``
+    (the classified blobs), ``transform`` (the output image's path) and
+    ``preprocess`` (the processed image)."""
     path = rc.filenames[0]
     if rc.proc == "transform":
         rescale = rc.transform.get("rescale")
@@ -645,11 +691,16 @@ def main(argv: Optional[Sequence[str]] = None
     """CLI entry. Returns what the task's function returns: the detected
     or classified blobs, the channel pairs' matches, the grid search's
     table, the registration's result, the transformed image's path, the
-    preprocessed image, the heat map(s), the regions' table or the
-    clustered blobs."""
+    preprocessed image, the heat map(s), the regions' table, the
+    clustered blobs, the imported or loaded image, an export's path or
+    the blobs' table."""
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
     rc = process_cli_args(argv)
+    if rc.register_type is None and not rc.grid_search \
+            and rc.proc in HOST_TASKS:
+        _logger.info("--proc %s on the host", rc.proc)
+        return process_host_task(rc)
     device = device_mod.resolve(rc.device)
     if rc.register_type is not None:
         _logger.info("--register %s on %s", rc.register_type.name.lower(),

@@ -6,7 +6,10 @@ Copy of what the port reads and writes from
 memmapped loading (:func:`read_file`, which also takes a plain ``.npy``
 path, and a sub-image by offset and size), :func:`write_npy`, and the
 scaling between a full image and a rescaled one with the blobs' region
-assignment (:func:`find_scaling`, :func:`assign_blob_regions`).
+assignment (:func:`find_scaling`, :func:`assign_blob_regions`), the
+master loader :func:`setup_images`, TIFF reads and writes
+(:func:`read_tif`, :func:`write_tif`), raw writes and the archive
+helpers.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ IMAGE5D_NP_VER = 15
 SUFFIX_IMAGE5D = "image5d.npy"
 SUFFIX_META = "meta.yml"
 SUFFIX_SUBIMG = "subimg.npy"
+SUFFIX_BLOBS = "blobs.npz"
 
 
 @dataclass
@@ -43,6 +47,14 @@ class Image5d:
     def resolutions(self) -> Optional[np.ndarray]:
         res = self.meta.get("resolutions")
         return None if res is None else np.atleast_2d(np.asarray(res))
+
+    @property
+    def near_min(self):
+        return self.meta.get("near_min")
+
+    @property
+    def near_max(self):
+        return self.meta.get("near_max")
 
     def roi(self, offset: Sequence[int], size: Sequence[int]) -> np.ndarray:
         """Extract a z,y,x ROI (offset/size in z,y,x) from the t=0 volume."""
@@ -226,3 +238,121 @@ def update_image5d_np_ver(meta: Dict, ver: int) -> Dict:
     meta.setdefault("plane", None)
     meta["ver"] = IMAGE5D_NP_VER
     return meta
+
+
+def setup_images(
+        filename: str,
+        series: Optional[int] = None,
+        offset: Optional[Sequence[int]] = None,
+        size: Optional[Sequence[int]] = None,
+        load_blobs: bool = True,
+        reg_suffixes: Optional[Dict[str, str]] = None,
+        labels_ref_path: Optional[str] = None) -> Dict:
+    """Master loader (reference ``np_io.setup_images :221``): main image
+    (memmap), blobs archive, registered atlas/labels by suffix, labels
+    reference, and blob region assignment.
+
+    Returns dict with ``img5d``, ``blobs`` (Blobs or None),
+    ``labels_img``, ``atlas_img``, ``labels_ref`` (loaded entries only).
+    """
+    from magellanmapper_torch.atlas import ontology
+    from magellanmapper_torch.cv import blobs as blobs_mod
+    from magellanmapper_torch.io import sitk_io
+
+    out: Dict = {}
+    img5d = read_file(filename, series, offset=offset, size=size)
+    out["img5d"] = img5d
+
+    if load_blobs:
+        blobs_path = libmag.combine_paths(filename, SUFFIX_BLOBS)
+        if os.path.exists(blobs_path):
+            out["blobs"] = blobs_mod.Blobs().load_blobs(blobs_path)
+
+    if reg_suffixes:
+        for key, name in reg_suffixes.items():
+            try:
+                img = sitk_io.load_registered_img(filename, name)
+            except (FileNotFoundError, ValueError):
+                continue
+            if key in ("annotation", "labels"):
+                out["labels_img"] = img
+            elif key == "atlas":
+                out["atlas_img"] = img
+
+    if labels_ref_path:
+        out["labels_ref"] = ontology.LabelsRef(labels_ref_path).load()
+
+    blobs = out.get("blobs")
+    labels_img = out.get("labels_img")
+    if blobs is not None and blobs.blobs is not None \
+            and labels_img is not None:
+        scaling = find_scaling(img5d.img.shape[1:4], labels_img.shape)
+        blobs.blobs = assign_blob_regions(
+            blobs.blobs, labels_img, scaling)
+    return out
+
+
+def read_tif(path: str, lazy: bool = True):
+    """Open a TIFF lazily when possible (reference ``np_io.read_tif
+    :274``): a :class:`~magellanmapper_torch.io.tiff.LazyTiffStack`, or
+    an eager read when its pages are inconsistent."""
+    from magellanmapper_torch.io import tiff
+    if lazy:
+        try:
+            return tiff.LazyTiffStack(path)
+        except ValueError:
+            pass
+    return tiff.read_tiff(path)
+
+
+def img_to_blobs_path(path: str) -> str:
+    """Default blobs archive path for an image base path."""
+    return libmag.combine_paths(path, SUFFIX_BLOBS)
+
+
+def read_np_archive(archive) -> Dict:
+    """NPZ archive to a dict, skipping the entries that need pickle to
+    load (numpy raises ``ValueError`` for them)."""
+    out = {}
+    for key in archive.files if hasattr(archive, "files") else archive:
+        try:
+            out[key] = archive[key]
+        except ValueError:
+            continue
+    return out
+
+
+def fix_memmap_shape(shape) -> Tuple[int, ...]:
+    """Shape tuple of primitive ints (NumPy-2 ``open_memmap`` rejects
+    ``np.int64`` entries)."""
+    return tuple(int(s) for s in shape)
+
+
+def get_num_channels(img: Optional[np.ndarray] = None,
+                     is_3d: bool = False) -> int:
+    """Channel count for z,y,x[,c] (``is_3d``) or t,z,y,x[,c] arrays."""
+    if img is None:
+        return 1
+    chl_dim = 3 if is_3d else 4
+    return int(img.shape[chl_dim]) if img.ndim > chl_dim else 1
+
+
+def write_raw_file(arr: np.ndarray, path: str) -> str:
+    """Stream an array to a raw binary file via memmap
+    (reference ``np_io.write_raw_file :322``)."""
+    mm = np.memmap(path, dtype=arr.dtype, mode="w+", shape=arr.shape)
+    mm[:] = arr[:]
+    mm.flush()
+    return path
+
+
+def write_tif(img: np.ndarray, path: str, **kwargs) -> str:
+    """Write an array as TIFF planes through
+    :func:`magellanmapper_torch.io.tiff.write_tiff` (reference
+    ``np_io.write_tif :331``); a path without a TIFF extension gets
+    ``.tif``."""
+    from magellanmapper_torch.io import tiff
+    out = libmag.match_ext("x.tif", path) if not path.endswith(
+        (".tif", ".tiff")) else path
+    tiff.write_tiff(out, np.asarray(img))
+    return out

@@ -5,7 +5,8 @@ a group of brains for groupwise registration, a one-sided atlas to
 import and reannotate, a second channel with known co-expression, a point
 cloud of dense, sparse and empty parts for clustering, a truth database
 of the centres, blob-row equality, detection quality against the planted
-centres, and the edge cases of the percentile kernel (K4)."""
+centres, the edge cases of the percentile kernel (K4), and a seeded tile
+set cut from a volume for stitching."""
 
 from __future__ import annotations
 
@@ -149,7 +150,8 @@ SPECIMEN_BACKGROUND = 200.0
 SPECIMEN_NOISE = 15.0
 
 
-def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda"
+def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda",
+                  z_lattice: bool = True, noise: float = SPECIMEN_NOISE
                   ) -> Tuple[np.ndarray, np.ndarray]:
     """Seeded full-resolution specimen of a registration pair
     (``atlas.gauntlet.build_pair``), made on ``device``.
@@ -162,8 +164,9 @@ def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda"
     stamp, 20 voxel lattice, jitter and amplitudes of
     :func:`make_nuclei_volume`) are planted at the lattice points inside
     the ground-truth brain (``labels_fixed_gt`` > 0 at the point's voxel
-    of the pair); noise N(``SPECIMEN_BACKGROUND``, ``SPECIMEN_NOISE``)
-    from a generator seeded on ``device`` covers it all.
+    of the pair); noise N(``SPECIMEN_BACKGROUND``, ``noise``) from a
+    generator seeded on ``device`` covers it all (``noise`` 0 leaves the
+    scene for :func:`make_tiles` to add each tile's own).
 
     The contrasts are set so that the planted nuclei are the only blobs
     to find and the specimen still registers once shrunk back: texture
@@ -177,6 +180,9 @@ def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda"
     on the multiples of 20, so that the planes the detector samples for
     its near-max (every ``Z // 16``-th, a multiple of 20 at a depth of
     640) pass through nuclei as they would in tissue without a lattice.
+    Without ``z_lattice`` each (y, x) column of the lattice instead sits
+    at its own random z phase, so every plane holds the same share of
+    centres and the near-max does not depend on the depth.
     Verify with tiles spanning the whole depth. Returns ``(volume,
     centres)``: uint16 ``(Z, Y, X)`` at ``factor`` times the pair's
     shape, and the nuclei's integer centres.
@@ -190,6 +196,11 @@ def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda"
              for s in shape]
     grids[0] = np.arange(spacing, shape[0] - spacing // 2 + 1, spacing)
     centres = np.stack(np.meshgrid(*grids, indexing="ij"), -1).reshape(-1, 3)
+    if not z_lattice:
+        columns = len(grids[1]) * len(grids[2])
+        phase = rng.integers(0, spacing, columns)
+        centres[:, 0] += phase[np.arange(len(centres)) % columns]
+        centres = centres[centres[:, 0] < shape[0] - spacing // 2]
     centres = centres + rng.integers(-jitter, jitter + 1, centres.shape)
     amps = rng.uniform(1500, 3000, len(centres)).astype(np.float32)
     inside = np.asarray(pair["labels_fixed_gt"])[
@@ -199,7 +210,7 @@ def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     vol = torch.empty(shape, dtype=torch.float32, device=dev)
-    vol.normal_(SPECIMEN_BACKGROUND, SPECIMEN_NOISE, generator=gen)
+    vol.normal_(SPECIMEN_BACKGROUND, noise, generator=gen)
     # the pair's own voxel noise, upsampled, would be blobs of ~factor
     # voxels: a blur of one voxel of the pair takes it out first
     tex = filters.gaussian_filter(torch.from_numpy(small).to(dev), 1.0)
@@ -222,6 +233,72 @@ def make_specimen(pair, factor: int = 4, seed: int = 0, device="cuda"
     # truncate to uint16 as make_nuclei_volume does; int16 holds the bits
     vol = torch.clamp(vol, 0, 65535).to(torch.int32).to(torch.int16)
     return vol.cpu().numpy().view(np.uint16), centres
+
+
+#: :func:`make_tiles`' per-tile noise, in counts (the specimen's own
+#: noise is ``SPECIMEN_NOISE``)
+TILE_NOISE = 10.0
+
+
+def make_tiles(vol: np.ndarray, rows: int, cols: int, overlap: float,
+               seed: int = 0, max_shift: int = 6, max_dz: int = 4,
+               noise: float = TILE_NOISE, device="cuda"
+               ) -> Tuple[list, np.ndarray]:
+    """A seeded ``rows`` x ``cols`` tile set cut from ``vol``, as a
+    microscope's stage would image it, made on ``device``.
+
+    Tile t is cut at ``(0, max_shift, max_shift)`` plus its rounded
+    nominal position plus a planted integer offset: y and x within
+    +-``max_shift``, z within 0 to ``max_dz``; tile 0 has none, so it
+    sits at its nominal position. Tiles share one shape, the largest that
+    fits: in y and x the extent whose grid with ``overlap``
+    (``stitcher.TileGrid``'s nominal steps) fits ``vol`` less
+    ``max_shift`` on each side, and in z ``vol``'s depth less the largest
+    z offset drawn, so that the tiles together span the whole depth (a
+    specimen of :func:`make_specimen` keeps its nuclei's z lattice on
+    the planes the detector samples for its near-max only at that
+    depth). Each tile gets its own seeded N(0, ``noise``) noise and is
+    clipped and truncated to uint16. Tiles are numbered row by row, as
+    ``TileGrid`` numbers them.
+
+    Returns ``(tiles, positions)``: the uint16 tiles and each tile's
+    integer z,y,x origin in ``vol``.
+    """
+    from magellanmapper_torch.stitch import stitcher
+
+    dev = device_mod.resolve(device)
+    zmax, ymax, xmax = vol.shape
+
+    def extent(n_tiles, size):
+        # the largest tile whose rounded nominal steps fit
+        tile = size
+        while round((n_tiles - 1) * tile * (1 - overlap)) + tile \
+                > size - 2 * max_shift:
+            tile -= 1
+        return tile
+
+    rng = np.random.default_rng(seed)
+    offsets = np.column_stack([
+        rng.integers(0, max_dz + 1, rows * cols),
+        rng.integers(-max_shift, max_shift + 1, (rows * cols, 2))])
+    offsets[0] = 0
+    shape = (zmax - int(offsets[:, 0].max()), extent(rows, ymax),
+             extent(cols, xmax))
+    nominal = stitcher.TileGrid(rows, cols, shape,
+                                overlap).nominal_positions()
+    positions = (np.array([0, max_shift, max_shift])
+                 + np.round(nominal).astype(int) + offsets)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    tiles = []
+    for pos in positions:
+        sl = tuple(slice(p, p + s) for p, s in zip(pos, shape))
+        tile = torch.from_numpy(vol[sl].astype(np.float32)).to(dev)
+        tile += torch.empty_like(tile).normal_(0.0, noise, generator=gen)
+        # truncate to uint16; int16 holds the bits
+        tile = torch.clamp(tile, 0, 65535).to(torch.int32).to(torch.int16)
+        tiles.append(tile.cpu().numpy().view(np.uint16))
+    return tiles, positions
 
 
 def make_group(pair, seeds: Sequence[int] = (1, 2, 3, 4),

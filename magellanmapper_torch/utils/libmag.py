@@ -2,8 +2,9 @@
 
 Copy of the helpers of ``magellanmapper_tpu/utils/libmag.py``
 (``splitext :23``, ``insert_before_ext :32``, ``combine_paths :38``,
-``backup_file :60``, ``is_seq :176``) that the port's blob archive,
-database and image naming and its region metrics use.
+``backup_file :60``, ``is_seq :176``, ``match_ext :249``) that the
+port's blob archive, database and image naming and its region metrics
+use.
 """
 
 from __future__ import annotations
@@ -49,6 +50,14 @@ def combine_paths(
     if check_dir:
         os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     return out
+
+
+def match_ext(path: str, path_to_match: str) -> str:
+    """Give ``path_to_match`` the extension of ``path``."""
+    ext = splitext(path)[1]
+    if not ext:
+        return path_to_match
+    return splitext(path_to_match)[0] + ext
 
 
 def backup_file(path: str, modifier: str = "") -> Optional[str]:

@@ -33,10 +33,11 @@ from magellanmapper_torch.cv import blobs, chunking, cv_nd, segmenter
 from magellanmapper_torch.cv import (
     classifier, colocalizer, stack_detect, verifier)
 from magellanmapper_torch.io import cli, export_regions, np_io, sitk_io
-from magellanmapper_torch.io import sqlite, yaml_io
+from magellanmapper_torch.io import pipelines, sqlite, tiff, yaml_io
 from magellanmapper_torch.settings import (
     atlas_prof, grid_search_prof, roi_prof)
 from magellanmapper_torch.stats import clustering, mlearn, vols
+from magellanmapper_torch.stitch import stitcher
 from magellanmapper_torch.utils import libmag
 
 torch.set_num_threads(1)
@@ -443,6 +444,14 @@ _ACCEPTED = [
      "--save_subimg"],
     ["--img", "v.npy", "--proc", "classify", "--classifier", "m.pkl"],
     ["--img", "v.npy", "--proc", "coloc_match"],
+    ["--img", "s.tif", "--proc", "import_only", "--set_meta",
+     "resolutions=5.0,1.5,1.5", "--prefix", "out/s"],
+    ["--img", "s.czi", "--proc", "import_only", "--series", "1"],
+    ["--img", "v.npy", "--proc", "load", "--subimg_offset", "1,2,3",
+     "--subimg_size", "4,5,6"],
+    ["--img", "v.npy", "--proc", "export_tif", "--prefix", "out/v"],
+    ["--img", "v.npy", "--proc", "export_raw"],
+    ["--img", "v.npy", "--proc", "export_blobs", "--prefix", "p"],
 ]
 
 
@@ -519,6 +528,12 @@ def _entry_points(tmp_path):
                                "--truth_db", truth])
     blob_rows = np.array([[4.0, 8, 8, 3, -1, -1, 0, 4, 8, 8]])
     cloud = np.random.default_rng(0).integers(0, 8, (12, 3)).astype(float)
+    tiles = [vol, vol]
+    grid = stitcher.TileGrid(1, 2, vol.shape, 0.5)
+    tile_dir = tmp_path / "tiles"
+    tile_dir.mkdir()
+    for t in range(2):
+        tiff.write_tiff(str(tile_dir / f"tile_{t}_ch_0.tif"), vol)
     return {
         "detect_blobs_blocks": lambda: stack_detect.detect_blobs_blocks(
             vol, prof, (1.0, 1.0, 1.0)),
@@ -591,6 +606,18 @@ def _entry_points(tmp_path):
             ["--img", img, "--proc", "classify"]),
         "cli.main cluster_blobs": lambda: cli.main(
             ["--img", img, "--register", "cluster_blobs"]),
+        "phase_correlation": lambda: stitcher.phase_correlation(vol, vol),
+        "phase_shifts": lambda: stitcher.phase_shifts(tiles, grid),
+        "compute_pairwise_shifts": lambda:
+            stitcher.compute_pairwise_shifts(tiles, grid),
+        "fuse_tiles": lambda: stitcher.fuse_tiles(
+            tiles, np.zeros((2, 3))),
+        "stitch": lambda: stitcher.stitch(tiles, grid),
+        "run_pipeline": lambda: pipelines.run_pipeline("detection", img),
+        "run_pipeline stitching": lambda: pipelines.run_pipeline(
+            "stitching", str(tmp_path / "acq.tif"), tile_grid={
+                "dir": str(tile_dir), "rows": 1, "cols": 2}),
+        "make_tiles": lambda: testing.make_tiles(vol, 1, 2, 0.5),
     }
 
 
@@ -607,7 +634,9 @@ def _entry_points(tmp_path):
     "colocalize_blobs", "extract_patches", "BlobClassifier",
     "detect_blobs_stack classifier", "cluster_dbscan", "knn_dist",
     "cluster_blobs", "cluster_by_label", "cli.main detect_coloc", "cli.main classify",
-    "cli.main cluster_blobs"])
+    "cli.main cluster_blobs", "phase_correlation", "phase_shifts",
+    "compute_pairwise_shifts", "fuse_tiles", "stitch", "run_pipeline",
+    "run_pipeline stitching", "make_tiles"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()
@@ -698,3 +727,84 @@ def test_both_cli_tasks_run_without_the_reference(tmp_path):
         int, out.stdout.split()[-5:])
     assert n_mods >= 30 and n_blobs > 0 and n_rows == 4 and n_paths == 4
     assert n_regions > 0
+
+
+_HOST_TASKS_ALONE = """
+import sys
+from magellanmapper_torch.io import cli
+tif, spec, blobs_base = sys.argv[1:4]
+img = cli.main(["--img", tif, "--proc", "import_only", "--set_meta",
+                "resolutions=5.0,1.5,1.5"])
+loaded = cli.main(["--img", tif, "--proc", "load", "--subimg_offset",
+                   "1,2,3", "--subimg_size", "4,5,2"])
+out_tif = cli.main(["--img", spec, "--proc", "export_tif"])
+out_raw = cli.main(["--img", spec, "--proc", "export_raw", "--prefix",
+                    spec + "_raw"])
+df = cli.main(["--img", spec, "--proc", "export_blobs", "--prefix",
+               blobs_base])
+for ext in (".czi", ".lif", ".nd2", ".oib", ".oif", ".ims"):
+    try:
+        cli.main(["--img", "x" + ext, "--proc", "import_only"])
+    except NotImplementedError as err:
+        assert "reader" in str(err), err
+    else:
+        raise AssertionError(ext)
+loaded_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "magellanmapper_tpu"))
+assert not loaded_mods, loaded_mods
+print(img.img.shape, loaded.img.shape, out_tif, out_raw, len(df))
+"""
+
+
+def test_host_cli_tasks_match_the_reference_without_it(tmp_path):
+    """``--proc import_only|load|export_tif|export_raw|export_blobs`` in a
+    fresh interpreter, on the host (no ``--device``, no card asked for),
+    with neither jax nor the reference package loaded; their files equal
+    the reference CLI's on copies of the same inputs."""
+    rng = np.random.default_rng(9)
+    vol = rng.integers(0, 3000, (6, 20, 18)).astype(np.uint16)
+    rows = np.column_stack([rng.integers(0, 6, 5), rng.integers(0, 20, 5),
+                            rng.integers(0, 18, 5), np.full(5, 2.5),
+                            np.ones((5, 3)), rng.integers(0, 6, (5, 3))])
+    paths = {}
+    for sub in ("port", "ref"):
+        d = tmp_path / sub
+        d.mkdir()
+        tiff.write_tiff(str(d / "stack.tif"), vol)
+        np_io.write_npy(str(d / "spec.npy"), vol[None, ..., None].repeat(
+            2, -1), resolutions=[[2.0, 1.0, 1.0]])
+        archive = blobs.Blobs(rows.astype(float))
+        archive.path = str(d / "p_blobs.npz")
+        archive.save_archive()
+        paths[sub] = (str(d / "stack.tif"), str(d / "spec.npy"),
+                      str(d / "p"))
+    out = subprocess.run(
+        [sys.executable, "-c", _HOST_TASKS_ALONE, *paths["port"]],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "(1, 6, 20, 18)" in out.stdout and "(1, 2, 5, 4)" in out.stdout
+    tif, spec, base = paths["ref"]
+    ref_cli.main(["--img", tif, "--proc", "import_only", "--set_meta",
+                  "resolutions=5.0,1.5,1.5"])
+    ref_cli.main(["--img", spec, "--proc", "export_tif"])
+    ref_cli.main(["--img", spec, "--proc", "export_raw", "--prefix",
+                  spec + "_raw"])
+    ref_cli.main(["--img", spec, "--proc", "export_blobs", "--prefix",
+                  base])
+    for name in ("stack_image5d.npy", "spec.tif", "spec.npy_raw.raw",
+                 "p_blobs.csv"):
+        with open(tmp_path / "port" / name, "rb") as a, \
+                open(tmp_path / "ref" / name, "rb") as b:
+            assert a.read() == b.read(), name
+    port_meta = np_io.load_metadata(str(tmp_path / "port"
+                                        / "stack_meta.yml"))
+    ref_meta = ref_np_io.load_metadata(str(tmp_path / "ref"
+                                           / "stack_meta.yml"))
+    assert port_meta == ref_meta
+    loaded = cli.main(["--img", paths["port"][0], "--proc", "load",
+                       "--subimg_offset", "1,2,3", "--subimg_size",
+                       "4,5,2"])
+    ref_loaded = ref_cli.main(["--img", tif, "--proc", "load",
+                               "--subimg_offset", "1,2,3",
+                               "--subimg_size", "4,5,2"])
+    np.testing.assert_array_equal(loaded.img, ref_loaded.img)

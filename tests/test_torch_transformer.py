@@ -226,3 +226,32 @@ def test_specimen_shrinks_back_to_its_pair(tmp_path):
                                 rescale=0.25)
     assert got[0].img.shape == (1,) + pair["fixed"].shape
     _assert_same_output(want, got)
+
+
+def test_specimen_z_phases_spread_the_nuclei_over_every_plane():
+    """``testing.make_specimen(z_lattice=False)``: each (y, x) column of
+    the lattice at its own z phase, so centres fall between the
+    lattice's planes too, still 12 planes or more apart in a column, in
+    the brain and seeded; y and x keep the lattice's offset."""
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.atlas import gauntlet
+
+    pair = gauntlet.build_pair((20, 28, 28), seed=0, device="cpu",
+                               ffd_spacing=16.0, ffd_ctrl_sigma=3.0)
+    vol, centres = testing.make_specimen(pair, 4, 0, device="cpu",
+                                         z_lattice=False)
+    again, _ = testing.make_specimen(pair, 4, 0, device="cpu",
+                                     z_lattice=False)
+    np.testing.assert_array_equal(vol, again)
+    assert vol.shape == (80, 112, 112) and vol.dtype == np.uint16
+    assert np.all(pair["labels_fixed_gt"][tuple((centres // 4).T)] > 0)
+    assert np.all((centres[:, 0] >= 16) & (centres[:, 0] < 74))
+    # the lattice keeps every centre within 4 planes of a multiple of 20
+    z_off = (centres[:, 0] + 10) % 20 - 10
+    assert np.mean(np.abs(z_off) > 4) > 0.25
+    yx_off = (centres[:, 1:] % 20) - 10
+    assert np.all(np.abs(yx_off) <= 4)
+    for yx in np.unique(centres[:, 1:] // 20, axis=0):
+        col = np.sort(centres[np.all(centres[:, 1:] // 20 == yx, 1), 0])
+        assert np.all(np.diff(col) >= 12)
+    assert vol[tuple(centres.T)].min() > vol.mean()

@@ -122,7 +122,29 @@ result, on any fault. Phases:
    LZW (64, 343, 286) tile and two mesoSPIM RAW tiles converted, each
    equal to its source. Printed: each stage's wall, fusion GB/s,
    detection Mvox/s, peak device memory;
-11. a JSON line of per-kernel results (launches summed over the paths,
+11. visualisation (:func:`render_path`): phase 6's specimen as float32 on
+   the card, rendered at 512^2 by the gather volume renderer (256 steps,
+   flat and shaded), the gather isosurface at its Otsu level, and
+   shear-warp's composite, MIP and isosurface, at five poses whose
+   principal axes are z (with and without the flip and the transposed
+   film), y and x: ms a frame (CUDA events) and peak device memory a
+   frame (gated), its blobs projected under each isosurface
+   (``render_blobs_overlay``, visible share printed); the MIP along x
+   against the volume's own maximum through the same film (gated);
+   ``export_stack.render_rotation``, the frames of
+   ``animate_rotation_3d``, 36 at 384^2 in MIP and isosurface modes
+   (frames/s); ``render_channels_sw`` on phase 9's two-channel volume;
+   ``plot_3d.deconvolve``, 30 iterations on a (64, 256, 256) ROI; the
+   analytic sphere pins at 512^2; every engine and pose card against CPU
+   on a (96, 128, 112) crop within the CPU tests' limits; deconvolution
+   card against CPU; ``--proc extract`` and ``--proc export_rois``
+   through the CLI, each output equal to its source. The matplotlib
+   exports (``--proc export_planes[_channels]|animated``, ``--plot_2d``
+   and the GIF writer of ``animate_rotation_3d``) are left out: the
+   card's machine has no matplotlib, and the CPU tests hold them against
+   the reference. The path reuses phase 6's blobs and launches no
+   kernel (``render``: 0 each);
+12. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --k4-times [--root DIR]`` times K4
@@ -138,6 +160,7 @@ from __future__ import annotations
 
 import argparse
 import csv
+import functools
 import json
 import os
 import subprocess
@@ -279,6 +302,43 @@ ACQ_RAW_SHAPE = (64, 128, 128)
 #: detect_blobs: a crop of the detect volume, read as 2 um in z
 DETECT_CROP = (48, 192, 192)
 DETECT_RES = (2.0, 1.0, 1.0)
+#: visualisation (phase 11): phase 6's specimen on the card as float32,
+#: rendered at 512^2 by each engine at an orbit of poses whose principal
+#: axes are z, y and x (the gather ray casters at 256 steps); the
+#: card-against-CPU crop, its film and steps, and the CPU tests' limits
+#: (``tests/test_torch_render3d.py``: images, depth in voxels, share of
+#: isosurface hits that may differ); the analytic sphere of
+#: ``tests/test_render3d.py``; the axis-aligned MIP's limits (largest
+#: and mean) against the volume's own maximum sampled at the camera's
+#: exact film positions: shear-warp takes its film mapping from float32
+#: probes one pixel apart (the reference's ``_film_affine``), which puts
+#: the far edge of this 512^2 film 0.008 voxels off its exact place, and
+#: the MIP's steepest steps turn that into ~2e-3 (1.8e-3 measured on an
+#: H100); a frame's peak device memory, the resident volume included
+RENDER_HW = (512, 512)
+RENDER_STEPS = 256
+RENDER_POSES = ((30.0, 70.0), (350.0, -65.0), (100.0, 15.0), (290.0, -10.0),
+                (200.0, -20.0))
+RENDER_CROP = (96, 128, 112)
+RENDER_CROP_HW = (96, 96)
+RENDER_CROP_STEPS = 96
+RENDER_ATOL = 1e-4
+RENDER_DEPTH_ATOL = 1e-3
+RENDER_HIT_MISMATCH = 1e-3
+SPHERE_SHAPE = (48, 48, 48)
+SPHERE_R = 14.0
+MIP_ATOL = 5e-3
+MIP_MEAN_ATOL = 1e-4
+RENDER_PEAK_MIB = 16384
+#: ``export_stack.render_rotation`` (the frames of ``animate_rotation_3d``)
+#: at its defaults; Richardson-Lucy on a specimen ROI, and its
+#: card-against-CPU ROI and relative limit (cuFFT against pocketfft)
+ORBIT_FRAMES = 36
+ORBIT_HW = (384, 384)
+DECONV_ROI = (64, 256, 256)
+DECONV_ITERS = 30
+DECONV_CROP = (32, 64, 64)
+DECONV_RTOL = 1e-4
 #: ``--k4-times``: one detect block of the lightsheet profile, its denoise
 #: tiles and its clip percentiles (clip_vmin, clip_vmax)
 K4_BLOCK = (156, 128, 128)
@@ -2186,6 +2246,388 @@ def acquisition_path(torch, spec, scene, centres, work, launches):
     tiff_round_trips(spec, tiles, work)
 
 
+def render_engines(render3d, window, level, hw, steps):
+    """Phase 11's engines, ``name: fn(vol, azim, elev, device)``: the
+    gather volume renderer flat and shaded, the gather isosurface, and
+    shear-warp's composite, MIP and isosurface; ``window`` is the transfer
+    function's (vmin, vmax), ``level`` the isosurface's."""
+    vmin, vmax = window
+    kw = dict(vmin=vmin, vmax=vmax, out_hw=hw)
+    return {
+        "gather_volume": lambda v, az, el, d: render3d.render_volume(
+            v, az, el, n_steps=steps, device=d, **kw),
+        "gather_volume_shaded": lambda v, az, el, d: render3d.render_volume(
+            v, az, el, n_steps=steps, shaded=True, device=d, **kw),
+        "gather_isosurface": lambda v, az, el, d: render3d.render_isosurface(
+            v, level, az, el, out_hw=hw, n_steps=steps, device=d),
+        "sw_composite": lambda v, az, el, d: render3d.render_volume_sw(
+            v, az, el, device=d, **kw),
+        "sw_mip": lambda v, az, el, d: render3d.render_volume_sw(
+            v, az, el, mode="mip", device=d, **kw),
+        "sw_isosurface": lambda v, az, el, d: render3d.render_isosurface_sw(
+            v, level, az, el, out_hw=hw, device=d),
+    }
+
+
+def render_diff(got, want) -> dict:
+    """Largest image difference of two renders; for isosurfaces also the
+    share of pixels whose hit differs and the largest depth difference
+    where both hit (images compared where the hits agree)."""
+    if not isinstance(got, tuple):
+        return {"img": float(np.abs(got.cpu().numpy()
+                                    - want.cpu().numpy()).max())}
+    (rgb, depth), (rgb_w, depth_w) = ([a.cpu().numpy() for a in x]
+                                      for x in (got, want))
+    hit, hit_w = np.isfinite(depth), np.isfinite(depth_w)
+    same, both = hit == hit_w, hit & hit_w
+    return {"img": float(np.abs(rgb[same] - rgb_w[same]).max()),
+            "hit_mismatch": float((hit != hit_w).mean()),
+            "depth": float(np.abs(depth[both] - depth_w[both]).max())
+            if both.any() else 0.0}
+
+
+def render_crop(torch, spec):
+    """Every engine at every pose on a central RENDER_CROP of the
+    specimen, the card against the CPU, within the CPU tests' limits."""
+    from magellanmapper_torch.ops import preproc, render3d
+
+    lo = [(s - c) // 2 for s, c in zip(spec.shape, RENDER_CROP)]
+    crop = np.ascontiguousarray(spec[tuple(
+        slice(o, o + c) for o, c in zip(lo, RENDER_CROP))], np.float32)
+    level = float(preproc.otsu_threshold(torch.from_numpy(crop)))
+    engines = render_engines(render3d, (level, float(crop.max())), level,
+                             RENDER_CROP_HW, RENDER_CROP_STEPS)
+    on_card = torch.from_numpy(crop).cuda()
+    worst = {}
+    t0 = time.perf_counter()
+    for name, fn in engines.items():
+        for az, el in RENDER_POSES:
+            diff = render_diff(fn(on_card, az, el, "cuda"),
+                               fn(crop, az, el, "cpu"))
+            for k, v in diff.items():
+                worst[f"{name}.{k}"] = max(worst.get(f"{name}.{k}", 0.0), v)
+    print(f"render crop {RENDER_CROP} at {RENDER_CROP_HW}, "
+          f"{RENDER_CROP_STEPS} steps, card against CPU "
+          f"({time.perf_counter() - t0:.1f} s): {json.dumps(worst)}",
+          flush=True)
+    limits = {"img": RENDER_ATOL, "hit_mismatch": RENDER_HIT_MISMATCH,
+              "depth": RENDER_DEPTH_ATOL}
+    for key, v in worst.items():
+        if v > limits[key.rsplit(".", 1)[1]]:
+            fail(f"render crop: {key} {v} on the card against the CPU")
+
+
+def sphere_pins(torch):
+    """The analytic sphere pins of ``tests/test_render3d.py`` at
+    RENDER_HW on the card: the volume renderer's silhouette and centre,
+    the background, the isosurface's centre depth (both engines),
+    shear-warp against the gather engines, zoom, and the MIP's centre."""
+    from magellanmapper_torch.ops import render3d
+
+    zz, yy, xx = np.indices(SPHERE_SHAPE).astype(np.float32)
+    c = (np.asarray(SPHERE_SHAPE, np.float32) - 1) / 2
+    r = np.sqrt((zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2)
+    v = torch.from_numpy(np.clip(1.0 - (r - SPHERE_R) / 3.0, 0.0, 1.0)
+                         .astype(np.float32)).cuda()
+    h = RENDER_HW[0]
+    mid = h // 2
+    span = float(np.linalg.norm(SPHERE_SHAPE))
+    px = (h - 1) / span
+    kw = dict(vmin=0.2, vmax=1.0, out_hw=RENDER_HW, opacity=0.15)
+
+    def lum(img):
+        return img.cpu().numpy().mean(-1)
+
+    def hits(depth):
+        return np.isfinite(depth.cpu().numpy())
+
+    def iou(a, b):
+        return (a & b).sum() / max((a | b).sum(), 1)
+
+    out = {}
+    vol = lum(render3d.render_volume(v, 30.0, 20.0, n_steps=RENDER_STEPS,
+                                     **kw))
+    ys, xs = np.nonzero(vol > 0.05)
+    out["silhouette_px"] = float(np.sqrt((ys - (h - 1) / 2) ** 2
+                                         + (xs - (h - 1) / 2) ** 2).max())
+    out["silhouette_bound_px"] = (SPHERE_R + 3.0 + 2 * span / 95) * px
+    out["centre_lum"] = float(vol[mid, mid])
+    sw = lum(render3d.render_volume_sw(v, 30.0, 20.0, **kw))
+    out["sw_vs_gather_iou"] = float(iou(vol > 0.05, sw > 0.05))
+    bg = (0.0, 0.25, 0.5)
+    out["bg_err"] = max(float(np.abs(
+        fn(v, 10.0, 10.0, bg=bg, **kw).cpu().numpy()[1, 1] - bg).max())
+        for fn in (functools.partial(render3d.render_volume,
+                                     n_steps=RENDER_STEPS),
+                   render3d.render_volume_sw))
+    want = span / 2 - (SPHERE_R + 1.5)
+    rgb_g, dep_g = render3d.render_isosurface(
+        v, 0.5, 25.0, 15.0, out_hw=RENDER_HW, n_steps=RENDER_STEPS)
+    rgb_s, dep_s = render3d.render_isosurface_sw(v, 0.5, 25.0, 15.0,
+                                                 out_hw=RENDER_HW)
+    out["iso_centre_depth_err"] = abs(float(dep_g[mid, mid]) - want)
+    out["sw_iso_centre_depth_err"] = abs(float(dep_s[mid, mid]) - want)
+    both = hits(dep_g) & hits(dep_s)
+    out["iso_iou"] = float(iou(hits(dep_g), hits(dep_s)))
+    out["iso_median_depth_diff"] = float(np.median(np.abs(
+        dep_g.cpu().numpy()[both] - dep_s.cpu().numpy()[both])))
+    areas = [(lum(render3d.render_volume_sw(v, 25.0, 10.0, zoom=z, **kw))
+              > 0.05).sum() for z in (1.0, 2.0)]
+    out["zoom_area_ratio"] = float(areas[1] / areas[0])
+    mip = lum(render3d.render_volume_sw(v, 33.0, 21.0, vmin=0.0, vmax=1.0,
+                                        out_hw=RENDER_HW, mode="mip"))
+    out["mip_centre"] = float(mip[mid, mid])
+    print(f"render sphere pins at {RENDER_HW}: {json.dumps(out)}",
+          flush=True)
+    if not (out["silhouette_px"] <= out["silhouette_bound_px"]
+            and out["centre_lum"] > 0.3 and out["bg_err"] < 1e-3
+            and out["iso_centre_depth_err"] < 1.0
+            and out["sw_iso_centre_depth_err"] < 1.5
+            and out["sw_vs_gather_iou"] > 0.85 and out["iso_iou"] > 0.85
+            and out["iso_median_depth_diff"] < 1.5
+            and 3.3 < out["zoom_area_ratio"] < 4.7
+            and abs(out["mip_centre"] - 1.0) < 0.03):
+        fail(f"render: an analytic sphere pin failed: {out}")
+
+
+def mip_gate(torch, vol, window):
+    """The independent gate on the specimen: shear-warp's MIP at the
+    axis-aligned pose (azimuth 0, elevation 0: rays along -x) against the
+    volume's own maximum along x (``torch.amax``), windowed, sampled
+    bilinearly (zero outside) at each film pixel's (z, y) from the orbit
+    camera's formula in float64. Returns the largest and the mean
+    difference."""
+    from magellanmapper_torch.ops import render3d
+
+    vmin, vmax = window
+    img = render3d.render_volume_sw(vol, 0.0, 0.0, vmin=vmin, vmax=vmax,
+                                    out_hw=RENDER_HW, mode="mip")
+    lum = torch.clamp((torch.amax(vol, dim=2) - vmin) / (vmax - vmin), 0, 1)
+    lum = np.pad(lum.cpu().numpy().astype(np.float64), 1)
+    h, w = RENDER_HW
+    shape = np.asarray(vol.shape, np.float64)
+    span = np.linalg.norm(shape)
+    ys = (np.arange(h) / (h - 1) - 0.5) * span
+    xs = (np.arange(w) / (w - 1) - 0.5) * span
+    # up is +z and right is -y at this pose: film (r, c) sits at
+    # (z, y) = centre - up * ys[r] + right * xs[c]
+    z = (shape[0] - 1) / 2 - ys[:, None] + 1 + 0 * xs[None, :]
+    y = (shape[1] - 1) / 2 - xs[None, :] + 0 * ys[:, None] + 1
+    z0, y0 = np.floor(z).astype(int), np.floor(y).astype(int)
+    fz, fy = z - z0, y - y0
+
+    def at(zi, yi):
+        ok = (zi >= 0) & (zi < lum.shape[0]) & (yi >= 0) & (yi < lum.shape[1])
+        return np.where(ok, lum[np.clip(zi, 0, lum.shape[0] - 1),
+                                np.clip(yi, 0, lum.shape[1] - 1)], 0.0)
+
+    want = ((1 - fz) * (1 - fy) * at(z0, y0) + (1 - fz) * fy * at(z0, y0 + 1)
+            + fz * (1 - fy) * at(z0 + 1, y0) + fz * fy * at(z0 + 1, y0 + 1))
+    diff = np.abs(img.cpu().numpy()[..., 0] - want)
+    return float(diff.max()), float(diff.mean())
+
+
+def render_frames(torch, vol, engines, blobs, card):
+    """Each engine at each pose at RENDER_HW on the specimen: ms a frame
+    (CUDA events, after a warm-up frame), peak device memory a frame
+    (the resident volume included), finite images; the blobs projected
+    under each pose's isosurface depth (``render_blobs_overlay``).
+    Returns the timings."""
+    from magellanmapper_torch.ops import render3d
+
+    stats = {}
+    for name, fn in engines.items():
+        fn(vol, *RENDER_POSES[0], "cuda")
+        ms, peaks, visible = [], [], []
+        for az, el in RENDER_POSES:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(vol, az, el, "cuda")
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            peaks.append(torch.cuda.max_memory_allocated() / 2**20)
+            img = (out[0] if isinstance(out, tuple) else out).cpu().numpy()
+            if img.shape != RENDER_HW + (3,) or not np.isfinite(img).all() \
+                    or img.min() < 0 or img.max() > 1:
+                fail(f"render {name} at ({az}, {el}): image {img.shape}, "
+                     f"range [{img.min()}, {img.max()}]")
+            if isinstance(out, tuple):
+                depth = out[1]
+                if not torch.isfinite(depth).any():
+                    fail(f"render {name} at ({az}, {el}): no hit")
+                over = render3d.render_blobs_overlay(
+                    depth, blobs, tuple(vol.shape), az, el, RENDER_HW)
+                visible.append(float(over[:, 2].mean()))
+        stats[name] = {"ms": ms, "ms_mean": float(np.mean(ms)),
+                       "peak_mib": max(peaks)}
+        if visible:
+            stats[name]["blobs_visible_share"] = visible
+        print(f"render {name} ({card}): " + json.dumps(stats[name]),
+              flush=True)
+        if max(peaks) > RENDER_PEAK_MIB:
+            fail(f"render {name}: a frame peaked at {max(peaks):.0f} MiB")
+    return stats
+
+
+def render_path(torch, spec, blobs, coloc, work, launches, card):
+    """Phase 11: visualisation and the plane and ROI exports.
+
+    Phase 6's (640, 960, 800) specimen goes to the card as float32 and
+    each engine renders it at RENDER_HW at RENDER_POSES (principal axes z,
+    y and x; the gather engines at RENDER_STEPS); ``render_blobs_overlay``
+    projects its detected blobs under each isosurface; the MIP at the
+    axis-aligned pose is held to the volume's own maximum (:func:`mip_gate`);
+    ``export_stack.render_rotation`` (the frames of
+    ``animate_rotation_3d``) orbits it in ORBIT_FRAMES frames at ORBIT_HW
+    in MIP and isosurface modes; ``render_channels_sw`` renders phase 9's
+    two-channel volume ``coloc``; ``plot_3d.deconvolve`` runs DECONV_ITERS
+    iterations on a DECONV_ROI of it. Then the analytic sphere pins at
+    RENDER_HW, every engine and pose card against CPU on a crop
+    (:func:`render_crop`), deconvolution card against CPU, and ``--proc
+    extract`` and ``--proc export_rois`` through the CLI (each output equal
+    to its source). The matplotlib exports (``--proc export_planes[_
+    channels]|animated``, ``--plot_2d``, the GIF writer of
+    ``animate_rotation_3d``) are left out by design: the card's machine
+    has no matplotlib; the CPU tests hold them against the reference.
+    Gates: each frame finite in [0, 1] and under RENDER_PEAK_MIB, the MIP
+    gate, the pins, the card against the CPU, the exports. The path
+    reuses phase 6's blobs, so it launches none of K1-K4 (counted as
+    ``render``). ``card`` is the card's name and power limit, printed
+    beside each time and memory figure."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import cli, export_stack, np_io
+    from magellanmapper_torch.ops import preproc, render3d
+    from magellanmapper_torch.plot import plot_3d
+
+    dev_mod.reset_launches()
+    t_phase = t0 = time.perf_counter()
+    vol = (torch.from_numpy(spec.view(np.int16)).cuda().to(torch.int32)
+           & 0xFFFF).to(torch.float32)
+    level = float(preproc.otsu_threshold(vol))
+    window = (level, float(torch.amax(vol)))
+    torch.cuda.synchronize()
+    print(f"render: specimen {tuple(vol.shape)} float32 on the card "
+          f"({vol.numel() * 4} B) in {time.perf_counter() - t0:.1f} s; "
+          f"Otsu level {level}, window {window}; {len(blobs)} blobs",
+          flush=True)
+    engines = render_engines(render3d, window, level, RENDER_HW,
+                             RENDER_STEPS)
+    stats = render_frames(torch, vol, engines, blobs, card)
+    err, mean = mip_gate(torch, vol, window)
+    print(f"render MIP along x against the volume's maximum: largest "
+          f"difference {err:.3g}, mean {mean:.3g} (limits {MIP_ATOL}, "
+          f"{MIP_MEAN_ATOL})", flush=True)
+    if err > MIP_ATOL or mean > MIP_MEAN_ATOL:
+        fail(f"render: the axis-aligned MIP is {err} off the volume's max "
+             f"({mean} on average)")
+    for mode in ("mip", "isosurface"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames = export_stack.render_rotation(vol, ORBIT_FRAMES, mode,
+                                              out_hw=ORBIT_HW)
+        wall = time.perf_counter() - t0
+        if len(frames) != ORBIT_FRAMES or any(
+                f.shape != ORBIT_HW + (3,) or not np.isfinite(f).all()
+                for f in frames):
+            fail(f"render: the {mode} orbit's frames are wrong")
+        stats[f"orbit_{mode}"] = {"wall_s": wall,
+                                  "frames_per_s": ORBIT_FRAMES / wall}
+        print(f"render orbit {mode} ({card}): {ORBIT_FRAMES} frames at "
+              f"{ORBIT_HW} in {wall:.2f} s = {ORBIT_FRAMES / wall:.2f} "
+              "frames/s", flush=True)
+    del vol
+    torch.cuda.empty_cache()
+
+    two = np_io.read_file(coloc).img[0]
+    vol_c = (torch.from_numpy(np.array(two).view(np.int16))
+             .cuda().to(torch.int32) & 0xFFFF).to(torch.float32)
+    top = [float(torch.amax(vol_c[..., c])) for c in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    img = render3d.render_channels_sw(
+        vol_c, 30.0, 20.0, vmin=[0.2 * t for t in top], vmax=top,
+        out_hw=RENDER_HW)
+    end.record()
+    torch.cuda.synchronize()
+    img = img.cpu().numpy()
+    stats["channels"] = {"shape": list(vol_c.shape),
+                         "ms": start.elapsed_time(end),
+                         "peak_mib": torch.cuda.max_memory_allocated()
+                         / 2**20,
+                         "green_mean": float(img[..., 1].mean()),
+                         "red_mean": float(img[..., 0].mean())}
+    print(f"render channels ({card}): " + json.dumps(stats["channels"]),
+          flush=True)
+    if not np.isfinite(img).all() or img[..., 0].mean() <= 0 \
+            or img[..., 1].mean() <= 0:
+        fail("render_channels_sw: a channel's colour is missing")
+    del vol_c, two
+    torch.cuda.empty_cache()
+
+    lo = [(s - c) // 2 for s, c in zip(spec.shape, DECONV_ROI)]
+    roi = np.ascontiguousarray(spec[tuple(
+        slice(o, o + c) for o, c in zip(lo, DECONV_ROI))], np.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    est = plot_3d.deconvolve(roi, DECONV_ITERS)
+    stats["deconvolve"] = {"roi": list(DECONV_ROI), "iterations":
+                           DECONV_ITERS, "wall_s": time.perf_counter() - t0,
+                           "flux_ratio": float(est.sum() / roi.sum())}
+    print(f"render deconvolve ({card}): " + json.dumps(stats["deconvolve"]),
+          flush=True)
+    if est.shape != roi.shape or not np.isfinite(est).all():
+        fail("deconvolve: non-finite or misshapen estimate")
+    launches["render"] = dict(dev_mod.LAUNCHES)
+    print(f"render: launches {launches['render']}", flush=True)
+
+    sphere_pins(torch)
+    render_crop(torch, spec)
+    small = np.ascontiguousarray(roi[:DECONV_CROP[0], :DECONV_CROP[1],
+                                     :DECONV_CROP[2]])
+    est_card = plot_3d.deconvolve(small, DECONV_ITERS)
+    est_cpu = plot_3d.deconvolve(small, DECONV_ITERS, device="cpu")
+    rel = float(np.abs(est_card - est_cpu).max() / np.abs(est_cpu).max())
+    print(f"render deconvolve {DECONV_CROP} card against CPU: relative "
+          f"{rel:.3g}", flush=True)
+    if rel > DECONV_RTOL:
+        fail(f"deconvolve: the card is {rel} off the CPU, relative")
+
+    lo = np.subtract(spec.shape, SPEC_CROP) // 2
+    crop = np.ascontiguousarray(spec[tuple(
+        slice(o, o + c) for o, c in zip(lo, SPEC_CROP))])
+    path = os.path.join(work, "crop.npy")
+    np_io.write_npy(path, crop, resolutions=[[1.0, 1.0, 1.0]])
+    plane = cli.main(["--img", path, "--proc", "extract", "--offset",
+                      "0,0,10"])
+    saved = np.load(os.path.join(work, "crop_planexy10.npy"))
+    rel = np.round(blobs[:, :3]) - lo
+    inside = np.unique(rel[np.all((rel >= 0) & (rel < SPEC_CROP), axis=1)],
+                       axis=0)
+    truth = testing.write_truth_db(os.path.join(work, "truth.db"), inside,
+                                   crop.shape)
+    df = cli.main(["--img", path, "--proc", "export_rois", "--truth_db",
+                   truth])
+    roi_img = np.load(os.path.join(work, "crop_rois", "roi_1.npy"))
+    with open(os.path.join(work, "crop_rois", "roi_1_blobs.csv")) as f:
+        n_rows = sum(1 for _ in f) - 1
+    print(f"render CLI: extract {saved.shape}, export_rois {len(df)} ROI, "
+          f"{n_rows} blobs of {len(inside)}", flush=True)
+    if not (np.array_equal(saved, crop[10]) and np.array_equal(plane, saved)
+            and np.array_equal(roi_img, crop) and len(df) == 1
+            and n_rows == len(inside)):
+        fail("render CLI: an export differs from its source")
+    stats["wall_s"] = time.perf_counter() - t_phase
+    print(f"render ({card}): " + json.dumps(stats), flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -2370,15 +2812,21 @@ def main() -> None:
     # 9. blob analysis: colocalization, the classifier and clustering on
     # the two-channel volume
     blob_analysis(torch, coloc, coloc_truth, coloc_work.name, launches)
-    coloc_work.cleanup()
-    del coloc
     torch.cuda.empty_cache()
 
     # 10. acquisition: the specimen as tiles, stitched, transformed and
     # detected by run_pipeline; import and export of TIFF files
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         acquisition_path(torch, spec, scene, scene_centres, tmp, launches)
-    del spec, scene
+    del scene
+    torch.cuda.empty_cache()
+
+    # 11. visualisation: the specimen rendered by every engine, its orbit,
+    # the two-channel volume, deconvolution, the plane and ROI exports
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        render_path(torch, spec, spec_blobs, coloc, tmp, launches, smi)
+    coloc_work.cleanup()
+    del spec
     torch.cuda.empty_cache()
 
     for name in results:
@@ -2394,7 +2842,7 @@ def main() -> None:
         fail(f"the port must run without jax and the reference package, "
              f"but these were imported: {loaded[:10]}")
 
-    # 11. results
+    # 12. results
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

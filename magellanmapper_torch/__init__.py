@@ -6,7 +6,8 @@ through each kernel's plain PyTorch version). Layout mirrors the
 reference so each counterpart is easy to find:
 
 - ``ops/``      device primitives: separable filters and the LoG pyramid,
-                preprocessing, resampling, peak finding and blob pruning.
+                preprocessing, resampling, peak finding and blob pruning,
+                3D rendering (``render3d``: ray casting and shear-warp).
 - ``kernels/``  hand-written CUDA kernels (sources in ``csrc/``), each with
                 its plain PyTorch twin and a launch counter; host C++
                 TIFF decoders in ``csrc/host/`` (built with g++).
@@ -18,14 +19,20 @@ reference so each counterpart is easy to find:
                 whole-image transform (``transformer``) and the label
                 ontology (``ontology``).
 - ``io/``       the command-line entry (``--proc detect|transform|
-                preprocess|import_only|load|export_*``, ``--grid_search``,
-                ``--register``), TIFF, image, medical-image, blob-archive
+                preprocess|import_only|load|export_*|extract|animated``,
+                ``--plot_2d``, ``--grid_search``, ``--register``), TIFF, image, medical-image, blob-archive
                 and database I/O, import (``importer``), the pipeline
                 runner from raw tiles to blobs (``pipelines``), region
-                exports and density images (``export_regions``).
+                exports and density images (``export_regions``), ROI
+                exports (``export_rois``), plane files and animations
+                (``export_stack``).
 - ``stitch/``   tile stitching: phase correlation and fusion on the device
                 (``stitcher``), tile grids and mesoSPIM conversion
                 (``acquisition``).
+- ``plot/``     colormaps, figure support, 2D plots (``plot_2d``, which
+                imports matplotlib; the others import it only where a
+                figure is made), ROI preprocessing and deconvolution
+                (``plot_3d``).
 - ``settings/`` ROI, grid-search and atlas profiles.
 - ``stats/``    the detection grid search, per-region metrics (``vols``)
                 and cluster counts (``clustering``).

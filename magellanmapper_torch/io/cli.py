@@ -1,6 +1,7 @@
-"""Command-line entry of the port: image import and export, blob
-detection and the analysis of its blobs, its grid search, single-sample
-atlas registration, and the specimen pipeline around it.
+"""Command-line entry of the port: image import and export, plane, ROI
+and plot exports, blob detection and the analysis of its blobs, its grid
+search, single-sample atlas registration, and the specimen pipeline
+around it.
 
 ``python -m magellanmapper_torch.io.cli --img stack.tif --proc
 import_only [--set_meta resolutions=z,y,x] [--prefix out]`` imports a
@@ -11,6 +12,17 @@ vendor formats (``.czi``, ``.lif``, ``.nd2``, ``.oib``, ``.oif``,
 image; ``--proc export_tif`` and ``export_raw`` write its first time
 point as ``<prefix or image base>.tif`` and the whole array as ``.raw``;
 ``--proc export_blobs`` writes ``blobs.npz`` as ``<base>_blobs.csv``.
+``--proc extract [--offset x,y,z] [--plane xy|xz|yz]`` saves the plane at
+the offset's z (default 0) as ``<base>_plane<plane><z>.npy``; ``--proc
+export_rois --truth_db <db>`` writes each of the database's ROIs as
+``<base>_rois/roi_<id>.npy`` and its blobs as ``roi_<id>_blobs.csv``;
+``--proc export_planes [--savefig ext] [--channel c]`` writes each z-plane
+as ``<base>_planes/plane_<z>.<ext>`` (``export_planes_channels``: one file
+a channel); ``--proc animated [--slice start,stop[,step]] [--delay ms]``
+animates the z-planes into ``<base>.gif``; ``--plot_2d <task> [--labels
+x_col=... y_col=...]`` plots a CSV table into ``<prefix or table>.png``
+(:mod:`~magellanmapper_torch.plot.plot_2d`). The plane files, animations
+and plots are matplotlib's, imported only by these tasks.
 These tasks run on the host whatever ``--device`` says.
 
 ``python -m magellanmapper_torch.io.cli --img vol.npy --proc detect
@@ -93,7 +105,8 @@ reference, ``--grid_search`` takes precedence over ``--proc``.
 The parser takes the reference's flag names
 (``magellanmapper_tpu/io/cli.py:124-194``) for what the port accepts:
 ``--img``, ``--proc detect|detect_coloc|coloc_match|classify|transform|
-preprocess|import_only|load|export_tif|export_raw|export_blobs``,
+preprocess|import_only|load|export_tif|export_raw|export_blobs|extract|
+export_rois|export_planes|export_planes_channels|animated``, ``--plot_2d``,
 ``--register single|register_rev|make_density_images|
 vol_stats|export_regions|group|import_atlas|new_atlas|
 make_edge_images[_exp]|merge_atlas_segs[_exp]|make_subsegs|
@@ -102,9 +115,11 @@ cluster_blobs``, ``--classifier``,
 ``--reg_suffixes``, ``--transform``, ``--plane``, ``--labels``,
 ``--channel``, ``--series``, ``--prefix``,
 ``--subimg_offset``/``--subimg_size``, ``--set_meta resolutions=z,y,x``,
-``--grid_search``, ``--truth_db`` (with ``--grid_search`` or the detect
-tasks), ``--save_subimg`` (with the detect tasks) and ``--device``. Any
-other flag or task is rejected with a message that names it.
+``--grid_search``, ``--truth_db`` (with ``--grid_search``, the detect
+tasks or ``export_rois``), ``--save_subimg`` (with the detect tasks),
+``--offset``, ``--slice``, ``--delay``, ``--savefig``, ``--plot_labels``
+and ``--device``. Any other flag or task is rejected with a message that
+names it.
 
 ``--device`` picks where the device step runs: ``cuda`` (the default)
 fails without a card, and the CPU, which runs the kernels' plain
@@ -133,8 +148,9 @@ from magellanmapper_torch.cv import (
     classifier as classifier_mod, colocalizer, detector, stack_detect,
     verifier)
 from magellanmapper_torch.io import (
-    export_regions, export_rois, importer, naming, np_io, sitk_io, sqlite,
-    tiff)
+    export_regions, export_rois, export_stack, importer, naming, np_io,
+    sitk_io, sqlite, tiff)
+from magellanmapper_torch.plot import plot_support
 from magellanmapper_torch.settings.atlas_prof import AtlasProfile
 from magellanmapper_torch.settings.roi_prof import ROIProfile
 from magellanmapper_torch.stats import clustering, mlearn, vols
@@ -144,7 +160,8 @@ _logger = logging.getLogger(__name__)
 
 #: ``--proc`` tasks that run on the host: import, load and export
 HOST_TASKS = ("import_only", "load", "export_tif", "export_raw",
-              "export_blobs")
+              "export_blobs", "extract", "export_rois", "export_planes",
+              "export_planes_channels", "animated")
 #: ``--proc`` tasks the port runs
 TASKS = ("detect", "detect_coloc", "coloc_match", "classify", "transform",
          "preprocess") + HOST_TASKS
@@ -210,7 +227,8 @@ PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 #: what the port runs, for the messages that reject the rest
 SUPPORTED = ("--proc detect/detect_coloc/coloc_match/classify/transform/"
              "preprocess/import_only/load/export_tif/export_raw/"
-             "export_blobs, --grid_search and --register single/"
+             "export_blobs/extract/export_rois/export_planes[_channels]/"
+             "animated, --plot_2d, --grid_search and --register single/"
              "register_rev/make_density_images/vol_stats/export_regions/"
              "group/import_atlas/new_atlas/make_edge_images[_exp]/"
              "merge_atlas_segs[_exp]/make_subsegs/cluster_blobs")
@@ -243,6 +261,12 @@ class RunConfig:
     labels: Dict[str, str] = field(default_factory=dict)
     classifier: Optional[List[str]] = None
     save_subimg: bool = False
+    offset: Optional[List[int]] = None
+    slice_vals: Optional[List[int]] = None
+    delay: Optional[int] = None
+    savefig: Optional[str] = None
+    plot_labels: Dict[str, str] = field(default_factory=dict)
+    plot_2d_task: Optional[str] = None
     device: str = "cuda"
 
 
@@ -269,11 +293,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--subimg_offset", nargs="*", help="sub-image offset x,y,z")
     p.add_argument("--subimg_size", nargs="*", help="sub-image size x,y,z")
     p.add_argument("--truth_db", nargs="*", help="truth DB mode and path")
+    p.add_argument("--offset", nargs="*", help="ROI offset x,y,z")
     p.add_argument("--proc", nargs="*",
                    help="processing task: detect, detect_coloc, "
                    "coloc_match, classify, transform, preprocess <tasks>, "
-                   "import_only, load, export_tif, export_raw or "
-                   "export_blobs")
+                   "import_only, load, export_tif, export_raw, "
+                   "export_blobs, extract, export_rois, export_planes, "
+                   "export_planes_channels or animated")
+    p.add_argument("--plot_2d", help="2D plot task of a CSV table")
+    p.add_argument("--plot_labels", nargs="*", help="plot labels")
+    p.add_argument("--slice", help="plane range start,stop[,step]")
+    p.add_argument("--delay", type=int, help="animation delay (ms)")
+    p.add_argument("--savefig", help="figure file format")
     p.add_argument("--register",
                    help="registration task: single, register_rev, "
                    "make_density_images, vol_stats, export_regions, group, "
@@ -325,6 +356,14 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
 
     rc.subimg_offsets = parse_coords(args.subimg_offset)
     rc.subimg_sizes = parse_coords(args.subimg_size)
+    offsets = parse_coords(args.offset)
+    rc.offset = offsets[0] if offsets else None
+    if args.slice:
+        rc.slice_vals = [int(v) for v in args.slice.split(",")]
+    rc.delay = args.delay
+    rc.savefig = args.savefig
+    rc.plot_labels = args_to_dict(args.plot_labels)
+    rc.plot_2d_task = args.plot_2d
     meta = args_to_dict(args.set_meta)
     if "resolutions" in meta:
         rc.resolutions = [float(v) for v in meta["resolutions"].split(",")]
@@ -360,6 +399,9 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
                 f"{task}); use magellanmapper_tpu.io.cli for other tasks")
         if rc.register_type in PAIR_TASKS and len(rc.filenames) < 2:
             raise SystemExit(f"{task} needs --img <sample> <atlas_dir>")
+    elif rc.plot_2d_task:
+        task = f"--plot_2d {rc.plot_2d_task}"
+        plot_2d_type(rc.plot_2d_task)
     else:
         task = "--grid_search" if rc.grid_search else (
             f"--proc {rc.proc}" if rc.proc else None)
@@ -368,12 +410,14 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
                 f"magellanmapper_torch supports only {SUPPORTED} so far "
                 f"(got {task}); use magellanmapper_tpu.io.cli for other "
                 "tasks")
-    detects = (rc.register_type is None and not rc.grid_search
-               and rc.proc in DETECT_TASKS)
-    if rc.truth_db and not (rc.grid_search or detects):
+    by_proc = (rc.register_type is None and not rc.plot_2d_task
+               and not rc.grid_search)
+    detects = by_proc and rc.proc in DETECT_TASKS
+    if rc.truth_db and not (rc.grid_search or detects or (
+            by_proc and rc.proc == "export_rois")):
         raise SystemExit(
             "magellanmapper_torch takes --truth_db only with --grid_search "
-            "or --proc detect/detect_coloc")
+            "or --proc detect/detect_coloc/export_rois")
     if rc.save_subimg and not detects:
         raise SystemExit(
             "magellanmapper_torch takes --save_subimg only with --proc "
@@ -382,6 +426,51 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
             RegisterTypes.EXPORT_REGIONS:
         raise SystemExit(f"{task} needs --img")
     return rc
+
+
+def plot_2d_type(name: str):
+    """The ``Plot2DTypes`` member of a ``--plot_2d`` task name; an unknown
+    name raises ``SystemExit`` naming the flag and the known tasks."""
+    from magellanmapper_torch.plot import plot_2d
+    try:
+        return plot_2d.Plot2DTypes[name.upper()]
+    except KeyError:
+        raise SystemExit(
+            f"unknown --plot_2d task: {name}; options: " + ", ".join(
+                e.name.lower() for e in plot_2d.Plot2DTypes)) from None
+
+
+def plot_2d_task(rc: RunConfig):
+    """The ``--plot_2d`` task: plot the CSV table ``filenames[0]`` into
+    ``--prefix`` (default ``<table>.png``); the columns come from
+    ``--labels`` or ``--plot_labels`` ``x_col=``/``y_col=`` (default the
+    first two). Returns the figure."""
+    from magellanmapper_torch.plot import plot_2d
+    task = plot_2d_type(rc.plot_2d_task)
+    types = plot_2d.Plot2DTypes
+    df = pd.read_csv(rc.filenames[0])
+    out_path = rc.prefix or (rc.filenames[0] + ".png")
+    if task is types.ROC_CURVE:
+        return plot_2d.plot_roc(df, out_path)
+    x_col = str(rc.labels.get(
+        "x_col", rc.plot_labels.get("x_col", df.columns[0])))
+    y_col = str(rc.labels.get(
+        "y_col", rc.plot_labels.get("y_col", df.columns[1])))
+    if task is types.BAR_PLOT:
+        return plot_2d.plot_bars(df, x_col, y_col, out_path)
+    if task is types.LINE_PLOT:
+        return plot_2d.plot_lines(df, x_col, [y_col], out_path)
+    if task is types.SWARM_PLOT:
+        return plot_2d.plot_swarm(df, x_col, y_col, out_path)
+    if task is types.CAT_PLOT:
+        return plot_2d.plot_catplot(df, x_col, y_col, out_path=out_path)
+    if task in (types.BAR_PLOT_VOLS_STATS, types.BAR_PLOT_VOLS_STATS_EFFECTS):
+        ycol = "Volume" if "Volume" in df.columns else y_col
+        return plot_2d.plot_bars(
+            df, x_col if x_col in df.columns else "Region", ycol, out_path)
+    if task is types.HISTOGRAM:
+        return plot_2d.plot_histogram(df, y_col, path=out_path)
+    return plot_2d.plot_scatter(df, x_col, y_col, path=out_path)
 
 
 def load_image(rc: RunConfig) -> np_io.Image5d:
@@ -639,7 +728,9 @@ def process_host_task(rc: RunConfig):
     """The ``--proc`` tasks that run on the host (reference
     ``cli.process_file``): ``import_only`` (the imported image),
     ``load`` (the image), ``export_tif`` and ``export_raw`` (the written
-    path) and ``export_blobs`` (the blobs' table)."""
+    path), ``export_blobs`` (the blobs' table), ``extract`` (the plane),
+    ``export_rois`` (the ROIs' table), ``export_planes[_channels]`` (the
+    planes' paths) and ``animated`` (the animation's path)."""
     path = rc.filenames[0]
     if rc.proc == "import_only":
         fn = importer.VENDOR_IMPORTERS.get(
@@ -651,6 +742,39 @@ def process_host_task(rc: RunConfig):
     img5d = load_image(rc)
     if rc.proc == "load":
         return img5d
+    base = os.path.splitext(rc.prefix or path)[0]
+    channel = rc.channel[0] if rc.channel else None
+    if rc.proc == "extract":
+        z = rc.offset[2] if rc.offset else 0
+        plane = plot_support.extract_planes(
+            np.asarray(img5d.img), z, rc.plane or "xy")[0]
+        out = f"{base}_plane{rc.plane or 'xy'}{z}.npy"
+        np.save(out, plane)
+        _logger.info("extracted plane -> %s %s", out, plane.shape)
+        return plane
+    if rc.proc == "export_rois":
+        db = sqlite.load_db(rc.truth_db or sqlite.DB_NAME)
+        try:
+            vol = img5d.img[0] if img5d.img.ndim >= 4 else img5d.img
+            df = export_rois.export_rois(
+                np.asarray(vol), db, rc.channel or [0], f"{base}_rois")
+        finally:
+            db.close()
+        _logger.info("exported %d ROIs to %s_rois", len(df), base)
+        return df
+    if rc.proc == "animated":
+        vol = np.asarray(img5d.img)
+        if rc.slice_vals:
+            sl = slice(*rc.slice_vals)
+            vol = vol[:, sl] if vol.ndim >= 4 else vol[sl]
+        fps = max(1, round(1000 / rc.delay)) if rc.delay else 10
+        return export_stack.animate_imgs(vol, f"{base}.gif", fps=fps,
+                                         channel=channel)
+    if rc.proc in ("export_planes", "export_planes_channels"):
+        return export_stack.export_planes(
+            np.asarray(img5d.img), f"{base}_planes",
+            ext=rc.savefig or "png", channel=channel,
+            separate_channels=rc.proc == "export_planes_channels")
     out = rc.prefix or os.path.splitext(path)[0]
     if rc.proc == "export_tif":
         out += ".tif"
@@ -692,11 +816,15 @@ def main(argv: Optional[Sequence[str]] = None
     or classified blobs, the channel pairs' matches, the grid search's
     table, the registration's result, the transformed image's path, the
     preprocessed image, the heat map(s), the regions' table, the
-    clustered blobs, the imported or loaded image, an export's path or
-    the blobs' table."""
+    clustered blobs, the imported or loaded image, an export's path, the
+    blobs' or ROIs' table, the extracted plane, the planes' paths or the
+    plot's figure."""
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
     rc = process_cli_args(argv)
+    if rc.register_type is None and rc.plot_2d_task:
+        _logger.info("--plot_2d %s on the host", rc.plot_2d_task)
+        return plot_2d_task(rc)
     if rc.register_type is None and not rc.grid_search \
             and rc.proc in HOST_TASKS:
         _logger.info("--proc %s on the host", rc.proc)

@@ -1,14 +1,18 @@
-"""Blob exports: the blob archive as CSV.
+"""ROI and blob exports for training and review.
 
-Copy of ``blobs_to_csv`` of ``magellanmapper_tpu/io/export_rois.py``,
-which ``--proc export_blobs`` runs. The ROI exports of that module
-(``export_rois``, ``--proc export_rois``) are not ported yet.
+Copy of ``magellanmapper_tpu/io/export_rois.py``: the blob archive as CSV
+(``blobs_to_csv``, which ``--proc export_blobs`` runs), each truth ROI of
+a database as an image and a blob CSV (``export_rois``, ``--proc
+export_rois``), and the per-ROI paths of the export and their reading
+back (``make_roi_paths``, ``load_roi_files``).
 """
 
 from __future__ import annotations
 
+import glob
 import logging
-from typing import Optional
+import os
+from typing import Optional, Sequence
 
 import numpy as np
 import pandas as pd
@@ -41,3 +45,58 @@ def blobs_to_csv(rc_or_blobs, out_path: Optional[str] = None
         df.to_csv(out_path, index=False)
         _logger.info("exported %d blobs to %s", len(df), out_path)
     return df
+
+
+def export_rois(
+        image: np.ndarray, db, channel: Sequence[int],
+        out_dir: str, padding: Sequence[int] = (0, 0, 0)) -> pd.DataFrame:
+    """Write each ROI of the database ``db`` as ``roi_<id>.npy`` (the z,y,x
+    sub-image of ``image``, ``padding`` wider on each side) and its blobs
+    as ``roi_<id>_blobs.csv`` into ``out_dir``; returns one row an ROI
+    (ID, offset, size, blob count)."""
+    os.makedirs(out_dir, exist_ok=True)
+    rows = []
+    for roi in db.get_rois():
+        roi_id = roi["id"]
+        offset = (roi["offset_z"], roi["offset_y"], roi["offset_x"])
+        size = (roi["size_z"], roi["size_y"], roi["size_x"])
+        sl = tuple(slice(o - p, o + s + p) for o, s, p in zip(
+            offset, size, padding))
+        sub = np.asarray(image[sl])
+        base = os.path.join(out_dir, f"roi_{roi_id}")
+        np.save(base + ".npy", sub)
+        blobs = db.select_blobs_by_roi(roi_id)
+        blobs_to_csv(blobs, base + "_blobs.csv")
+        rows.append({"roi_id": roi_id, "offset": offset, "size": size,
+                     "n_blobs": len(blobs)})
+    return pd.DataFrame(rows)
+
+
+def make_roi_paths(path: str, roi_id, channel=0,
+                   make_dirs: bool = False):
+    """``(directory, image path, blobs path)`` of an ROI's export
+    (``*`` as ``roi_id`` gives glob patterns)."""
+    path_base = "{}_roi{}".format(
+        path, str(roi_id).zfill(5) if roi_id != "*" else "*")
+    name_base = os.path.basename(path_base)
+    path_img = os.path.join(
+        path_base, f"{name_base}_ch{channel}.npy")
+    path_blobs = os.path.join(path_base, f"{name_base}_blobs.npy")
+    if make_dirs and not os.path.exists(path_base):
+        os.makedirs(path_base)
+    return path_base, path_img, path_blobs
+
+
+def load_roi_files(db, path: str):
+    """``(glob base, images, blobs)`` of the ROI exports under ``path``,
+    each blob array with a last column of -1 added."""
+    path_base, path_img, path_blobs = make_roi_paths(path, "*")
+    img_paths = sorted(glob.glob(path_img))
+    blob_paths = sorted(glob.glob(path_blobs))
+    imgs, img_blobs = [], []
+    for img_p, blobs_p in zip(img_paths, blob_paths):
+        imgs.append(np.load(img_p))
+        blobs = np.load(blobs_p)
+        img_blobs.append(
+            np.insert(blobs, blobs.shape[1], -1, axis=1))
+    return path_base, imgs, img_blobs

@@ -3,8 +3,9 @@
 Copy of what the port uses from ``magellanmapper_tpu/io/sqlite.py``: the
 same tables (``about``/``experiments``/``rois``/``blobs``/``blob_matches``,
 database version 4), so databases interchange with the reference, and the
-``ClrDB`` calls that write a truth ROI, read confirmed blobs or an ROI's
-blobs, and write and read blob matches between channels.
+``ClrDB`` calls that write a truth ROI, list the ROIs, read confirmed
+blobs or an ROI's blobs, and write and read blob matches between
+channels.
 
 Blob rows store x,y,z in database column order, but the API speaks z,y,x
 blob arrays.
@@ -116,6 +117,15 @@ class ClrDB:
             (exp_id, series, *offset[:3], *size[:3]))
         self.conn.commit()
         return self.cur.lastrowid, "inserted"
+
+    def get_rois(self, exp_id: Optional[int] = None) -> List[sqlite3.Row]:
+        """Every ROI's row, or those of one experiment."""
+        if exp_id is None:
+            self.cur.execute("SELECT * FROM rois")
+        else:
+            self.cur.execute(
+                "SELECT * FROM rois WHERE experiment_id = ?", (exp_id,))
+        return self.cur.fetchall()
 
     def insert_blobs(self, roi_id: int, blobs: np.ndarray) -> int:
         """Insert z,y,x blob rows."""

@@ -20,7 +20,8 @@ each point searched in chunks of candidate pairs. The core graph's
 connected components come from hooking and pointer jumping, with the
 convergence flag read every few rounds. :func:`knn_dist` searches grids of
 doubling cells until each point's k-th distance lies inside the region
-its cells cover. ``plot_knns`` waits for the port's ``plot`` package.
+its cells cover; :func:`plot_knns` plots its sorted curves (matplotlib,
+imported when called).
 """
 
 from __future__ import annotations
@@ -280,6 +281,30 @@ def knn_dist(
     # numpy's square root is correctly rounded, as scikit-learn's is
     out = np.sqrt(_kth_sq_dist(_as_points(blobs, dev), n).cpu().numpy())
     return np.sort(out) if return_sorted else out
+
+
+def plot_knns(blob_sets, knn_n: int = 4, names=None,
+              out_path: Optional[str] = None,
+              device: Union[str, torch.device] = "cuda"):
+    """The sorted ``knn_n``-th nearest-neighbour distance curves of several
+    blob sets in one figure, saved to ``out_path`` when given; the elbow
+    of each curve guides DBSCAN's ``eps``. Returns the figure."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    fig, ax = plt.subplots()
+    for i, blobs in enumerate(blob_sets):
+        dists = knn_dist(np.asarray(blobs)[:, :3], knn_n, device=device)
+        ax.plot(np.sort(dists),
+                label=None if names is None else names[i])
+    ax.set_xlabel("Points")
+    ax.set_ylabel(f"{knn_n}-NN distance")
+    if names is not None:
+        ax.legend()
+    if out_path:
+        fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+    return fig
 
 
 def cluster_by_label(

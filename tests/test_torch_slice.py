@@ -145,7 +145,7 @@ def test_cli_writes_the_blobs_of_a_direct_call(tmp_path, volume):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--proc", "export_planes"], ["--register", "single"],
+    ["--proc", "no_such_task"], ["--register", "single"],
     ["--proc", "detect", "--mesh", "1,1"]])
 def test_cli_rejects_what_is_not_ported(tmp_path, argv):
     with pytest.raises(SystemExit):

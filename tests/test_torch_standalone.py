@@ -32,8 +32,11 @@ from magellanmapper_torch.atlas import (
 from magellanmapper_torch.cv import blobs, chunking, cv_nd, segmenter
 from magellanmapper_torch.cv import (
     classifier, colocalizer, stack_detect, verifier)
-from magellanmapper_torch.io import cli, export_regions, np_io, sitk_io
+from magellanmapper_torch.io import (
+    cli, export_regions, export_stack, np_io, sitk_io)
 from magellanmapper_torch.io import pipelines, sqlite, tiff, yaml_io
+from magellanmapper_torch.ops import render3d
+from magellanmapper_torch.plot import plot_3d
 from magellanmapper_torch.settings import (
     atlas_prof, grid_search_prof, roi_prof)
 from magellanmapper_torch.stats import clustering, mlearn, vols
@@ -452,6 +455,16 @@ _ACCEPTED = [
     ["--img", "v.npy", "--proc", "export_tif", "--prefix", "out/v"],
     ["--img", "v.npy", "--proc", "export_raw"],
     ["--img", "v.npy", "--proc", "export_blobs", "--prefix", "p"],
+    ["--img", "v.npy", "--proc", "extract", "--offset", "1,2,3", "--plane",
+     "xz"],
+    ["--img", "v.npy", "--proc", "export_rois", "--truth_db", "t.db",
+     "--channel", "1"],
+    ["--img", "v.npy", "--proc", "export_planes", "--savefig", "jpg"],
+    ["--img", "v.npy", "--proc", "export_planes_channels"],
+    ["--img", "v.npy", "--proc", "animated", "--slice", "2,10,2", "--delay",
+     "150"],
+    ["--img", "t.csv", "--plot_2d", "bar_plot", "--plot_labels",
+     "x_col=a", "y_col=b", "--prefix", "t.png"],
 ]
 
 
@@ -461,7 +474,9 @@ def test_cli_parses_as_the_reference(argv):
     want = ref_cli.process_cli_args(argv)
     for name in ("filenames", "channel", "series", "subimg_offsets",
                  "subimg_sizes", "proc_args", "resolutions", "truth_db",
-                 "prefix", "grid_search", "classifier", "save_subimg"):
+                 "prefix", "grid_search", "classifier", "save_subimg",
+                 "offset", "slice_vals", "delay", "savefig", "plot_labels",
+                 "plot_2d_task"):
         assert getattr(got, name) == getattr(want, name), name
     assert got.proc == (want.proc.name.lower() if want.proc else None)
     assert dict(got.roi_profile) == dict(want.roi_profile)
@@ -478,7 +493,7 @@ def test_cli_parses_as_the_reference(argv):
     (["--proc", "detect", "--df", "sum"], "--df"),
     (["--proc", "detect", "--plot_2d", "bar"], "--plot_2d"),
     (["--proc", "detect", "--notify", "x"], "--notify"),
-    (["--proc", "export_planes"], "--proc export_planes"),
+    (["--proc", "no_such_task"], "--proc no_such_task"),
     (["--proc", "transform", "--truth_db", "t.db"], "--truth_db"),
     (["--register", "merge_images"], "--register"),
 ])
@@ -618,6 +633,24 @@ def _entry_points(tmp_path):
             "stitching", str(tmp_path / "acq.tif"), tile_grid={
                 "dir": str(tile_dir), "rows": 1, "cols": 2}),
         "make_tiles": lambda: testing.make_tiles(vol, 1, 2, 0.5),
+        "render_volume": lambda: render3d.render_volume(vol, 30, 20),
+        "render_isosurface": lambda: render3d.render_isosurface(
+            vol, 0.5, 30, 20),
+        "render_volume_sw": lambda: render3d.render_volume_sw(vol, 30, 20),
+        "render_isosurface_sw": lambda: render3d.render_isosurface_sw(
+            vol, 0.5, 30, 20),
+        "render_channels_sw": lambda: render3d.render_channels_sw(
+            vol, 30, 20),
+        "saturate_roi": lambda: plot_3d.saturate_roi(vol),
+        "denoise_roi": lambda: plot_3d.denoise_roi(vol),
+        "threshold": lambda: plot_3d.threshold(vol),
+        "deconvolve": lambda: plot_3d.deconvolve(vol, 2),
+        "render_rotation": lambda: export_stack.render_rotation(vol, 2),
+        "animate_rotation_3d": lambda: export_stack.animate_rotation_3d(
+            vol, str(tmp_path / "o.gif"), 2),
+        "build_stack": lambda: export_stack.setup_stack(
+            vol[None], rescale=0.5).build_stack(),
+        "plot_knns": lambda: clustering.plot_knns([cloud]),
     }
 
 
@@ -636,7 +669,11 @@ def _entry_points(tmp_path):
     "cluster_blobs", "cluster_by_label", "cli.main detect_coloc", "cli.main classify",
     "cli.main cluster_blobs", "phase_correlation", "phase_shifts",
     "compute_pairwise_shifts", "fuse_tiles", "stitch", "run_pipeline",
-    "run_pipeline stitching", "make_tiles"])
+    "run_pipeline stitching", "make_tiles", "render_volume",
+    "render_isosurface", "render_volume_sw", "render_isosurface_sw",
+    "render_channels_sw", "saturate_roi", "denoise_roi", "threshold",
+    "deconvolve", "render_rotation", "animate_rotation_3d", "build_stack",
+    "plot_knns"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()
@@ -808,3 +845,57 @@ def test_host_cli_tasks_match_the_reference_without_it(tmp_path):
                                "--subimg_offset", "1,2,3",
                                "--subimg_size", "4,5,2"])
     np.testing.assert_array_equal(loaded.img, ref_loaded.img)
+
+
+_RENDER_ALONE = """
+import sys
+from magellanmapper_torch.ops import render3d
+assert not [m for m in sys.modules if m.split(".")[0] == "matplotlib"]
+import numpy as np
+from magellanmapper_torch.io import cli, export_stack
+from magellanmapper_torch.plot import colormaps, plot_3d, plot_support
+vol = np.random.default_rng(0).random((12, 16, 14)).astype(np.float32)
+img = render3d.render_volume_sw(vol, 30.0, 20.0, out_hw=(8, 8),
+                                device="cpu")
+rgb, depth = render3d.render_isosurface(vol, 0.5, 30.0, 20.0, out_hw=(8, 8),
+                                        n_steps=16, device="cpu")
+frames = export_stack.render_rotation(vol, 2, "isosurface", out_hw=(8, 8),
+                                      device="cpu")
+est = plot_3d.deconvolve(vol, 2, device="cpu")
+no_mpl = not [m for m in sys.modules if m.split(".")[0] == "matplotlib"]
+img5d, db, table = sys.argv[1:4]
+plane = cli.main(["--img", img5d, "--proc", "extract", "--offset", "0,0,2"])
+rois = cli.main(["--img", img5d, "--proc", "export_rois", "--truth_db", db])
+no_mpl_cli = not [m for m in sys.modules if m.split(".")[0] == "matplotlib"]
+paths = cli.main(["--img", img5d, "--proc", "export_planes"])
+gif = cli.main(["--img", img5d, "--proc", "animated", "--delay", "100"])
+fig = cli.main(["--img", table, "--plot_2d", "bar_plot"])
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+    "jax", "jaxlib", "magellanmapper_tpu"))
+assert not loaded, loaded
+assert no_mpl and no_mpl_cli
+print(tuple(img.shape), len(frames), plane.shape, len(rois), len(paths), gif)
+"""
+
+
+def test_render_and_export_tasks_run_without_the_reference(tmp_path):
+    """A fresh interpreter imports ``ops.render3d`` without matplotlib,
+    renders and deconvolves on the CPU and runs ``--proc extract`` and
+    ``--proc export_rois`` still without it, then the matplotlib tasks
+    (``--proc export_planes``, ``--proc animated``, ``--plot_2d``); neither
+    jax nor any module of the reference package is loaded."""
+    img = str(tmp_path / "v.npy")
+    np_io.write_npy(img, np.random.default_rng(1).integers(
+        0, 900, (1, 4, 12, 10)).astype(np.uint16))
+    db = testing.write_truth_db(str(tmp_path / "t.db"), [(1, 5, 5)],
+                                (4, 12, 10))
+    table = str(tmp_path / "t.csv")
+    with open(table, "w") as f:
+        f.write("a,b\nx,1\ny,3\n")
+    out = subprocess.run(
+        [sys.executable, "-c", _RENDER_ALONE, img, db, table],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "(8, 8, 3) 2 (12, 10) 1 4" in out.stdout
+    assert os.path.isfile(str(tmp_path / "v.gif"))
+    assert os.path.isfile(table + ".png")

@@ -144,7 +144,25 @@ result, on any fault. Phases:
    card's machine has no matplotlib, and the CPU tests hold them against
    the reference. The path reuses phase 6's blobs and launches no
    kernel (``render``: 0 each);
-12. a JSON line of per-kernel results (launches summed over the paths,
+12. fast LoG, segmentation and atlas-register tasks (:func:`phase12`):
+   phase 4's volume through ``--proc detect --roi_profile
+   lightsheet,<fast.yml>`` (a profile file setting ``log_dtype:
+   bfloat16``: TF32 band products in the LoG) at the slice's bars, with
+   K1, K3 and K4 launched as often as by the float32 route, Mvox/s and
+   the blobs that differ beside phase 4's, and one block's LoG within
+   ``FAST_LOG_ATOL`` of the float32 route's and not equal to it; phase
+   5's sweep with the same file (K2 and K3 launched, table beside phase
+   5's); ``segment_rw`` on the whole slice seeded by phase 4's blobs,
+   ``segment_ws`` and ``watershed_distance`` on a central (128, 512, 512)
+   region (walls, peak memory, sweeps), a (32, 128, 128) crop of
+   ``segment_rw``, ``segment_ws``, ``labels_to_markers_blob`` and
+   ``borders_distance`` card against CPU; ``labels_to_markers_blob`` on
+   phase 8's 25 um labels, and ``--register vol_compare``,
+   ``labels_diff`` and ``labels_dist`` on those labels and markers as two
+   samples, card against ``--device cpu`` (files equal, floats within
+   1e-5). The segmentation and the tasks launch no kernel (``segment``,
+   ``register_tasks``: 0 each);
+13. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --k4-times [--root DIR]`` times K4
@@ -344,6 +362,23 @@ DECONV_RTOL = 1e-4
 K4_BLOCK = (156, 128, 128)
 K4_TILE = (25, 25, 25)
 K4_Q = (5.0, 98.5)
+
+
+#: fast LoG, segmentation and atlas-register tasks (phase 12): the
+#: profile file that turns the fast LoG route on
+FAST_YML = "log_dtype: bfloat16\n"
+#: the fast route's largest absolute LoG difference from the float32
+#: route on one detect block (limit set in PERF.md before the first run)
+FAST_LOG_ATOL = 1e-3
+#: watershed region at the slice's centre, and the card-against-CPU crop
+SEG_CENTRAL = (128, 512, 512)
+SEG_CROP = (32, 128, 128)
+#: random-walker probabilities and distances, card against CPU (the CPU
+#: tests' limits against the reference)
+RW_PROB_ATOL = 1e-5
+DIST_ATOL = 1e-5
+#: item-16 tasks' floats, card against CPU
+TASK_RTOL = 1e-5
 
 
 def fail(msg: str) -> None:
@@ -773,7 +808,7 @@ def check_k2(torch, roi, sigmas, results, dev):
 
 def grid_search_path(torch, roi, centres, work, results, launches):
     """The ``--grid_search`` task through the port's CLI on the card;
-    returns nothing, fails on a fault."""
+    returns its table, fails on a fault."""
     from magellanmapper_torch import device as dev_mod
     from magellanmapper_torch import testing
     from magellanmapper_torch.cv import stack_detect
@@ -799,6 +834,8 @@ def grid_search_path(torch, roi, centres, work, results, launches):
         with open(img + "_gridsearch.csv") as f:
             saved = list(csv.DictReader(f))
     print(f"grid search: launches {launches['grid_search']}", flush=True)
+    if dev_mod.TF32_SCOPES["band_products"]:
+        fail("grid search: the float32 route ran band products with TF32")
     for name in ("extract_candidates", "prune_overlap"):
         if launches["grid_search"][name] <= 0:
             fail(f"kernel {name} was not launched by the grid search")
@@ -836,6 +873,7 @@ def grid_search_path(torch, roi, centres, work, results, launches):
               f"{0 if b is None else len(b)} on the CPU", flush=True)
         if not ((a is None and b is None) or testing.rows_equal(a, b)):
             fail(f"grid crop at {th}: the card's blobs differ from the CPU's")
+    return df
 
 
 def check_taps(torch, sigmas):
@@ -2628,6 +2666,383 @@ def render_path(torch, spec, blobs, coloc, work, launches, card):
     print(f"render ({card}): " + json.dumps(stats), flush=True)
 
 
+def fast_log_block(torch, prof, vol):
+    """One detect block's LoG by the float32 route and the fast route on
+    the card: ``(largest absolute difference, largest |LoG|, fp32 ms,
+    fast ms)``. Fails unless TF32 is off again afterwards."""
+    from magellanmapper_torch.cv import stack_detect as sd
+    from magellanmapper_torch.ops import filters
+
+    blocks = sd.setup_blocks(prof, vol.shape, (1.0, 1.0, 1.0))
+    block_shape = np.minimum(blocks.max_pixels + blocks.overlap, vol.shape)
+    params = sd.step_params(prof, blocks, block_shape, (1.0, 1.0, 1.0),
+                            float(np.percentile(vol[::16], 99.5)))
+    # the block window at the volume's centre
+    window = tuple(slice((n - b) // 2, (n - b) // 2 + b)
+                   for n, b in zip(vol.shape, (int(v) for v in block_shape)))
+    block = torch.from_numpy(np.ascontiguousarray(vol[window])).cuda()
+    pre = sd.preprocess_block(block, params.denoise_shape,
+                              params.preproc_items)
+    ref = filters.log_pyramid(pre, params.sigmas)
+    fast = filters.log_pyramid(pre, params.sigmas,
+                               precision=filters.FAST_PRECISION)
+    if torch.backends.cuda.matmul.allow_tf32:
+        fail("TF32 stayed on after the fast LoG")
+    err = float((fast - ref).abs().max())
+    peak = float(ref.abs().max())
+    ms = cuda_ms(torch, lambda: filters.log_pyramid(pre, params.sigmas))
+    ms_fast = cuda_ms(torch, lambda: filters.log_pyramid(
+        pre, params.sigmas, precision=filters.FAST_PRECISION))
+    return err, peak, ms, ms_fast
+
+
+def blob_changes(fast, ref):
+    """How the fast route's blobs differ from the float32 route's: rows
+    equal in z, y, x and radius, then the rest matched by the verifier's
+    optimal assignment within ``VERIFY_TOL`` (moved), and those left on
+    either side (added, removed)."""
+    from magellanmapper_torch.cv import verifier
+
+    def keys(rows):
+        return {tuple(r) for r in np.round(rows[:, :4], 4).tolist()}
+
+    same = keys(fast) & keys(ref)
+    only_fast = np.asarray([r for r in fast if tuple(np.round(
+        r[:4], 4).tolist()) not in same]).reshape(-1, fast.shape[1])
+    only_ref = np.asarray([r for r in ref if tuple(np.round(
+        r[:4], 4).tolist()) not in same]).reshape(-1, ref.shape[1])
+    thresh, scaling, *_ = verifier.setup_match_blobs_roi(VERIFY_TOL)
+    found, _, _ = verifier.find_closest_blobs_cdist(
+        only_fast, only_ref, thresh, scaling)
+    return {"equal": len(same), "moved": int(len(found)),
+            "added": int(len(only_fast) - len(found)),
+            "removed": int(len(only_ref) - len(found))}
+
+
+def fast_detect_path(torch, vol, centres, fp32, work, launches):
+    """The fast LoG route on the detect slice through the port's CLI
+    (``--roi_profile lightsheet,<fast.yml>``), beside the float32 route's
+    ``fp32`` readings of phase 4: the bars against the planted nuclei,
+    the same launches of K1, K3 and K4, band products run with TF32 on
+    (``device.TF32_SCOPES``: the CLI's route reached the fast products),
+    the blobs that differ, Mvox/s beside phase 4's (both routes in turns:
+    ``tools/profile_slice.py --turns``), and one block's LoG difference,
+    which must be above 0 (TF32 changed the products) and under
+    ``FAST_LOG_ATOL``."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.cv import stack_detect as sd
+    from magellanmapper_torch.io import cli
+
+    yml = os.path.join(work, "fast_log.yml")
+    with open(yml, "w") as f:
+        f.write(FAST_YML)
+    path = os.path.join(work, "nuclei.npy")
+    np.save(path, vol)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev_mod.reset_launches()
+    t0 = time.perf_counter()
+    blobs = cli.main(["--img", path, "--proc", "detect", "--roi_profile",
+                      f"lightsheet,{yml}", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["detect_fast"] = dict(dev_mod.LAUNCHES)
+    tf32 = dev_mod.TF32_SCOPES["band_products"]
+    peak_mem = torch.cuda.max_memory_allocated()
+    print(f"fast slice: launches {launches['detect_fast']}; band-product "
+          f"blocks with TF32 on {tf32}", flush=True)
+    if tf32 <= 0:
+        fail("fast slice: the CLI ran no band product with TF32 on")
+    for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        if launches["detect_fast"][name] != launches["detect"][name]:
+            fail(f"fast slice: {name} launched "
+                 f"{launches['detect_fast'][name]} times, the float32 "
+                 f"route {launches['detect'][name]}")
+    det = blobs.blobs
+    if det is None or det.shape[1] != 10 or not np.all(np.isfinite(det)):
+        fail("fast slice: no or non-finite blobs")
+    sens, ppv = testing.sens_ppv(
+        det, centres, SLICE_SHAPE, VERIFY_TILE, VERIFY_TOL)
+    changes = blob_changes(det, fp32["blobs"])
+    mvox = float(np.prod(SLICE_SHAPE) / 1e6 / wall)
+    print(f"fast slice: {len(det)} blobs (float32 route {len(fp32['blobs'])})"
+          f"; sensitivity {sens:.4f} PPV {ppv:.4f} (float32 "
+          f"{fp32['sens']:.4f} / {fp32['ppv']:.4f}); wall {wall:.3f} s"
+          f" = {mvox:.2f} Mvox/s (phase 4's float32 {fp32['mvox']:.2f}); "
+          f"peak device memory {peak_mem / 2**20:.1f} MiB; against the "
+          f"float32 route's blobs {json.dumps(changes)}", flush=True)
+    if not (sens > 0.85 and ppv > 0.7):
+        fail(f"fast slice below the bars: sens {sens} ppv {ppv}")
+    err, peak, ms, ms_fast = fast_log_block(
+        torch, sd.roi_profile("lightsheet"), vol)
+    print(f"fast LoG, one block: max_abs_diff {err} from the float32 route "
+          f"(limit {FAST_LOG_ATOL}; max |LoG| {peak:.4f}); LoG {ms:.3f} ms "
+          f"float32, {ms_fast:.3f} ms fast", flush=True)
+    if not 0 < err < FAST_LOG_ATOL:
+        fail(f"fast LoG differs from the float32 route by {err}: 0 means "
+             f"the fast route did not run, the limit is {FAST_LOG_ATOL}")
+    return {"mvox_fast": mvox, "mvox_fp32": fp32["mvox"], "tf32": tf32,
+            "sens": sens, "ppv": ppv, "blobs": len(det),
+            "log_diff": err, "log_ms": ms, "log_ms_fast": ms_fast,
+            **changes}
+
+
+def fast_grid_path(torch, roi, centres, fp32_df, work, launches):
+    """Phase 5's sweep with the fast LoG route through the CLI: K2 and K3
+    launched, the table beside the float32 sweep's, the best row at the
+    bars."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import cli
+    from magellanmapper_torch.stats import mlearn
+
+    yml = os.path.join(work, "fast_log.yml")
+    with open(yml, "w") as f:
+        f.write(FAST_YML)
+    img = os.path.join(work, "roi.npy")
+    np.save(img, roi)
+    truth = testing.write_truth_db(
+        os.path.join(work, "truth.db"), centres, GRID_SHAPE)
+    dev_mod.reset_launches()
+    t0 = time.perf_counter()
+    df = cli.main(["--img", img, "--grid_search", "gridtest",
+                   "--roi_profile", f"4xnuc,{yml}", "--truth_db", truth,
+                   "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["grid_fast"] = dict(dev_mod.LAUNCHES)
+    tf32 = dev_mod.TF32_SCOPES["band_products"]
+    print(f"fast grid search: launches {launches['grid_fast']}; band-product "
+          f"blocks with TF32 on {tf32}; wall {wall:.3f} s", flush=True)
+    if tf32 <= 0:
+        fail("fast grid search: the CLI ran no band product with TF32 on")
+    for name in ("extract_candidates", "prune_overlap"):
+        if launches["grid_fast"][name] <= 0:
+            fail(f"kernel {name} was not launched by the fast grid search")
+    if len(df) != len(fp32_df):
+        fail(f"fast grid: {len(df)} rows, float32 {len(fp32_df)}")
+    ref = fp32_df.sort_values("detection_threshold").reset_index(drop=True)
+    got = df.sort_values("detection_threshold").reset_index(drop=True)
+    for (_, a), (_, b) in zip(got.iterrows(), ref.iterrows()):
+        print(f"fast grid: threshold {a['detection_threshold']:.2f} TP "
+              f"{int(a['TP'])} FP {int(a['FP'])} SENS {a['SENS']:.4f} PPV "
+              f"{a['PPV']:.4f} | float32 TP {int(b['TP'])} FP "
+              f"{int(b['FP'])} SENS {b['SENS']:.4f} PPV {b['PPV']:.4f}",
+              flush=True)
+    best = mlearn.parse_grid_stats(df).iloc[0]
+    if not (best["SENS"] > 0.85 and best["PPV"] > 0.7):
+        fail(f"fast grid search below the bars: {best.to_dict()}")
+
+
+def crop_blobs(blobs, origin, shape):
+    """The blobs inside the box at ``origin`` of ``shape``, shifted into
+    it."""
+    lo = np.asarray(origin)
+    inside = np.all((blobs[:, :3] >= lo) & (blobs[:, :3] < lo + shape),
+                    axis=1)
+    out = np.array(blobs[inside])
+    out[:, :3] -= lo
+    return out
+
+
+def segmentation_crop(torch, vol, blobs):
+    """``segment_rw``, ``segment_ws``, ``labels_to_markers_blob`` and
+    ``borders_distance`` on a ``SEG_CROP`` of the slice, card against
+    CPU: masks, labels, markers and indices exactly, probabilities within
+    ``RW_PROB_ATOL`` (a mask voxel may differ only where the CPU's
+    probability lies that close to 0.5; counted), distances within
+    ``DIST_ATOL``."""
+    from magellanmapper_torch.cv import cv_nd, segmenter
+
+    origin = [(n - c) // 2 for n, c in zip(SLICE_SHAPE, SEG_CROP)]
+    crop = np.ascontiguousarray(vol[tuple(
+        slice(o, o + c) for o, c in zip(origin, SEG_CROP))])
+    local = crop_blobs(blobs, origin, SEG_CROP)
+    out = {"blobs": len(local)}
+    (w_card,) = segmenter.segment_rw(crop, blobs=local, device="cuda")
+    (w_cpu,) = segmenter.segment_rw(crop, blobs=local, device="cpu")
+    seg = crop.astype(np.float32)
+    seeds_fg = np.zeros(seg.shape, bool)
+    seeds_fg[tuple(np.clip(local[:, :3].astype(int), 0,
+                           np.asarray(seg.shape) - 1).T)] = True
+    seeds_bg = (seg < np.percentile(seg, 25)) & ~seeds_fg
+    p_card, p_cpu = (segmenter._random_walker_cg(*(
+        torch.from_numpy(a).to(d) for a in (seg, seeds_fg, seeds_bg)))
+        .cpu().numpy() for d in ("cuda", "cpu"))
+    near = np.abs(p_cpu - 0.5) <= RW_PROB_ATOL
+    out["rw_prob_err"] = float(np.abs(p_card - p_cpu).max())
+    out["rw_near_half"] = int(near.sum())
+    out["rw_mask_diff"] = int(np.sum(w_card != w_cpu))
+    if out["rw_prob_err"] > RW_PROB_ATOL or np.any((w_card != w_cpu)
+                                                   & ~near):
+        fail(f"segment_rw crop: the card differs from the CPU: {out}")
+    ws_card = segmenter.segment_ws(crop, blobs=local, device="cuda")
+    ws_cpu = segmenter.segment_ws(crop, blobs=local, device="cpu")
+    mk_card = segmenter.labels_to_markers_blob(ws_card, device="cuda")
+    mk_cpu = segmenter.labels_to_markers_blob(ws_cpu, device="cpu")
+    fg = w_cpu == 1
+    shifted = np.roll(fg, 1, axis=2)
+    bd = [cv_nd.borders_distance(
+        cv_nd.perimeter_nd(fg, device="cpu"),
+        cv_nd.perimeter_nd(shifted, device="cpu"), fg, (2.0, 1.0, 1.0), 3,
+        device=d) for d in ("cuda", "cpu")]
+    out.update(ws_labels=int(ws_cpu.max()),
+               marker_voxels=int(np.sum(mk_cpu != 0)),
+               dist_err=float(np.abs(bd[0][0] - bd[1][0]).max()))
+    print(f"segmentation crop {SEG_CROP}, card against CPU: "
+          f"{json.dumps(out)}", flush=True)
+    if not (np.array_equal(ws_card, ws_cpu)
+            and np.array_equal(mk_card, mk_cpu)
+            and out["dist_err"] <= DIST_ATOL
+            and np.array_equal(bd[0][1], bd[1][1])
+            and np.array_equal(bd[0][2], bd[1][2])):
+        fail(f"segmentation crop: the card differs from the CPU: {out}")
+
+
+def segmentation_path(torch, vol, blobs, launches):
+    """The random walker on the whole detect slice seeded by its blobs,
+    the distance watershed and ``segment_ws`` on a central
+    ``SEG_CENTRAL`` region (walls, peak memory, the watershed's sweeps),
+    and the crop card against CPU; none launches a hand-written kernel
+    (their counts are printed, 0)."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch.cv import segmenter
+
+    dev_mod.reset_launches()
+    (walker,), rw = timed(torch, lambda: segmenter.segment_rw(
+        vol, blobs=blobs, device="cuda"))
+    coords = np.clip(blobs[:, :3].astype(int), 0,
+                     np.asarray(SLICE_SHAPE) - 1)
+    seeded = walker[tuple(coords.T)]
+    rw.update(foreground_voxels=int(np.sum(walker == 1)),
+              blob_voxels_foreground=int(np.sum(seeded == 1)))
+    print(f"segment_rw {SLICE_SHAPE}, {len(blobs)} blob seeds: "
+          f"{json.dumps(rw)}", flush=True)
+    if walker.shape != SLICE_SHAPE or not np.all(
+            (walker == 1) | (walker == 2)) or np.any(seeded != 1):
+        fail("segment_rw: a mask value or a seed is wrong")
+    del walker
+    origin = [(n - c) // 2 for n, c in zip(SLICE_SHAPE, SEG_CENTRAL)]
+    region = np.ascontiguousarray(vol[tuple(
+        slice(o, o + c) for o, c in zip(origin, SEG_CENTRAL))])
+    local = crop_blobs(blobs, origin, SEG_CENTRAL)
+    with LogRecords("magellanmapper_torch.cv.segmenter") as logs:
+        ws, ws_t = timed(torch, lambda: segmenter.segment_ws(
+            region, blobs=local, device="cuda"))
+        fg = region > np.percentile(region, 90)
+        wd, wd_t = timed(torch, lambda: segmenter.watershed_distance(
+            fg, device="cuda"))
+    sweeps = [a[0] for a in logs.args("watershed flood")]
+    ws_t.update(labels=int(len(np.unique(ws)) - 1), sweeps=sweeps[0])
+    wd_t.update(labels=int(len(np.unique(wd)) - 1), sweeps=sweeps[1])
+    print(f"segment_ws {SEG_CENTRAL}, {len(local)} blob markers: "
+          f"{json.dumps(ws_t)}; watershed_distance of its top decile: "
+          f"{json.dumps(wd_t)}", flush=True)
+    if not (0 < ws_t["labels"] <= len(local) and ws.min() >= 0
+            and wd_t["labels"] > 0 and np.all(wd[fg] > 0)):
+        fail("segment_ws or watershed_distance: labels out of range")
+    segmentation_crop(torch, vol, blobs)
+    launches["segment"] = dict(dev_mod.LAUNCHES)
+    print(f"segmentation: launches {launches['segment']}", flush=True)
+
+
+def same_table(a, b) -> bool:
+    """Two tables equal: the same columns and integers, floats within
+    ``TASK_RTOL`` (NaN where the other has NaN)."""
+    if list(a.columns) != list(b.columns) or len(a) != len(b):
+        return False
+    for col in a.columns:
+        x, y = a[col].to_numpy(), b[col].to_numpy()
+        if x.dtype.kind == "f" or y.dtype.kind == "f":
+            if not np.allclose(x.astype(float), y.astype(float),
+                               rtol=TASK_RTOL, atol=0, equal_nan=True):
+                return False
+        elif not np.array_equal(x, y):
+            return False
+    return True
+
+
+def register_tasks_path(torch, labels, work, launches):
+    """``labels_to_markers_blob`` at the 25 um atlas's size (wall), then
+    three ``--register`` tasks through the CLI on the labels and those
+    markers as two registered samples, on the card and with ``--device
+    cpu``: ``vol_compare`` (its table), ``labels_diff`` (CSV and MHD) and
+    ``labels_dist`` (CSV), files equal, floats within ``TASK_RTOL``."""
+    import pandas as pd
+
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch.cv import segmenter
+    from magellanmapper_torch.io import cli, sitk_io
+
+    dev_mod.reset_launches()
+    markers, mk = timed(torch, lambda: segmenter.labels_to_markers_blob(
+        labels, device="cuda"))
+    ids = np.unique(labels)
+    mk.update(ids=int(len(ids) - (ids[0] == 0)),
+              marker_voxels=int(np.sum(markers != 0)),
+              labels_with_marker=int(len(np.unique(markers)) - 1))
+    print(f"labels_to_markers_blob {labels.shape}: {json.dumps(mk)}",
+          flush=True)
+    if np.any((markers != 0) & (markers != labels)):
+        fail("labels_to_markers_blob: a marker lies outside its label")
+    a, b = os.path.join(work, "labels.npy"), os.path.join(work, "markers.npy")
+    for base, img in ((a, labels), (b, markers)):
+        sitk_io.write_med_img(sitk_io.reg_out_path(base, "annotation.mhd"),
+                              sitk_io.MedImage(img, (0.025,) * 3))
+    walls = {}
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        os.makedirs(os.path.join(work, dev))
+        prefix = os.path.join(work, dev, "labels")
+        for task in ("vol_compare", "labels_diff", "labels_dist"):
+            t0 = time.perf_counter()
+            outs[dev, task] = cli.main(
+                ["--img", a, b, "--register", task, "--prefix", prefix,
+                 "--device", dev])
+            walls[f"{task}_{dev}_s"] = time.perf_counter() - t0
+    for task in ("vol_compare", "labels_diff", "labels_dist"):
+        if not same_table(outs["cuda", task], outs["cpu", task]):
+            fail(f"--register {task}: the card's table differs from the "
+                 "CPU's")
+    for name in ("labels_labels_diff.csv", "labels_labels_dist.csv"):
+        got, want = (pd.read_csv(os.path.join(work, d, name))
+                     for d in ("cuda", "cpu"))
+        if not same_table(got, want):
+            fail(f"{name}: the card's file differs from the CPU's")
+    diff = [open(os.path.join(work, d, "labels_annotationDiff.raw"),
+                 "rb").read() for d in ("cuda", "cpu")]
+    if diff[0] != diff[1]:
+        fail("annotationDiff: the card's image differs from the CPU's")
+    launches["register_tasks"] = dict(dev_mod.LAUNCHES)
+    dsc = outs["cuda", "vol_compare"]["VolDSC"]
+    print(f"register tasks at {labels.shape}: {len(dsc)} regions, VolDSC "
+          f"labels against markers {float(dsc.min()):.4f}-"
+          f"{float(dsc.max()):.4f}; files equal card/CPU; "
+          f"{json.dumps(walls)}; launches {launches['register_tasks']}",
+          flush=True)
+
+
+def phase12(torch, vol, centres, fp32, grid_roi, grid_centres, grid_df,
+            labels, work, launches):
+    """Phase 12: the fast LoG route on the detect slice and the grid
+    sweep, segmentation, and the atlas-register tasks; prints its wall."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        fast = fast_detect_path(torch, vol, centres, fp32, tmp, launches)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        fast_grid_path(torch, grid_roi, grid_centres, grid_df, tmp,
+                       launches)
+    torch.cuda.empty_cache()
+    segmentation_path(torch, vol, fp32["blobs"], launches)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        register_tasks_path(torch, labels, tmp, launches)
+    torch.cuda.empty_cache()
+    print(f"phase 12: {json.dumps(fast)}; wall "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -2717,6 +3132,8 @@ def main() -> None:
                 tmp, "nuclei_stack_detection_times.csv")) as f:
             times = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
     print(f"slice: launches {launches['detect']}", flush=True)
+    if dev_mod.TF32_SCOPES["band_products"]:
+        fail("slice: the float32 route ran band products with TF32")
     for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
         if launches["detect"][name] <= 0:
             fail(f"kernel {name} was not launched by the slice")
@@ -2740,6 +3157,7 @@ def main() -> None:
           f"{peak_mem / 2**20:.1f} MiB", flush=True)
     if not (sens > 0.85 and ppv > 0.7):
         fail(f"detection quality below the bars: sens {sens} ppv {ppv}")
+    fp32 = {"blobs": det, "sens": sens, "ppv": ppv, "mvox": mvox}
 
     crop = np.ascontiguousarray(vol[:CROP[0], :CROP[1], :CROP[2]])
     t0 = time.perf_counter()
@@ -2760,13 +3178,12 @@ def main() -> None:
                                         :DETECT_CROP[2]])
     coloc_work = tempfile.TemporaryDirectory(dir=work)
     coloc, coloc_truth = coloc_volume(vol, centres, coloc_work.name)
-    del vol
 
     # 5. the grid search through the port's CLI, its crop, the tap route
     os.makedirs(work, exist_ok=True)
-    grid_search_path(torch, grid_roi, grid_centres, work, results, launches)
+    grid_df = grid_search_path(torch, grid_roi, grid_centres, work, results,
+                               launches)
     check_taps(torch, grid_sigmas)
-    del grid_roi
     torch.cuda.empty_cache()
 
     # 6. the specimen chain (its register step is the registration task
@@ -2807,7 +3224,7 @@ def main() -> None:
     del pair
     torch.cuda.empty_cache()
     atlas_crop(atlas, labels)
-    del atlas, labels
+    del atlas
 
     # 9. blob analysis: colocalization, the classifier and clustering on
     # the two-channel volume
@@ -2829,6 +3246,12 @@ def main() -> None:
     del spec
     torch.cuda.empty_cache()
 
+    # 12. the fast LoG route on the detect slice and the grid sweep, the
+    # random walker and the watersheds, the atlas-register tasks
+    phase12(torch, vol, centres, fp32, grid_roi, grid_centres, grid_df,
+            labels, work, launches)
+    del vol, grid_roi, labels
+
     for name in results:
         n = sum(path[name] for path in launches.values())
         if n <= 0:
@@ -2842,7 +3265,7 @@ def main() -> None:
         fail(f"the port must run without jax and the reference package, "
              f"but these were imported: {loaded[:10]}")
 
-    # 12. results
+    # results
     print(json.dumps({"kernels": list(results.values())}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

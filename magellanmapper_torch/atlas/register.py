@@ -11,7 +11,13 @@ in-paint its unlabeled voxels), and write ``exp``, ``atlasVolume`` and
 reference does. ``register_rev`` swaps the roles. ``register_group``
 registers a group of images to each other (``--register group``): jointly
 against the group's variance, or by rounds of ``register_duo`` to the
-evolving mean.
+evolving mean. ``volumes_by_id`` and ``volumes_by_id_compare`` measure
+registered samples (segment sums and label overlap on the device),
+``register_repeat`` applies a finished registration to another image,
+``overlay_registered_imgs`` draws a sample over its registered atlas
+(matplotlib, imported there) and ``get_scaled_regionprops`` scales a
+region's properties back to the experiment's space
+(``register.py:343-495``).
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ import numpy as np
 import pandas as pd
 
 from magellanmapper_torch import device as device_mod
-from magellanmapper_torch.atlas import atlas_refiner, reg_engine
+from magellanmapper_torch.atlas import atlas_refiner, ontology, reg_engine
 from magellanmapper_torch.atlas import metrics as reg_metrics
 from magellanmapper_torch.cv import cv_nd
 from magellanmapper_torch.io import np_io, sitk_io
@@ -327,3 +333,159 @@ def register_group(
             results.append(res)
         mean_img = np.mean(moved_all, axis=0)
     return mean_img, results
+
+
+def volumes_by_id(
+        img_paths: Sequence[str],
+        labels_ref_path: Optional[str] = None,
+        suffix: Optional[str] = None,
+        unit_factor: Optional[float] = None,
+        groups: Optional[Dict] = None,
+        max_level: Optional[int] = None,
+        combine_sides: bool = True,
+        out_path: Optional[str] = None,
+        mesh=None, device="cuda") -> pd.DataFrame:
+    """Regional metrics of each sample's registered images on ``device``
+    (``register.py:343-398``): the registered annotation, with the atlas
+    and heat map when present, through :func:`vols.measure_labels_metrics`
+    (optionally at an ontology level), a ``Sample`` column first, volumes
+    divided by ``unit_factor``, ``groups`` columns per sample;
+    concatenated and written to ``out_path`` when given."""
+    from magellanmapper_torch.stats import vols
+
+    dev = device_mod.resolve(device)
+    ref = None
+    if labels_ref_path:
+        ref = ontology.LabelsRef(labels_ref_path).load()
+    dfs = []
+    for i, path in enumerate(img_paths):
+        base = path if suffix is None else path + suffix
+        atlas = None
+        try:
+            atlas = sitk_io.load_registered_img(
+                base, RegNames.IMG_ATLAS.value)
+        except (FileNotFoundError, ValueError):
+            pass
+        labels = sitk_io.load_registered_img(
+            base, RegNames.IMG_LABELS.value)
+        heat = None
+        try:
+            heat = sitk_io.load_registered_img(
+                base, RegNames.IMG_HEAT_MAP.value)
+        except (FileNotFoundError, ValueError):
+            pass
+        df = vols.measure_labels_metrics(
+            atlas, labels, heat_map=heat, combine_sides=combine_sides,
+            labels_ref=ref, level=max_level, mesh=mesh, device=dev)
+        if unit_factor:
+            df["Volume"] = df["Volume"] / unit_factor
+        df.insert(0, "Sample", os.path.basename(path))
+        if groups:
+            for key, vals in groups.items():
+                df[key] = vals[i]
+        dfs.append(df)
+    out = pd.concat(dfs, ignore_index=True) if dfs else pd.DataFrame()
+    if out_path:
+        out.to_csv(out_path, index=False)
+    return out
+
+
+def volumes_by_id_compare(
+        img_paths: Sequence[str],
+        labels_ref_path: Optional[str] = None,
+        device="cuda", **kwargs) -> pd.DataFrame:
+    """Per-label DSC between the first two samples' registered
+    annotations, on ``device`` (:func:`vols.measure_label_overlap`); the
+    ontology path is not read, as in the reference."""
+    from magellanmapper_torch.stats import vols
+    dev = device_mod.resolve(device)
+    labels = [sitk_io.load_registered_img(
+        p, RegNames.IMG_LABELS.value) for p in img_paths[:2]]
+    return vols.measure_label_overlap(labels[0], labels[1], device=dev,
+                                      **kwargs)
+
+
+def make_label_ids_set(
+        labels_img: np.ndarray, max_level: Optional[int] = None,
+        labels_ref=None, combine_sides: bool = True) -> np.ndarray:
+    """The labels' nonzero IDs to measure, sides combined by absolute
+    value when asked."""
+    ids = np.unique(labels_img)
+    ids = ids[ids != 0]
+    if combine_sides:
+        ids = np.unique(np.abs(ids))
+    return ids
+
+
+class RegImgs:
+    """The images of one registration (reference ``register.RegImgs``)."""
+
+    def __init__(self, exp_orig=None, exp=None, atlas=None, labels=None,
+                 labels_markers=None, borders=None, exp_mask=None,
+                 atlas_mask=None):
+        self.exp_orig = exp_orig
+        self.exp = exp
+        self.atlas = atlas
+        self.labels = labels
+        self.labels_markers = labels_markers
+        self.borders = borders
+        self.exp_mask = exp_mask
+        self.atlas_mask = atlas_mask
+
+
+def register_repeat(reg_result, img: np.ndarray,
+                    preserve_idents: bool = False) -> np.ndarray:
+    """A finished registration's transform applied to another image, at
+    order 0 with ``preserve_idents`` so label IDs survive
+    (:meth:`reg_engine.RegResult.transform_img`, on its device)."""
+    return reg_result.transform_img(
+        img, order=0 if preserve_idents else 1)
+
+
+def overlay_registered_imgs(
+        fixed_file: str, moving_file_dir: Optional[str] = None,
+        plane: Optional[str] = None, rotate=None,
+        name_prefix: Optional[str] = None,
+        out_plane: Optional[str] = None,
+        out_path: Optional[str] = None, device="cuda"):
+    """The fixed sample's middle plane with its registered atlas over it,
+    titled with their foregrounds' DSC (Otsu masks on ``device``), saved
+    to ``out_path`` when given; returns the DSC."""
+    dev = device_mod.resolve(device)
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    prefix = name_prefix or fixed_file
+    fixed = np_io.read_file(fixed_file).img[0]
+    moved = sitk_io.load_registered_img(prefix, RegNames.IMG_ATLAS.value)
+    dsc = reg_metrics.measure_overlap(
+        np.asarray(fixed, np.float32), np.asarray(moved, np.float32),
+        device=dev)
+    z = fixed.shape[0] // 2
+    fig, ax = plt.subplots()
+    ax.imshow(fixed[z], cmap="gray")
+    zm = min(z, moved.shape[0] - 1)
+    ax.imshow(moved[zm], cmap="viridis", alpha=0.5)
+    ax.set_title(f"DSC {dsc:.3f}")
+    if out_path:
+        fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+    return dsc
+
+
+def get_scaled_regionprops(img_region: np.ndarray, scaling):
+    """A region's properties (:func:`cv_nd.get_label_props`) with its
+    bounding box and centroid divided by ``scaling`` back into the
+    experiment's space; ``(None, None, None)`` for an empty region."""
+    props = cv_nd.get_label_props(img_region.astype(np.int8), 1)
+    if not props:
+        return None, None, None
+    prop = props[0]
+    ndim = img_region.ndim
+    scaling = np.asarray(scaling, float)
+    lo = np.divide(prop.bbox[:ndim], scaling)
+    hi = np.divide(prop.bbox[ndim:], scaling)
+    bbox = tuple(int(round(v)) for v in np.concatenate([lo, hi]))
+    centroid = tuple(float(c) for c in
+                     np.divide(prop.centroid, scaling))
+    return props, bbox, centroid

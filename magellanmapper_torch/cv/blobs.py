@@ -11,6 +11,7 @@ reads the reference's archives.
 
 from __future__ import annotations
 
+import os
 from enum import Enum
 from typing import Optional, Sequence, Tuple
 
@@ -208,19 +209,30 @@ class Blobs:
         self.ver = self.BLOBS_NP_VER
         return self
 
-    def save_archive(self) -> dict:
+    def save_archive(self, to_add: Optional[dict] = None,
+                     update: bool = False) -> dict:
         """Save the archive at ``path``, backing up any existing file
-        first; returns what was saved."""
-        arc = {
-            self.Keys.VER.value: self.ver,
-            self.Keys.BLOBS.value: self.blobs,
-            self.Keys.RESOLUTIONS.value: self.resolutions,
-            self.Keys.BASENAME.value: self.basename,
-            self.Keys.ROI_OFFSET.value: self.roi_offset,
-            self.Keys.ROI_SIZE.value: self.roi_size,
-            self.Keys.COLOCS.value: self.colocalizations,
-            self.Keys.COLS.value: self.cols,
-        }
+        first; returns what was saved. ``to_add`` saves those entries
+        instead of the blobs' own; ``update`` merges them into the
+        existing archive's."""
+        if to_add is None:
+            arc = {
+                self.Keys.VER.value: self.ver,
+                self.Keys.BLOBS.value: self.blobs,
+                self.Keys.RESOLUTIONS.value: self.resolutions,
+                self.Keys.BASENAME.value: self.basename,
+                self.Keys.ROI_OFFSET.value: self.roi_offset,
+                self.Keys.ROI_SIZE.value: self.roi_size,
+                self.Keys.COLOCS.value: self.colocalizations,
+                self.Keys.COLS.value: self.cols,
+            }
+        else:
+            arc = dict(to_add)
+        if update and self.path and os.path.exists(self.path):
+            with np.load(self.path, allow_pickle=True) as old:
+                merged = {k: old[k] for k in old.files}
+            merged.update(arc)
+            arc = merged
         arc = {k: v for k, v in arc.items() if v is not None}
         libmag.backup_file(self.path)
         np.savez_compressed(self.path, **arc)
@@ -253,3 +265,17 @@ def get_blobs_interior(
     lo = np.asarray(pad_start)
     hi = np.asarray(shape) - np.asarray(pad_end)
     return blobs[np.all((coords >= lo) & (coords < hi), axis=1)]
+
+
+def remove_duplicate_blobs(blobs: np.ndarray, region) -> np.ndarray:
+    """Keep only the first of the blobs equal within the column slice
+    ``region``, in their order."""
+    sub = blobs[:, region]
+    _, idx = np.unique(sub, axis=0, return_index=True)
+    return blobs[np.sort(idx)]
+
+
+def sort_blobs(blobs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Blobs sorted by z, then y, then x, and the order."""
+    order = np.lexsort((blobs[:, 2], blobs[:, 1], blobs[:, 0]))
+    return blobs[order], order

@@ -10,7 +10,14 @@ rotation (scipy) and intensity remap, as in the reference; and what atlas
 refinement needs: structuring elements, label bounding boxes (on the
 device for a whole labels image), cropping to the labels, the clipped
 LoG image (the LoG on the device, its percentiles numpy's), zero
-crossings, exteriors, and surface area and compactness (host copies).
+crossings, exteriors, and surface area and compactness (host copies);
+and the rest of the reference module: signed and border distances (the
+distance transform and the dilation on the device), removing the
+background outside a dilated foreground (on the device), and host
+copies of the radial distances, adaptive filtering, contour
+interpolation, shears and rotations, region properties, compactness
+counts, thresholded regions and the surface-net mesh (numpy's order
+and float64 sums, so vertices and faces equal the reference's).
 
 The distance transform keeps the reference's 1+JFA schedule (halving
 steps from the next power of two, then one more pass at 1), its offset
@@ -352,13 +359,20 @@ def mask_bbox(mask: torch.Tensor) -> Optional[List[int]]:
     return [int(v) for v in torch.stack(lo + hi).cpu()]
 
 
+def label_codes(labels: torch.Tensor, ids: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each voxel's position among the sorted, nonempty ``ids`` and
+    whether its label is one of them, both flat."""
+    flat = labels.reshape(-1)
+    codes = torch.searchsorted(ids, flat).clamp_max(len(ids) - 1)
+    return codes, ids[codes] == flat
+
+
 def label_bboxes(labels: torch.Tensor, ids: torch.Tensor) -> np.ndarray:
     """Bounding boxes ``(len(ids), 2 * ndim)`` (``[lo..., hi...]``, ``hi``
     exclusive) of every label in the sorted ``ids`` in one pass over the
     labels image on its device; an absent ID's row is all 0."""
-    flat_labels = labels.reshape(-1)
-    codes = torch.searchsorted(ids, flat_labels).clamp_max(len(ids) - 1)
-    found = ids[codes] == flat_labels
+    codes, found = label_codes(labels, ids)
     codes = codes[found]
     flat = torch.nonzero(found)[:, 0]
     out = torch.zeros((len(ids), 2 * labels.dim()), dtype=torch.int64,
@@ -371,6 +385,27 @@ def label_bboxes(labels: torch.Tensor, ids: torch.Tensor) -> np.ndarray:
         out[:, labels.dim() + ax].scatter_reduce_(
             0, codes, coord + 1, "amax", include_self=False)
     return out.cpu().numpy()
+
+
+def label_coord_sums(labels: torch.Tensor, ids: torch.Tensor
+                     ) -> Tuple[np.ndarray, np.ndarray]:
+    """Voxel counts ``(len(ids),)`` and int64 coordinate sums ``(len(ids),
+    ndim)`` of every label in the sorted ``ids``, in one pass over the
+    labels on their device. The sums are exact, so ``sums / counts`` in
+    float64 is numpy's ``argwhere(...).mean(axis=0)`` to the bit."""
+    codes, found = label_codes(labels, ids)
+    codes = codes[found]
+    flat = torch.nonzero(found)[:, 0]
+    del found
+    counts = torch.bincount(codes, minlength=len(ids)).cpu().numpy()
+    sums = np.zeros((len(ids), labels.dim()), np.int64)
+    for ax in reversed(range(labels.dim())):
+        coord = flat % labels.shape[ax]
+        flat = flat // labels.shape[ax]
+        sums[:, ax] = torch.zeros(
+            len(ids), dtype=torch.int64, device=labels.device).index_add_(
+            0, codes, coord).cpu().numpy()
+    return counts, sums
 
 
 def crop_to_labels(img: np.ndarray, labels_img: np.ndarray, mask=None,
@@ -457,3 +492,357 @@ def _disk(radius: int) -> np.ndarray:
     n = 2 * radius + 1
     grid = ((np.indices((n, n)) - radius) ** 2).sum(axis=0)
     return grid <= radius * radius
+
+
+def signed_distance_transform(
+        borders: Optional[np.ndarray], mask: Optional[np.ndarray] = None,
+        return_indices: bool = False, spacing=None, device="cuda"):
+    """Distance to ``borders`` (the mask's perimeter when None), negative
+    inside ``mask``, with the nearest border voxel's indices when asked;
+    the perimeter and the distance transform run on ``device``."""
+    if borders is None:
+        borders = perimeter_nd(mask, device=device)
+    dist, idx = distance_transform_edt(
+        ~borders, sampling=spacing, return_indices=True, device=device)
+    if mask is not None:
+        dist = np.where(mask, -dist, dist)
+    return (dist, idx) if return_indices else dist
+
+
+def borders_distance(
+        borders_orig: np.ndarray, borders_shifted: np.ndarray,
+        mask_orig: Optional[np.ndarray] = None, spacing=None,
+        filter_size: Optional[int] = None, device="cuda"):
+    """Distance of each shifted border voxel from the original borders
+    (negative inside ``mask_orig``), 0 elsewhere, on ``device``: the
+    original borders are first dilated by a ``filter_size`` cube
+    (symmetric border) when given. Returns ``(distances, nearest original
+    border indices, the borders used)``."""
+    dev = device_mod.resolve(device)
+    if filter_size:
+        fp = np.ones((filter_size,) * borders_orig.ndim, bool)
+        borders_orig = (_morph_nd(borders_orig, fp, True, dev) > 0.5
+                        ).cpu().numpy().reshape(borders_orig.shape)
+    dist, idx = distance_transform_edt(
+        ~borders_orig, sampling=spacing, return_indices=True, device=dev)
+    if mask_orig is not None:
+        dist = np.where(mask_orig, -dist, dist)
+    dist_to_orig = np.zeros_like(dist)
+    dist_to_orig[borders_shifted] = dist[borders_shifted]
+    return dist_to_orig, idx, borders_orig
+
+
+def radial_dist(
+        borders: np.ndarray, centroid: Sequence[float]) -> np.ndarray:
+    """Distance of each border voxel (``argwhere`` order) from
+    ``centroid``."""
+    coords = np.argwhere(borders)
+    return np.linalg.norm(coords - np.asarray(centroid), axis=1)
+
+
+def radial_dist_map(
+        borders: np.ndarray, centroid: Sequence[float]) -> np.ndarray:
+    """Image-shaped float64 distances of the border voxels from
+    ``centroid``, 0 elsewhere."""
+    idx = np.indices(borders.shape).astype(np.float64)
+    cent = np.asarray(centroid, np.float64).reshape(
+        (-1,) + (1,) * borders.ndim)
+    dist = np.sqrt(((idx - cent) ** 2).sum(axis=0))
+    out = np.zeros_like(dist)
+    out[borders] = dist[borders]
+    return out
+
+
+def radial_dist_diff(radial_orig: np.ndarray, radial_shifted: np.ndarray,
+                     indices) -> np.ndarray:
+    """Shifted radial distance minus the radial distance at the nearest
+    original border voxel (``indices``, as from a distance transform);
+    0 where the shifted map has none."""
+    dist_at_nearest = radial_orig[tuple(indices)]
+    dist_at_nearest[radial_shifted <= 0] = 0
+    return np.subtract(radial_shifted, dist_at_nearest)
+
+
+def remove_bg_from_dil_fg(img: np.ndarray, mask: np.ndarray,
+                          selem: np.ndarray, device="cuda") -> None:
+    """Zero ``img`` in place outside ``mask`` dilated by ``selem``
+    (grayscale dilation, symmetric border, on ``device``)."""
+    mask_dil = _morph_nd(mask, selem, True, device_mod.resolve(device)) > 0.5
+    img[~mask_dil.cpu().numpy().reshape(mask.shape)] = 0
+
+
+def filter_adaptive_size(
+        mask: np.ndarray, fn_filter, filter_size: int,
+        min_filter_size: int = 1, min_size_ratio: float = 0.2,
+        name: str = "") -> Tuple[np.ndarray, int]:
+    """``fn_filter(mask, structure=ball)`` with the ball shrunk from
+    ``filter_size`` until at least ``min_size_ratio`` of the region (and
+    one voxel) survives; returns the result and the size used (the mask
+    and 0 when none does)."""
+    size_orig = int(np.sum(mask))
+    out = mask
+    used = 0
+    for fsize in range(filter_size, min_filter_size - 1, -1):
+        selem = get_selem(mask.ndim)(fsize)
+        try:
+            cand = fn_filter(mask, structure=selem)
+        except TypeError:
+            cand = fn_filter(mask, selem)
+        if np.sum(cand) >= max(min_size_ratio * size_orig, 1):
+            out = cand
+            used = fsize
+            break
+    return out, used
+
+
+def interpolate_contours(
+        plane_a: np.ndarray, plane_b: np.ndarray, frac: float,
+        device="cuda") -> np.ndarray:
+    """The plane a fraction ``frac`` of the way from ``plane_a`` to
+    ``plane_b``: the blend of their signed distance maps (distance
+    transforms on ``device``) at or below 0."""
+    def sdf(mask):
+        mask = mask.astype(bool)
+        inside = distance_transform_edt(mask, device=device)
+        outside = distance_transform_edt(~mask, device=device)
+        return np.where(mask, -inside, outside)
+
+    blended = (1 - frac) * sdf(plane_a) + frac * sdf(plane_b)
+    return blended <= 0
+
+
+def interpolate_label_between_planes(
+        labels_img: np.ndarray, label_id: int, axis: int,
+        bounds: Sequence[int], device="cuda") -> np.ndarray:
+    """Fill ``label_id`` into the planes strictly between ``bounds`` along
+    ``axis`` by contour interpolation of its two bounding planes."""
+    out = np.array(labels_img)
+    start, stop = int(bounds[0]), int(bounds[1])
+
+    def get_plane(arr, i):
+        sl = [slice(None)] * arr.ndim
+        sl[axis] = i
+        return arr[tuple(sl)]
+
+    plane_a = get_plane(labels_img, start) == label_id
+    plane_b = get_plane(labels_img, stop) == label_id
+    n = stop - start
+    for i in range(1, n):
+        interp = interpolate_contours(plane_a, plane_b, i / n, device)
+        dst = get_plane(out, start + i)
+        dst[interp] = label_id
+    return out
+
+
+def affine_nd(
+        img: np.ndarray, axis_along: int, axis_shift: int,
+        shift: Sequence[float], bounds: Sequence[Sequence[int]],
+        axis_attach: Optional[int] = None) -> np.ndarray:
+    """Graded shear within ``bounds``: each plane along ``axis_along``
+    rolled along ``axis_shift`` by a shift interpolated from ``shift[0]``
+    to ``shift[1]`` (rounded)."""
+    out = np.array(img)
+    start, stop = bounds[axis_along]
+    n = stop - start
+    shifts = np.linspace(shift[0], shift[1], max(n, 1))
+    for i, plane_i in enumerate(range(start, stop)):
+        sl = [slice(b[0], b[1]) for b in bounds]
+        sl[axis_along] = plane_i
+        region = out[tuple(sl)]
+        out[tuple(sl)] = np.roll(
+            region, int(round(shifts[i])),
+            axis=axis_shift - (1 if axis_shift > axis_along else 0))
+    return out
+
+
+def angle_indices(
+        shape: Sequence[int], offset: Sequence[int], angle_deg: float
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Indices of a line from ``offset`` at ``angle_deg`` within a 2D
+    plane of ``shape``."""
+    h, w = shape[:2]
+    theta = np.deg2rad(angle_deg)
+    length = int(np.hypot(h, w))
+    t = np.arange(length)
+    ys = (offset[0] + t * np.sin(theta)).astype(int)
+    xs = (offset[1] + t * np.cos(theta)).astype(int)
+    keep = (ys >= 0) & (ys < h) & (xs >= 0) & (xs < w)
+    return ys[keep], xs[keep]
+
+
+def rotate90(roi: Optional[np.ndarray], rotate: int,
+             axes: Optional[Sequence[int]] = None,
+             multichannel: bool = False) -> Optional[np.ndarray]:
+    """Rotate by ``rotate`` quarter turns, in the xy plane unless
+    ``axes``; negative axes shift down by one for a multichannel image, so
+    the channel axis stays last."""
+    if roi is None or not rotate:
+        return roi
+    ax = [-2, -1] if axes is None else list(axes)
+    if multichannel:
+        ax = [a - 1 if a < 0 else a for a in ax]
+    return np.rot90(roi, int(rotate), ax)
+
+
+class RegionProps:
+    """``regionprops``-style properties of a boolean mask: ``bbox``
+    (``hi`` exclusive), ``area``, ``centroid`` and the bbox's ``image``."""
+
+    def __init__(self, mask: np.ndarray):
+        coords = np.argwhere(mask)
+        lo = coords.min(axis=0)
+        hi = coords.max(axis=0) + 1
+        self.bbox = tuple(int(v) for v in lo) + tuple(int(v) for v in hi)
+        self.area = int(len(coords))
+        self.centroid = tuple(float(c) for c in coords.mean(axis=0))
+        self.image = mask[tuple(
+            slice(int(a), int(b)) for a, b in zip(lo, hi))]
+
+
+def get_label_props(labels_img: np.ndarray, label_id) -> list:
+    """``[RegionProps]`` of a label (or of the union of several), ``[]``
+    when absent."""
+    if isinstance(label_id, (tuple, list, np.ndarray)):
+        mask = np.isin(labels_img, label_id)
+    else:
+        mask = labels_img == label_id
+    if not mask.any():
+        return []
+    return [RegionProps(mask)]
+
+
+def extract_region(labels_img: np.ndarray, label_id):
+    """A label's bounding-box view of the labels and its slices, or
+    ``(None, None)``."""
+    bbox = get_label_bbox(labels_img, label_id)
+    if bbox is None:
+        return None, None
+    slices = get_bbox_region(bbox)
+    return labels_img[tuple(slices)], slices
+
+
+def meas_region(mask: np.ndarray, res: Sequence[float]):
+    """A region's bounding-box size in physical units, its volume and its
+    ``get_label_props``."""
+    props = get_label_props(mask.astype(np.int8), 1)
+    ndim = mask.ndim
+    bbox = props[0].bbox
+    shape = [bbox[ndim + i] - bbox[i] for i in range(ndim)]
+    meas = np.multiply(shape, res)
+    vol = float(np.prod(res) * np.sum(mask))
+    return meas, vol, props
+
+
+def calc_compactness(ndim: int, size_borders: float, size_object: float):
+    """Classical compactness, ``borders^ndim / size^(ndim - 1)``; NaN
+    for an empty object."""
+    if size_object <= 0:
+        return np.nan
+    return size_borders ** ndim / size_object ** (ndim - 1)
+
+
+def compactness_count(mask_borders: np.ndarray, mask_object: np.ndarray):
+    """``(compactness, border voxels, object voxels)`` from voxel
+    counts."""
+    borders_meas = int(np.sum(mask_borders))
+    size_object = int(np.sum(mask_object))
+    compact = calc_compactness(
+        mask_object.ndim, borders_meas, size_object)
+    return compact, borders_meas, size_object
+
+
+def get_thresholded_regionprops(img_np: np.ndarray, threshold=10,
+                                sort_reverse: bool = False,
+                                min_size: int = 200) -> list:
+    """``(RegionProps, area)`` of each connected component of the image
+    above ``threshold`` (components under ``min_size`` voxels dropped
+    first), sorted by area; labelled on the host
+    (``scipy.ndimage.label``)."""
+    thresholded = img_np
+    if threshold is not None:
+        thresholded = img_np > threshold
+        labeled, n = scipy_ndi.label(thresholded)
+        counts = np.bincount(labeled.ravel())
+        small = np.flatnonzero(counts < min_size)
+        thresholded = thresholded & ~np.isin(labeled, small)
+    labeled, n = scipy_ndi.label(thresholded)
+    props = []
+    for lid in range(1, n + 1):
+        prop = RegionProps(labeled == lid)
+        props.append((prop, prop.area))
+    return sorted(props, key=lambda p: p[1], reverse=sort_reverse)
+
+
+def surface_net_mesh(
+        vol: np.ndarray, level: float,
+        smooth_iters: int = 2) -> Tuple[np.ndarray, np.ndarray]:
+    """Isosurface mesh by naive surface nets, on the host: one vertex at
+    the centre of each cell whose eight corners straddle ``level``, two
+    triangles per sign-changing voxel edge between four such cells
+    (quads in ``argwhere`` order, corners 11, 10, 01, 00), then
+    ``smooth_iters`` Laplacian steps toward the face neighbours' mean
+    (``np.add.at`` in float64). Returns ``(V, 3)`` float z,y,x vertices
+    and ``(F, 3)`` int64 triangles."""
+    fg = np.asarray(vol) > level
+    z, y, x = fg.shape
+    corners = np.zeros((z - 1, y - 1, x - 1), np.int8)
+    for dz in (0, 1):
+        for dy in (0, 1):
+            for dx in (0, 1):
+                corners += fg[dz:z - 1 + dz, dy:y - 1 + dy,
+                              dx:x - 1 + dx]
+    active = (corners > 0) & (corners < 8)
+    cell_idx = np.full(active.shape, -1, np.int64)
+    acts = np.argwhere(active)
+    if not len(acts):
+        return np.zeros((0, 3)), np.zeros((0, 3), np.int64)
+    cell_idx[tuple(acts.T)] = np.arange(len(acts))
+    verts = acts.astype(float) + 0.5
+
+    faces = []
+    for ax in range(3):
+        sl_lo = [slice(None)] * 3
+        sl_hi = [slice(None)] * 3
+        sl_lo[ax] = slice(0, fg.shape[ax] - 1)
+        sl_hi[ax] = slice(1, fg.shape[ax])
+        crossing = fg[tuple(sl_lo)] != fg[tuple(sl_hi)]
+        o1, o2 = [a for a in range(3) if a != ax]
+        # interior edges only: all four adjacent cells must exist
+        edges = np.argwhere(crossing)
+        keep = (edges[:, o1] >= 1) & (edges[:, o1] <= crossing.shape[o1] - 1)
+        keep &= (edges[:, o2] >= 1) & (edges[:, o2] <= crossing.shape[o2] - 1)
+        keep &= edges[:, ax] <= active.shape[ax] - 1
+        edges = edges[keep]
+        if not len(edges):
+            continue
+        quad = []
+        for d1 in (1, 0):
+            for d2 in (1, 0):
+                c = edges.copy()
+                c[:, o1] -= d1
+                c[:, o2] -= d2
+                in_rng = np.all(
+                    (c >= 0) & (c < np.asarray(active.shape)), axis=1)
+                ids = np.full(len(edges), -1, np.int64)
+                ids[in_rng] = cell_idx[tuple(c[in_rng].T)]
+                quad.append(ids)
+        q = np.stack(quad, axis=1)      # (E, 4): (11, 10, 01, 00)
+        q = q[np.all(q >= 0, axis=1)]
+        # two triangles per quad: (11, 10, 00) and (11, 00, 01)
+        faces.append(np.stack([q[:, 0], q[:, 1], q[:, 3]], axis=1))
+        faces.append(np.stack([q[:, 0], q[:, 3], q[:, 2]], axis=1))
+    if not faces:
+        return verts, np.zeros((0, 3), np.int64)
+    faces_arr = np.concatenate(faces)
+
+    for _ in range(int(smooth_iters)):
+        acc = np.zeros_like(verts)
+        cnt = np.zeros(len(verts))
+        for i in range(3):
+            j = (i + 1) % 3
+            np.add.at(acc, faces_arr[:, i], verts[faces_arr[:, j]])
+            np.add.at(cnt, faces_arr[:, i], 1)
+        mask = cnt > 0
+        verts[mask] = 0.5 * verts[mask] + 0.5 * (
+            acc[mask] / cnt[mask, None])
+    return verts, faces_arr

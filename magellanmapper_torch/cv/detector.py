@@ -1,13 +1,16 @@
 """3D Laplacian-of-Gaussian blob detection of one block on PyTorch.
 
-Port of ``magellanmapper_tpu/cv/detector.py``: the pure-numpy helpers are
-copied, and :func:`blob_log` runs the LoG
+Port of ``magellanmapper_tpu/cv/detector.py``: the pure-numpy helpers
+(overlap pruning within and between blob arrays, blob surroundings,
+pruning ratios) are copied, and :func:`blob_log` runs the LoG
 pyramid (fp32 GEMMs), peak finding (kernel K1) and sphere-overlap
 pruning (kernel K3) on the device of its input. :func:`blob_log_multi`
 runs a threshold sweep on one pyramid through the unfused peak route
 (kernel K2), then K3 per threshold. :func:`detect_blobs` is the
 reference's single-block entry: isotropic resample, unmixing and
-preprocessing around :func:`blob_log`.
+preprocessing around :func:`blob_log`. A profile's ``log_dtype:
+bfloat16`` (:func:`is_fast`) runs the LoG's band products as TF32 on the
+card (the reference's ``fast`` route, one bf16 pass on the TPU).
 """
 
 from __future__ import annotations
@@ -51,11 +54,19 @@ def sigma_list(
     return np.linspace(float(min_sigma), float(max_sigma), int(num_sigma))
 
 
+def is_fast(settings) -> bool:
+    """True when a profile asks for the fast LoG (``log_dtype``
+    ``"bfloat16"``)."""
+    return str(settings["log_dtype"]).lower() == "bfloat16"
+
+
 def blob_log(
         roi: torch.Tensor, sigmas: Sequence[float], threshold: float,
-        overlap: float, capacity: int
+        overlap: float, capacity: int, fast: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """LoG blob detection on a single-channel ``(Z, Y, X)`` block.
+    """LoG blob detection on a single-channel ``(Z, Y, X)`` block;
+    ``fast`` runs the LoG's band products at the fast route's precision
+    (``filters.FAST_PRECISION``: TF32 on the card, float32 on the CPU).
 
     Returns ``blobs`` ``(capacity, 4)`` float32 rows ``z, y, x, sigma``,
     ``valid`` ``(capacity,)`` bool, and the PRE-prune peak count: pruning
@@ -63,7 +74,8 @@ def blob_log(
     rows than ``capacity``, and overflow retries gate on this count.
     """
     roi = roi.to(torch.float32)
-    cube = filters.log_pyramid(roi, sigmas)
+    cube = filters.log_pyramid(
+        roi, sigmas, precision=filters.FAST_PRECISION if fast else None)
     coords4, _, count = peaks.find_peaks(cube, threshold, capacity)
     valid = torch.arange(capacity, device=roi.device) < count
     sig = filters.sigma_tensor(
@@ -76,10 +88,11 @@ def blob_log(
 
 def blob_log_multi(
         roi: torch.Tensor, sigmas: Sequence[float],
-        thresholds: Sequence[float], overlap: float, capacity: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
+        thresholds: Sequence[float], overlap: float, capacity: int,
+        fast: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """LoG detection at K thresholds sharing one LoG pyramid
-    (``detector.py:96-131``).
+    (``detector.py:96-131``), built at the ``fast`` route's precision
+    when asked (:func:`blob_log`).
 
     The local-maximum mask is computed once; each threshold masks it,
     and the K masked fields go through one launch of K2
@@ -95,7 +108,8 @@ def blob_log_multi(
     """
     roi = roi.to(torch.float32)
     sigmas = tuple(float(s) for s in sigmas)
-    cube = filters.log_pyramid(roi, sigmas)
+    cube = filters.log_pyramid(
+        roi, sigmas, precision=filters.FAST_PRECISION if fast else None)
     sig_lut = filters.sigma_tensor(sigmas, roi.device)
     ths = [float(t) for t in np.asarray(thresholds, np.float32)]
     first = torch.arange(capacity, device=roi.device)
@@ -152,9 +166,6 @@ def detect_blobs(
     for chl in channels:
         roi_detect = vol[..., chl] if multichannel else vol
         chl_set = get_settings(chl)
-        if str(chl_set["log_dtype"]).lower() == "bfloat16":
-            raise NotImplementedError(
-                "log_dtype='bfloat16' is not ported; use float32")
         unmix = chl_set["spectral_unmixing"]
         if unmix and chl in unmix:
             for subt_chl, subt_fac in unmix[chl].items():
@@ -176,7 +187,8 @@ def detect_blobs(
         raw, valid, _ = blob_log(
             roi_detect.contiguous(), sigmas,
             float(chl_set["detection_threshold"]), float(chl_set["overlap"]),
-            int(chl_set["max_blobs_per_block"] or 4096))
+            int(chl_set["max_blobs_per_block"] or 4096),
+            fast=is_fast(chl_set))
         raw = raw[valid].cpu().numpy()
         if raw.shape[0] < 1:
             continue
@@ -215,3 +227,87 @@ def remove_close_blobs(
         blobs_master[close_master] = B.set_blob_abs_coords(
             blobs_master[close_master], abs_between)
     return pruned, blobs_master
+
+
+def remove_close_blobs_within_sorted_array(
+        blobs: Optional[np.ndarray], tol: Sequence[float]
+) -> Optional[np.ndarray]:
+    """Accept z,y,x-sorted blobs one by one, each only if no accepted
+    blob lies within ``tol``; a duplicate moves the last matching kept
+    blob's absolute coordinates to the pair's rounded mean (copy of the
+    reference's host helper)."""
+    if blobs is None or len(blobs) < 1:
+        return None if blobs is None else blobs
+    sorted_blobs, _ = blobs_mod.sort_blobs(blobs)
+    tol = np.asarray(tol, dtype=float)
+    kept: list = []
+    kept_coords: list = []
+    B = blobs_mod.Blobs
+    for blob in sorted_blobs:
+        if kept_coords:
+            diffs = np.abs(np.asarray(kept_coords) - blob[:3])
+            matches = np.nonzero((diffs <= tol).all(axis=1))[0]
+            if matches.size > 0:
+                i = matches[-1]
+                mean_abs = np.around((
+                    B.get_blob_abs_coords(kept[i][None])
+                    + B.get_blob_abs_coords(blob[None])) / 2)
+                B.set_blob_abs_coords(kept[i][None], mean_abs)
+                continue
+        kept.append(blob.copy())
+        kept_coords.append(blob[:3])
+    return np.asarray(kept)
+
+
+def blob_surroundings(
+        blob: np.ndarray, roi: np.ndarray, padding: int = 1,
+        plane: bool = False) -> np.ndarray:
+    """The ROI's voxels within a blob's radius plus ``padding``; with
+    ``plane``, only the blob's centre z-plane."""
+    rad = blob[3]
+    start = np.maximum(np.subtract(blob[:3], rad + padding), 0).astype(int)
+    end = np.minimum(
+        np.add(blob[:3], rad + padding).astype(int),
+        np.subtract(roi.shape[:3], 1))
+    if plane:
+        z = int(np.clip(blob[0], 0, roi.shape[0] - 1))
+        return roi[z, start[1]:end[1], start[2]:end[2]]
+    return roi[start[0]:end[0], start[1]:end[1], start[2]:end[2]]
+
+
+def show_blob_surroundings(
+        blobs: np.ndarray, roi: np.ndarray, padding: int = 1) -> None:
+    """Print each blob's surrounding plane."""
+    np.set_printoptions(precision=2, linewidth=200)
+    for blob in blobs:
+        print(f"{blob} surroundings:")
+        print(blob_surroundings(blob, roi, padding, True))
+    np.set_printoptions()
+
+
+def remove_close_blobs_within_array(blobs, region, tol):
+    """Greedy self-pruning: keep each blob only if no already-kept blob
+    lies within ``tol`` in the columns ``region``."""
+    if blobs is None:
+        return None
+    kept = None
+    for blob in blobs:
+        if kept is None:
+            kept = np.array([blob])
+        else:
+            diff = np.abs(kept[:, region] - blob[region])
+            if not np.any(np.all(diff <= tol, axis=1)):
+                kept = np.concatenate([kept, [blob]])
+    return kept
+
+
+def meas_pruning_ratio(
+        num_blobs_orig: int, num_blobs_after_pruning: int,
+        num_blobs_next: int):
+    """Pruning ratios ``(original count, pruned / original, pruned /
+    next)``, None without blobs."""
+    if num_blobs_next <= 0 or num_blobs_orig <= 0:
+        return None
+    return (num_blobs_orig,
+            num_blobs_after_pruning / num_blobs_orig,
+            num_blobs_after_pruning / num_blobs_next)

@@ -1,7 +1,7 @@
-"""Segmentation on PyTorch: the minimax watershed and label markers.
+"""Segmentation on PyTorch: the minimax watershed, the random walker and
+label markers.
 
-Port of the watershed and marker half of
-``magellanmapper_tpu/cv/segmenter.py`` (``:31-129``, ``:264-416``):
+Port of ``magellanmapper_tpu/cv/segmenter.py``:
 
 - :func:`watershed` floods integer markers over an elevation image on
   the device: each sweep relaxes every voxel against its 6 neighbours
@@ -25,21 +25,39 @@ Port of the watershed and marker half of
   alone (the minimum and maximum of the labels' codes over the ball
   agree, outside the image 0), which is the same set.
 
-The random walker, ``segment_ws`` and ``watershed_distance`` wait for
-ROADMAP queue item 7.
+- :func:`watershed_distance` floods the peaks of a foreground's
+  distance transform (the jump-flooding EDT and the full 3^3 maximum
+  filter on the device) over the negated distance; a cut to the
+  ``num_peaks`` highest peaks is numpy's own ``argsort`` on the host, so
+  ties keep the reference's order. :func:`segment_ws` runs it on an Otsu
+  foreground with markers from blobs or from those peaks.
+- :func:`segment_rw` is the random walker: the foreground probability is
+  solved by exactly 200 conjugate-gradient steps on the grid graph's
+  Laplacian (6-neighbour weights ``exp(-beta * d^2)`` of the normalised
+  intensities, seeds as Dirichlet conditions), the reference's loop
+  written out on the device with every scalar a 0-d device tensor, so
+  the loop never waits on the host. Its sums reduce in another order than
+  XLA's and XLA fuses its updates into multiply-adds, so probabilities
+  agree within a tolerance, not to the bit.
+- :func:`labels_to_markers_blob` shrinks each label to the part of it
+  inside an ellipsoid about its centroid, every voxel at once on the
+  device; the centroids come from exact integer coordinate sums, and the
+  ellipsoid test divides tensor by tensor (the card divides by a host
+  scalar through its reciprocal), so the markers equal numpy's.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from scipy import ndimage as scipy_ndi
 
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.cv import cv_nd
-from magellanmapper_torch.ops import filters, preproc
+from magellanmapper_torch.ops import filters, peaks as peaks_ops, preproc
 
 _logger = logging.getLogger(__name__)
 
@@ -153,6 +171,239 @@ def watershed(elevation: np.ndarray, markers: np.ndarray,
     _logger.info("watershed flood: %d sweeps over %s voxels", sweeps,
                  elevation.shape)
     return labels.cpu().numpy()
+
+
+def watershed_distance(
+        foreground: np.ndarray, markers: Optional[np.ndarray] = None,
+        num_peaks: float = np.inf, compactness: float = 0.0,
+        mask: Optional[np.ndarray] = None, device="cuda") -> np.ndarray:
+    """Watershed on the distance from the background, on ``device``
+    (``segmenter.py:105-128``): without ``markers``, the foreground's
+    voxels equal to the 3^3 maximum of the distance are the peaks, cut to
+    the ``num_peaks`` highest (numpy's ``argsort`` order on the host) and
+    labelled by connected components (``scipy.ndimage.label``); the
+    markers then flood ``-distance`` within ``mask``."""
+    dev = device_mod.resolve(device)
+    foreground = np.asarray(foreground)
+    distance = cv_nd.distance_transform_edt(foreground, device=dev)
+    if markers is None:
+        dist_t = torch.from_numpy(distance).to(dev)
+        is_peak = (peaks_ops.max_filter_full(dist_t) == dist_t).cpu().numpy()
+        is_peak &= foreground.astype(bool)
+        if np.isfinite(num_peaks):
+            vals = np.where(is_peak, distance, -np.inf).ravel()
+            order = np.argsort(vals)[::-1][:int(num_peaks)]
+            keep = np.zeros(is_peak.size, bool)
+            keep[order[vals[order] > -np.inf]] = True
+            is_peak &= keep.reshape(is_peak.shape)
+        markers, _ = scipy_ndi.label(is_peak)
+    return watershed(-distance, markers, mask=mask, compactness=compactness,
+                     device=dev)
+
+
+def _lap(x: torch.Tensor, ws: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The grid graph's Laplacian applied to ``x``: ``-sum`` over the axes
+    of ``pad(d, hi) - pad(d, lo)``, ``d = diff(x) * w``, added axis by
+    axis in the reference's order (``segmenter.py:152-163``); the pads
+    are written as adds to slices, which differ from adding the zeros
+    only in the sign of a zero."""
+    out = torch.zeros_like(x)
+    for ax, w in enumerate(ws):
+        d = torch.diff(x, dim=ax) * w
+        n = x.shape[ax]
+        out.narrow(ax, 0, n - 1).add_(d)
+        out.narrow(ax, 1, n - 1).sub_(d)
+    return out.neg_()
+
+
+def _random_walker_cg(
+        img: torch.Tensor, seeds_fg: torch.Tensor, seeds_bg: torch.Tensor,
+        beta: float = 50.0, iters: int = 200) -> torch.Tensor:
+    """Foreground probability by ``iters`` conjugate-gradient steps on the
+    grid Laplacian restricted to the unseeded voxels, seeds fixed at 1
+    (foreground) and 0 (``segmenter.py:131-185``): no convergence test,
+    as in the reference; ``alpha``, ``rs`` and the denominators stay 0-d
+    tensors on the device, clamped as the reference's."""
+    img = img.to(torch.float32)
+    lo = img.min()
+    rng = torch.clamp(img.max() - lo, min=1e-6)
+    # tensor by tensor: the card divides by a host scalar through its
+    # reciprocal
+    norm = (img - lo) / rng
+    ws = []
+    for ax in range(img.dim()):
+        diff = torch.diff(norm, dim=ax)
+        ws.append(torch.exp(-beta * diff * diff))
+    del norm
+    fixed = seeds_fg | seeds_bg
+    free = ~fixed
+    x0 = torch.where(seeds_fg, 1.0, 0.0)
+    zero = x0.new_zeros(())
+
+    def a_op(x):
+        return torch.where(free, _lap(torch.where(free, x, zero), ws), zero)
+
+    b = torch.where(free, -_lap(torch.where(fixed, x0, zero), ws), zero)
+    x = torch.zeros_like(x0)
+    r = b - a_op(x)
+    del b
+    p = r
+    rs = torch.sum(r * r)
+    for _ in range(iters):
+        ap = a_op(p)
+        denom = torch.sum(p * ap)
+        alpha = rs / torch.clamp(denom, min=1e-12)
+        x = x + alpha * p
+        r = r - alpha * ap
+        del ap
+        rs_new = torch.sum(r * r)
+        p = r + (rs_new / torch.clamp(rs, min=1e-12)) * p
+        rs = rs_new
+    return torch.where(fixed, x0, x)
+
+
+def segment_rw(
+        roi: np.ndarray, channel: Optional[Sequence[int]] = None,
+        beta: float = 50.0, vmin: float = 0.6, vmax: float = 0.65,
+        remove_small: Optional[int] = None,
+        erosion: Optional[int] = None,
+        blobs: Optional[np.ndarray] = None,
+        get_labels: bool = False, device="cuda") -> List[np.ndarray]:
+    """Random-walker segmentation of each channel on ``device``
+    (``segmenter.py:188-235``): seeds are the voxels ``>= vmax``
+    (foreground) and ``< vmin`` (background), or with ``blobs`` the blobs'
+    voxels (foreground) and the voxels below the channel's 25th
+    percentile (numpy's, on the host); a voxel is foreground (1) where
+    its probability is at least 0.5, else background (2). Foreground
+    components under ``remove_small`` voxels become background
+    (``scipy.ndimage.label``, host), ``erosion`` erodes the mask by an
+    octahedron (symmetric border), and ``get_labels`` returns the
+    foreground's components instead. One uint8 mask (or int32 labels)
+    a channel."""
+    dev = device_mod.resolve(device)
+    multichannel = roi.ndim > 3
+    channels = (range(roi.shape[3]) if multichannel else [0]) \
+        if channel is None else np.atleast_1d(channel)
+    out = []
+    for chl in channels:
+        seg = np.asarray(roi[..., chl] if multichannel else roi, np.float32)
+        seg_t = torch.from_numpy(seg).to(dev)
+        if blobs is None:
+            seeds_fg = seg_t >= vmax
+            seeds_bg = seg_t < vmin
+        else:
+            coords = np.clip(blobs[:, :3].astype(int), 0,
+                             np.asarray(seg.shape) - 1)
+            seeds_fg = torch.zeros(seg.shape, dtype=torch.bool, device=dev)
+            seeds_fg[tuple(torch.from_numpy(coords.T).to(dev))] = True
+            seeds_bg = (seg_t < float(np.percentile(seg, 25))) & ~seeds_fg
+        prob = _random_walker_cg(seg_t, seeds_fg, seeds_bg, float(beta))
+        del seg_t, seeds_fg, seeds_bg
+        walker = torch.where(prob >= 0.5, 1, 2).to(torch.uint8)
+        del prob
+        if remove_small:
+            walker = walker.cpu().numpy()
+            labeled, _ = scipy_ndi.label(walker == 1)
+            counts = np.bincount(labeled.ravel())
+            small = np.flatnonzero(counts < remove_small)
+            walker[np.isin(labeled, small[small != 0])] = 2
+            walker = torch.from_numpy(walker).to(dev)
+        if erosion:
+            walker = filters.erosion(
+                walker.to(torch.float32),
+                filters.octahedron_footprint(erosion)).to(torch.uint8)
+        walker = walker.cpu().numpy()
+        if get_labels:
+            labeled, _ = scipy_ndi.label(walker == 1)
+            out.append(labeled)
+        else:
+            out.append(walker)
+    return out
+
+
+def segment_ws(
+        roi: np.ndarray, channel: Optional[Sequence[int]] = None,
+        thresholded: Optional[np.ndarray] = None,
+        blobs: Optional[np.ndarray] = None, device="cuda") -> np.ndarray:
+    """Compact watershed (compactness 0.1) of each channel's foreground
+    (above its Otsu threshold on ``device``, or ``thresholded``) from
+    markers at the blobs' centres, or from the foreground's distance peaks
+    without blobs (:func:`watershed_distance`); returns the last
+    channel's labels, as the reference does (``segmenter.py:238-261``)."""
+    dev = device_mod.resolve(device)
+    multichannel = roi.ndim > 3
+    channels = (range(roi.shape[3]) if multichannel else [0]) \
+        if channel is None else np.atleast_1d(channel)
+    labels_ws = None
+    for chl in channels:
+        seg = roi[..., chl] if multichannel else roi
+        if thresholded is None:
+            thresh = float(preproc.otsu_threshold(torch.from_numpy(
+                np.array(seg, np.float32)).to(dev)))
+            fg = np.asarray(seg) > thresh
+        else:
+            fg = np.asarray(thresholded).astype(bool)
+        markers = None if blobs is None else _markers_from_blobs(fg, blobs)
+        labels_ws = watershed_distance(fg, markers, compactness=0.1,
+                                       device=dev)
+    return labels_ws
+
+
+def _markers_from_blobs(shape_src: np.ndarray, blobs: np.ndarray
+                        ) -> np.ndarray:
+    """int32 markers ``1..N`` at the blobs' centres (truncated and
+    clipped into the image), a later blob overwriting an earlier one at
+    the same voxel."""
+    markers = np.zeros(np.asarray(shape_src).shape, dtype=np.int32)
+    coords = np.clip(
+        blobs[:, :3].astype(int), 0, np.asarray(markers.shape) - 1)
+    markers[tuple(coords.T)] = np.arange(1, len(blobs) + 1)
+    return markers
+
+
+#: voxels a chunk of :func:`labels_to_markers_blob`'s ellipsoid test
+_BLOB_MARKER_CHUNK = 1 << 25
+
+
+def labels_to_markers_blob(labels_img: np.ndarray,
+                           device="cuda") -> np.ndarray:
+    """Shrink each label to the voxels of it inside an ellipsoid about its
+    centroid whose radii are a fifth of its extent on each axis (at least
+    1), on ``device`` (``segmenter.py:274-292``). The reference builds
+    the whole image's indices a label; here each voxel is tested against
+    its own label's ellipsoid once, in float64 with the reference's
+    operations and order, so the markers are the same."""
+    dev = device_mod.resolve(device)
+    lab = torch.from_numpy(np.array(labels_img)).to(dev)
+    ids = torch.unique(lab)
+    ids = ids[ids != 0]
+    markers = torch.zeros_like(lab)
+    if len(ids) == 0:
+        return markers.cpu().numpy()
+    ndim = lab.dim()
+    bbox = cv_nd.label_bboxes(lab, ids)
+    sizes, sums = cv_nd.label_coord_sums(lab, ids)
+    centroid = sums.astype(np.float64) / sizes[:, None]
+    radii = np.maximum((bbox[:, ndim:] - bbox[:, :ndim]) / 5.0, 1.0)
+    cen_t = torch.from_numpy(centroid).to(dev)
+    rad_t = torch.from_numpy(radii).to(dev)
+    plane = int(np.prod(lab.shape[1:]))
+    step = max(1, _BLOB_MARKER_CHUNK // max(plane, 1))
+    for z0 in range(0, lab.shape[0], step):
+        part = lab[z0:z0 + step]
+        code, inside = (c.view(part.shape)
+                        for c in cv_nd.label_codes(part, ids))
+        grids = torch.meshgrid(*[
+            torch.arange(z0, z0 + part.shape[0], device=dev)] + [
+            torch.arange(n, device=dev) for n in lab.shape[1:]],
+            indexing="ij")
+        acc = None
+        for ax in range(ndim):
+            t = (grids[ax].to(torch.float64) - cen_t[code, ax]) \
+                / rad_t[code, ax]
+            acc = t * t if acc is None else acc + t * t
+        markers[z0:z0 + step] = torch.where(inside & (acc <= 1), part, 0)
+    return markers.cpu().numpy()
 
 
 def labels_to_markers_erosion(

@@ -21,6 +21,7 @@ from __future__ import annotations
 import logging
 import math
 import time
+from enum import Enum
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -132,6 +133,9 @@ class StepParams(NamedTuple):
     capacity: int
     denoise_shape: Optional[Tuple[int, ...]]
     preproc_items: Optional[Tuple[Tuple[str, float], ...]]
+    #: the fast LoG route (profile ``log_dtype="bfloat16"``); the
+    #: preprocessing stays float32 either way
+    fast: bool = False
 
 
 def step_params(
@@ -166,7 +170,7 @@ def step_params(
         sigmas, float(settings["detection_threshold"]),
         float(settings["overlap"]),
         _choose_capacity(settings, int(np.prod(block_shape))),
-        denoise_shape, prep)
+        denoise_shape, prep, detector.is_fast(settings))
 
 
 # ---------------------------------------------------------------------------
@@ -236,7 +240,8 @@ def detect_step(
     cap = params.capacity if capacity is None else capacity
     vol = preprocess_block(block, params.denoise_shape, params.preproc_items)
     return detector.blob_log(
-        vol, params.sigmas, params.threshold, params.overlap, cap)
+        vol, params.sigmas, params.threshold, params.overlap, cap,
+        fast=params.fast)
 
 
 # ---------------------------------------------------------------------------
@@ -358,9 +363,6 @@ def detect_blobs_blocks(
         empty) and stage timings in seconds (the reference's
         ``stack_detection_times.csv`` fields).
     """
-    if str(settings["log_dtype"]).lower() == "bfloat16":
-        raise NotImplementedError(
-            "log_dtype='bfloat16' is not ported; use float32")
     dev = device_mod.resolve(device)
     shape = tuple(int(s) for s in image.shape[:3])
     multichannel = image.ndim > 3
@@ -635,6 +637,14 @@ def detect_blobs_stack(
     blobs = blobs_mod.Blobs(merged)
     blobs.resolutions = np.atleast_2d(np.asarray(resolutions, float))
     return blobs, timing
+
+
+class StackTimes(Enum):
+    """Stack processing duration keys (reference ``stack_detect.py:
+    1168``); values match the timing dict of :func:`detect_blobs_blocks`."""
+    DETECTION = "Detection"
+    PRUNING = "Pruning"
+    TOTAL = "Total_stack"
 
 
 class StackDetector:

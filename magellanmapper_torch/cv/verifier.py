@@ -1,6 +1,6 @@
 """Detection verification against ground truth (optimal matching).
 
-Copy of ``verify_stack``, ``match_blobs_roi`` and
+Copy of ``verify_stack``, ``verify_rois``, ``match_blobs_roi`` and
 ``meas_detection_accuracy`` and what they call from
 ``magellanmapper_tpu/cv/verifier.py``: a one-to-one assignment of
 detected to truth blobs on tolerance-scaled distance (whole sets, or an
@@ -186,3 +186,45 @@ def verify_stack(
     false_neg = len(blobs_truth) - true_pos
     return calc_sens_ppv(
         len(blobs_truth), true_pos, false_pos, false_neg)
+
+
+def verify_rois(
+        rois, blobs: np.ndarray, blobs_truth: np.ndarray,
+        tol, output_db, exp_name: str,
+        channel: Optional[Sequence[int]] = None):
+    """Verify detections against the truth of each ROI, channel by
+    channel, inserting each ROI's matched blobs (column 4 marking true
+    and false positives) into ``output_db`` (an ``io.sqlite.ClrDB``).
+
+    ``rois`` are sqlite ROI rows (``offset_x/y/z``, ``size_x/y/z``);
+    blobs hold absolute z,y,x coordinates; ``tol`` is z,y,x. Returns the
+    ``[positives, true positives, false positives]`` totals and the
+    summary message of :func:`calc_sens_ppv`.
+    """
+    thresh, scaling, inner_padding, *_ = setup_match_blobs_roi(tol)
+    exp_id = output_db.select_or_insert_experiment(exp_name)
+    channels = (np.unique(blobs_mod.Blobs.get_blobs_channel(
+        blobs)).astype(int) if channel is None
+        else np.atleast_1d(channel))
+    total = np.zeros(3, dtype=int)
+    for roi in rois:
+        offset = (roi["offset_x"], roi["offset_y"], roi["offset_z"])
+        size = (roi["size_x"], roi["size_y"], roi["size_z"])
+        roi_id, _ = output_db.select_or_insert_roi(
+            exp_id, 0, offset, size)
+        for chl in channels:
+            b_chl = blobs_mod.Blobs.blobs_in_channel(blobs, chl)
+            t_chl = blobs_mod.Blobs.blobs_in_channel(blobs_truth, chl)
+            inner_plus, truth_plus, off_in, size_in, matches = \
+                match_blobs_roi(
+                    np.array(b_chl), np.array(t_chl), offset, size,
+                    thresh, scaling, inner_padding)
+            pos = len(truth_plus)
+            true_pos = int(np.sum(inner_plus[:, 4] == 1))
+            false_pos = int(np.sum(inner_plus[:, 4] == 0))
+            total += (pos, true_pos, false_pos)
+            if len(inner_plus):
+                output_db.insert_blobs(roi_id, inner_plus)
+    sens, ppv, msg = calc_sens_ppv(
+        total[0], total[1], total[2], total[0] - total[1])
+    return total, msg

@@ -8,7 +8,10 @@ are pinned off here, once, on import of the package.
 
 Launch counters: each hand-written kernel's wrapper adds one to its entry
 in :data:`LAUNCHES` where it launches the kernel, and nowhere else, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels. Beside them,
+:data:`TF32_SCOPES` counts the band-product blocks that the fast LoG route
+ran with TF32 allowed on the card, so a run can show that it took that
+route.
 """
 
 from __future__ import annotations
@@ -30,10 +33,16 @@ LAUNCHES: Dict[str, int] = {
 }
 
 
+#: band-product blocks run with TF32 allowed on a card
+#: (``ops.filters.band_precision``)
+TF32_SCOPES: Dict[str, int] = {"band_products": 0}
+
+
 def reset_launches() -> None:
-    """Set every launch counter to 0."""
+    """Set every launch counter, and :data:`TF32_SCOPES`, to 0."""
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    TF32_SCOPES["band_products"] = 0
 
 
 def count_launch(name: str) -> None:

@@ -94,6 +94,20 @@ edge-aware watershed; ``--register make_subsegs`` writes
 ``annotationSubseg.mhd``. The ``_exp`` forms run as the plain ones, as in
 the reference.
 
+Comparing and merging registered samples: ``--img a.npy b.npy
+--register labels_diff`` writes the per-label DSC of the two samples'
+``annotation.mhd`` as ``a_labels_diff.csv`` and the voxels that differ as
+``a_annotationDiff.mhd`` (``labels_diff_stats``: the table only);
+``labels_dist`` writes their centroid shifts as
+``a.npy_labels_dist.csv``; ``vol_compare`` returns the DSC table;
+``merge_images[_channels]`` sums (stacks) the samples'
+``atlasVolume.mhd`` into ``a_combined.mhd``; ``export_common_labels``,
+``convert_itksnap_labels``, ``make_labels_level --labels path_ref=...
+level=N``, ``smoothing_metrics_aggr``, ``plot_knns``,
+``plot_smoothing_metrics``, ``export_metrics_compactness`` and
+``overlays`` write the reference's tables, images and plots
+(:func:`register_tables`).
+
 ``python -m magellanmapper_torch.io.cli --img roi.npy --grid_search
 gridtest --roi_profile 4xnuc --truth_db truth.db`` runs the named
 grid-search profile over the image and scores every combination against
@@ -110,7 +124,10 @@ export_rois|export_planes|export_planes_channels|animated``, ``--plot_2d``,
 ``--register single|register_rev|make_density_images|
 vol_stats|export_regions|group|import_atlas|new_atlas|
 make_edge_images[_exp]|merge_atlas_segs[_exp]|make_subsegs|
-cluster_blobs``, ``--classifier``,
+cluster_blobs|export_common_labels|convert_itksnap_labels|
+make_labels_level|labels_diff[_stats]|labels_dist|smoothing_metrics_aggr|
+plot_knns|plot_smoothing_metrics|export_metrics_compactness|vol_compare|
+overlays|merge_images[_channels]``, ``--classifier``,
 ``--roi_profile`` (one per channel), ``--atlas_profile``,
 ``--reg_suffixes``, ``--transform``, ``--plane``, ``--labels``,
 ``--channel``, ``--series``, ``--prefix``,
@@ -213,6 +230,17 @@ class RegisterTypes(Enum):
     LABELS_DIST = auto()
 
 
+#: the ``--register`` tasks that compare, merge or plot registered
+#: images and their tables (:func:`register_tables`)
+TABLE_TASKS = (
+    RegisterTypes.EXPORT_COMMON_LABELS, RegisterTypes.CONVERT_ITKSNAP_LABELS,
+    RegisterTypes.MAKE_LABELS_LEVEL, RegisterTypes.LABELS_DIFF,
+    RegisterTypes.LABELS_DIFF_STATS, RegisterTypes.LABELS_DIST,
+    RegisterTypes.SMOOTHING_METRICS_AGGR, RegisterTypes.PLOT_KNNS,
+    RegisterTypes.PLOT_SMOOTHING_METRICS,
+    RegisterTypes.EXPORT_METRICS_COMPACTNESS, RegisterTypes.VOL_COMPARE,
+    RegisterTypes.OVERLAYS, RegisterTypes.MERGE_IMAGES,
+    RegisterTypes.MERGE_IMAGES_CHANNELS)
 #: ``--register`` tasks the port runs
 REGISTER_TASKS = (
     RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV,
@@ -221,7 +249,7 @@ REGISTER_TASKS = (
     RegisterTypes.IMPORT_ATLAS, RegisterTypes.NEW_ATLAS,
     RegisterTypes.MAKE_EDGE_IMAGES, RegisterTypes.MAKE_EDGE_IMAGES_EXP,
     RegisterTypes.MERGE_ATLAS_SEGS, RegisterTypes.MERGE_ATLAS_SEGS_EXP,
-    RegisterTypes.MAKE_SUBSEGS, RegisterTypes.CLUSTER_BLOBS)
+    RegisterTypes.MAKE_SUBSEGS, RegisterTypes.CLUSTER_BLOBS) + TABLE_TASKS
 #: the tasks that register an atlas directory onto a sample
 PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 #: what the port runs, for the messages that reject the rest
@@ -231,7 +259,12 @@ SUPPORTED = ("--proc detect/detect_coloc/coloc_match/classify/transform/"
              "animated, --plot_2d, --grid_search and --register single/"
              "register_rev/make_density_images/vol_stats/export_regions/"
              "group/import_atlas/new_atlas/make_edge_images[_exp]/"
-             "merge_atlas_segs[_exp]/make_subsegs/cluster_blobs")
+             "merge_atlas_segs[_exp]/make_subsegs/cluster_blobs/"
+             "export_common_labels/convert_itksnap_labels/"
+             "make_labels_level/labels_diff[_stats]/labels_dist/"
+             "smoothing_metrics_aggr/plot_knns/plot_smoothing_metrics/"
+             "export_metrics_compactness/vol_compare/overlays/"
+             "merge_images[_channels]")
 
 
 @dataclass
@@ -309,7 +342,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="registration task: single, register_rev, "
                    "make_density_images, vol_stats, export_regions, group, "
                    "import_atlas, new_atlas, make_edge_images[_exp], "
-                   "merge_atlas_segs[_exp], make_subsegs or cluster_blobs")
+                   "merge_atlas_segs[_exp], make_subsegs, cluster_blobs, "
+                   "export_common_labels, convert_itksnap_labels, "
+                   "make_labels_level, labels_diff[_stats], labels_dist, "
+                   "smoothing_metrics_aggr, plot_knns, "
+                   "plot_smoothing_metrics, export_metrics_compactness, "
+                   "vol_compare, overlays or merge_images[_channels]")
     p.add_argument("--roi_profile", nargs="*", help="ROI profile(s)")
     p.add_argument("--atlas_profile", help="atlas profile")
     p.add_argument("--reg_suffixes", nargs="*",
@@ -592,8 +630,11 @@ def process_register(rc: RunConfig, device):
     a registered sample and export its ontology; ``group`` registers the
     images to each other; ``import_atlas``/``new_atlas``,
     ``make_edge_images``, ``merge_atlas_segs`` and ``make_subsegs`` build
-    and reannotate an atlas; ``cluster_blobs`` clusters the saved blobs."""
+    and reannotate an atlas; ``cluster_blobs`` clusters the saved blobs;
+    the rest compare, merge and plot (:func:`register_tables`)."""
     task = rc.register_type
+    if task in TABLE_TASKS:
+        return register_tables(rc, device)
     if task in (RegisterTypes.MAKE_EDGE_IMAGES_EXP,
                 RegisterTypes.MERGE_ATLAS_SEGS_EXP):
         # as in the reference: the experiment image's suffix is set, and
@@ -669,6 +710,112 @@ def process_register(rc: RunConfig, device):
             rc.filenames, device=device)
     return export_regions.make_density_image(rc.filenames[0],
                                              device=device)
+
+
+def register_tables(rc: RunConfig, device):
+    """The ``--register`` tasks over registered images and their tables
+    (reference ``cli._process_register``), each writing the reference's
+    files: ``export_common_labels`` (the IDs in every sample's annotation,
+    ``--prefix`` or ``regions_common.csv``), ``convert_itksnap_labels``
+    (an ITK-SNAP label description as ``<prefix or file>.csv``),
+    ``make_labels_level`` (the annotation at ``--labels level=`` of
+    ``path_ref=``, ``annotationLevel<N>.mhd``), ``labels_diff[_stats]``
+    (per-label DSC of two samples' annotations, ``_labels_diff.csv``, and
+    for ``labels_diff`` the voxels that differ, ``annotationDiff.mhd``),
+    ``labels_dist`` (centroid shifts, ``_labels_dist.csv``, against the
+    sample's ``annotationEdit.mhd`` when given one sample),
+    ``smoothing_metrics_aggr`` (``_aggr.csv``), ``plot_knns``
+    (``_knn.png``), ``plot_smoothing_metrics`` and
+    ``export_metrics_compactness`` (``_metrics.png``), ``vol_compare``
+    (per-label DSC, returned only), ``overlays`` (``_overlay.png``) and
+    ``merge_images[_channels]`` (``combined.mhd``). The label counts and
+    sums run on ``device``; the plots are matplotlib's."""
+    task = rc.register_type
+    path = rc.filenames[0]
+    if task is RegisterTypes.EXPORT_COMMON_LABELS:
+        return export_regions.export_common_labels(
+            rc.filenames, rc.prefix or "regions_common.csv")
+    if task is RegisterTypes.CONVERT_ITKSNAP_LABELS:
+        df = ontology.convert_itksnap_to_df(path)
+        df.to_csv(rc.prefix or (path + ".csv"), index=False)
+        return df
+    if task is RegisterTypes.MAKE_LABELS_LEVEL:
+        labels = sitk_io.load_registered_img(path, "annotation.mhd")
+        ref = ontology.LabelsRef(str(rc.labels.get("path_ref"))).load()
+        level = int(rc.labels.get("level") or 0)
+        out = sitk_io.reg_out_path(
+            rc.prefix or path, f"annotationLevel{level}.mhd")
+        return export_regions.make_labels_level_img(labels, ref, level, out)
+    if task in (RegisterTypes.LABELS_DIFF, RegisterTypes.LABELS_DIFF_STATS):
+        labels_imgs = [sitk_io.load_registered_img(p, "annotation.mhd")
+                       for p in rc.filenames[:2]]
+        df = vols.measure_labels_overlap(labels_imgs, device=device)
+        if task is RegisterTypes.LABELS_DIFF:
+            diff = (labels_imgs[0] != labels_imgs[1]).astype(np.int32)
+            sitk_io.write_med_img(
+                sitk_io.reg_out_path(rc.prefix or path,
+                                     "annotationDiff.mhd"),
+                sitk_io.MedImage(diff))
+        df.to_csv(os.path.splitext(rc.prefix or path)[0]
+                  + "_labels_diff.csv", index=False)
+        return df
+    if task is RegisterTypes.LABELS_DIST:
+        two = len(rc.filenames) > 1
+        paths = rc.filenames[:2] if two else [path, path]
+        suffixes = ("annotation.mhd",
+                    "annotation.mhd" if two else "annotationEdit.mhd")
+        labels_imgs = [sitk_io.load_registered_img(p, sfx)
+                       for p, sfx in zip(paths, suffixes)]
+        df = vols.labels_distance(labels_imgs[0], labels_imgs[1],
+                                  device=device)
+        df.to_csv((rc.prefix or path) + "_labels_dist.csv", index=False)
+        return df
+    if task is RegisterTypes.SMOOTHING_METRICS_AGGR:
+        out = atlas_refiner.aggr_smoothing_metrics(pd.read_csv(path))
+        out.to_csv((rc.prefix or path) + "_aggr.csv", index=False)
+        return out
+    if task is RegisterTypes.PLOT_KNNS:
+        blob_sets = []
+        for img_path in rc.filenames:
+            blobs = blobs_mod.Blobs().load_blobs(
+                libmag.combine_paths(img_path, "blobs.npz"))
+            if blobs.blobs is not None:
+                blob_sets.append(blobs.blobs)
+        return clustering.plot_knns(
+            blob_sets, out_path=(rc.prefix or path) + "_knn.png",
+            device=device)
+    if task in (RegisterTypes.PLOT_SMOOTHING_METRICS,
+                RegisterTypes.EXPORT_METRICS_COMPACTNESS):
+        from magellanmapper_torch.plot import plot_2d
+        df = pd.read_csv(path)
+        xcol = "Filter_size" if "Filter_size" in df.columns \
+            else df.columns[0]
+        ycol = "Compactness" if "Compactness" in df.columns \
+            else df.columns[-1]
+        plot_2d.plot_lines(df, xcol, [ycol],
+                           path=(rc.prefix or path) + "_metrics.png")
+        return df
+    if task is RegisterTypes.VOL_COMPARE:
+        return register_mod.volumes_by_id_compare(
+            rc.filenames, rc.labels.get("path_ref"), device=device)
+    if task is RegisterTypes.OVERLAYS:
+        return register_mod.overlay_registered_imgs(
+            path, rc.filenames[1] if len(rc.filenames) > 1 else None,
+            plane=rc.plane, name_prefix=rc.prefix,
+            out_path=(rc.prefix or path) + "_overlay.png", device=device)
+    # merge_images[_channels]: the samples' atlas images summed, or
+    # stacked along a channel axis
+    suffix = rc.reg_suffixes.get("atlas", "atlasVolume.mhd")
+    fn = np.sum if task is RegisterTypes.MERGE_IMAGES else None
+    med = sitk_io.merge_images(rc.filenames, suffix, fn_combine=fn)
+    if med is not None:
+        img = med.img
+        if img.ndim > 3:
+            img = np.moveaxis(img, 0, -1)
+        sitk_io.write_med_img(
+            sitk_io.reg_out_path(rc.prefix or path, "combined.mhd"),
+            sitk_io.MedImage(np.asarray(img, np.float32)))
+    return med
 
 
 def make_edge_images(rc: RunConfig, device) -> Dict[str, np.ndarray]:

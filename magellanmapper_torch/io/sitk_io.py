@@ -1,12 +1,15 @@
 """Medical-format I/O (MHD/MHA, NRRD, NIfTI) in numpy, no ITK.
 
-Copy of what the registration task reads and writes from
-``magellanmapper_tpu/io/sitk_io.py``: ``MedImage``, ``read_med_img``,
-``write_med_img``, ``find_sitk_file``, ``reg_out_path``,
-``load_registered_img`` and ``write_reg_images``, with the reference's
-parsers and writers, so the files written are byte for byte the
-reference's. World info (spacing/origin) travels with a small
-``MedImage`` record.
+Copy of ``magellanmapper_tpu/io/sitk_io.py``: ``MedImage``, the
+readers and writers (``read_med_img``, ``write_med_img``, ``read_img``,
+``write_img``, ``read_sitk[_files]``), registered-image paths and sets
+(``reg_out_path``, ``load_registered_img[s]``, ``write_reg_images``,
+``write_registered_image``), conversions (``convert_img``,
+``load_numpy_to_sitk``, ``replace_sitk_with_numpy``, the identity
+bridges), ``match_world_info``, ``find_atlas_labels``, ``merge_images``
+and ``write_pts``, with the reference's parsers and writers, so the
+files written are byte for byte the reference's. World info
+(spacing/origin) travels with a small ``MedImage`` record.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import os
 import struct
 import zlib
 from dataclasses import dataclass, field
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -299,6 +302,24 @@ def write_med_img(path: str, med: MedImage) -> None:
         raise ValueError(f"unsupported medical image format: {path}")
 
 
+def read_sitk_files(
+        path: str, reg_names=None) -> "np_io.Image5d":
+    """A medical image (or the first of its registered images named by
+    ``reg_names``) as an ``np_io.Image5d`` with its spacing as the
+    resolutions."""
+    from magellanmapper_torch.io import np_io
+    paths = [path]
+    if reg_names:
+        names = reg_names if isinstance(
+            reg_names, (list, tuple)) else [reg_names]
+        paths = [reg_out_path(path, name) for name in names]
+    med = read_med_img(find_sitk_file(paths[0]))
+    return np_io.Image5d(
+        img=med.img[None], path_img=paths[0], img_io="sitk",
+        meta={"resolutions": [list(med.spacing)],
+              "origin": list(med.origin)})
+
+
 def find_sitk_file(path: str) -> str:
     """Resolve ``path`` against the supported 3D extensions."""
     if os.path.exists(path):
@@ -345,3 +366,136 @@ def write_reg_images(
         write_med_img(path, med)
         out[reg_name] = path
     return out
+
+
+def match_world_info(
+        source: MedImage, target: MedImage) -> MedImage:
+    """``target`` with ``source``'s spacing and origin."""
+    target.spacing = source.spacing
+    target.origin = source.origin
+    return target
+
+
+def read_img(path: str) -> MedImage:
+    """Read a medical-format image."""
+    return read_med_img(path)
+
+
+def read_sitk(path: str) -> MedImage:
+    """Read a medical-format image, resolving its extension."""
+    return read_med_img(find_sitk_file(path))
+
+
+def write_img(path: str, img, spacing=(1.0, 1.0, 1.0)) -> str:
+    """Write an array (with ``spacing``) or a ``MedImage``."""
+    med = img if isinstance(img, MedImage) else MedImage(
+        np.asarray(img), tuple(spacing))
+    write_med_img(path, med)
+    return path
+
+
+def convert_img(img) -> np.ndarray:
+    """An image's array (a ``MedImage`` already wraps numpy)."""
+    return np.asarray(img.img if isinstance(img, MedImage) else img)
+
+
+def replace_sitk_with_numpy(img, arr: np.ndarray) -> MedImage:
+    """A ``MedImage`` of ``arr`` with ``img``'s spacing and origin."""
+    spacing = img.spacing if isinstance(img, MedImage) else (1.0,) * 3
+    origin = getattr(img, "origin", None)
+    med = MedImage(np.asarray(arr), spacing)
+    if origin is not None:
+        med.origin = origin
+    return med
+
+
+def load_numpy_to_sitk(path: str, rotate: bool = False) -> MedImage:
+    """A ``.npy`` volume (its first time point) as a ``MedImage``,
+    turned by 180 degrees in y/x with ``rotate``."""
+    arr = np.load(path, mmap_mode="r")
+    if arr.ndim >= 4:
+        arr = arr[0]
+    if rotate:
+        arr = np.rot90(arr, 2, (1, 2))
+    return MedImage(np.asarray(arr), (1.0, 1.0, 1.0))
+
+
+def load_registered_imgs(img_path: str, reg_names,
+                         **kwargs) -> Dict[str, np.ndarray]:
+    """Several registered images keyed by suffix; missing ones are left
+    out."""
+    out = {}
+    for name in reg_names:
+        key = name.value if hasattr(name, "value") else name
+        try:
+            out[key] = load_registered_img(img_path, key, **kwargs)
+        except (FileNotFoundError, ValueError):
+            continue
+    return out
+
+
+def write_registered_image(
+        arr: np.ndarray, img_path: str, reg_name: str,
+        spacing=(1.0, 1.0, 1.0), load_reg_names=None,
+        overwrite: bool = False) -> str:
+    """Write one registered image beside ``img_path``; an existing file
+    raises unless ``overwrite``."""
+    out_path = reg_out_path(img_path, reg_name)
+    if os.path.exists(out_path) and not overwrite:
+        raise FileExistsError(f"{out_path} exists; pass overwrite=True")
+    write_med_img(out_path, MedImage(np.asarray(arr), tuple(spacing)))
+    return out_path
+
+
+def find_atlas_labels(labels_ref_path: str, drawn_only: bool,
+                      labels_ref=None) -> list:
+    """The IDs of a labels reference, only those without children when
+    ``drawn_only``."""
+    from magellanmapper_torch.atlas import ontology
+    ref = labels_ref
+    if ref is None:
+        ref = ontology.LabelsRef(labels_ref_path).load()
+    ids = list(ref.ref_lookup.keys())
+    if drawn_only:
+        df = ref.get_ref_lookup_as_df()
+        parents = {p[-1] for p in df["ParentIDs"] if p}
+        ids = [i for i in ids if i not in parents]
+    return ids
+
+
+def merge_images(img_paths, reg_name, prefix=None, suffix=None,
+                 fn_combine=np.sum) -> Optional[MedImage]:
+    """The samples' registered images ``reg_name`` combined voxel by voxel
+    by ``fn_combine`` over a stack (the stack itself when None); missing
+    samples are skipped, None when none is found."""
+    imgs = []
+    for path in img_paths:
+        try:
+            imgs.append(load_registered_img(path, reg_name))
+        except (FileNotFoundError, ValueError):
+            continue
+    if not imgs:
+        return None
+    stack = np.stack(imgs)
+    merged = fn_combine(stack, axis=0) if fn_combine is not None else stack
+    return MedImage(merged, (1.0, 1.0, 1.0))
+
+
+def write_pts(path: str, pts, fmt: str = "point") -> str:
+    """Write an Elastix-format points file."""
+    with open(path, "w") as f:
+        f.write(f"{fmt}\n{len(pts)}\n")
+        for pt in pts:
+            f.write(" ".join(str(float(v)) for v in pt) + "\n")
+    return path
+
+
+def sitk_to_itk_img(img):
+    """Identity: the reference converts between SimpleITK and ITK
+    wrappers; a ``MedImage`` is one numpy-backed type."""
+    return img
+
+
+def itk_to_sitk_img(img):
+    """Identity (see :func:`sitk_to_itk_img`)."""
+    return img

@@ -6,6 +6,13 @@ folded in (``scipy.ndimage`` semantics), so the LoG pyramid is a handful
 of batched fp32 GEMMs. Filters act on the LAST THREE axes of a tensor;
 leading axes are a batch (a stack of denoise tiles, for instance).
 
+``precision="tf32"`` is the reference's ``fast`` route (its
+``Precision.DEFAULT``, one bf16 pass on the TPU): on the card the band
+products run as TF32 GEMMs with float32 output, allowed only for the
+duration of those products (:func:`band_precision`); on the CPU they
+stay float32, as the reference's DEFAULT is on the JAX CPU. The taps
+route ignores it, as the reference's does.
+
 Past ``_MATMUL_MAX_LEN`` samples an axis takes taps instead, as in the
 reference: a padded ``F.conv1d`` over every 1D line of that axis
 (:func:`conv1d`), and :func:`log_pyramid` becomes a per-sigma
@@ -22,17 +29,49 @@ elementwise passes on the card instead of 2,000 shifted copies.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from magellanmapper_torch import device as device_mod
+
 #: longest axis the band-matrix route takes (the reference's taps
 #: crossover, ``filters.py:26-27``)
 _MATMUL_MAX_LEN = 768
+
+#: the fast route's ``precision``: TF32 band products on the card
+FAST_PRECISION = "tf32"
+
+
+@contextlib.contextmanager
+def band_precision(precision: Optional[str],
+                   device: torch.device) -> Iterator[None]:
+    """Run the enclosed band products at ``precision``: None (or
+    ``"highest"``) leaves them in full float32; :data:`FAST_PRECISION`
+    allows TF32 for cuBLAS float32 products on a CUDA ``device`` until
+    the block exits, raising or not, counting the block in
+    ``device.TF32_SCOPES``, and changes nothing on the CPU. ``device.py``
+    keeps TF32 off everywhere else."""
+    if precision in (None, "highest"):
+        yield
+        return
+    if precision != FAST_PRECISION:
+        raise ValueError(f"unknown precision: {precision!r}")
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    device_mod.TF32_SCOPES["band_products"] += 1
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
 
 
 def gaussian_kernel1d(
@@ -129,17 +168,20 @@ def sigma_tensor(sigmas: Tuple[float, ...],
 
 
 def conv1d(vol: torch.Tensor, kernel: np.ndarray, axis: int,
-           mode: str = "reflect", cval: float = 0.0) -> torch.Tensor:
+           mode: str = "reflect", cval: float = 0.0,
+           precision: Optional[str] = None) -> torch.Tensor:
     """Correlate ``vol`` with a symmetric 1D ``kernel`` along ``axis``:
-    a band-matrix product up to ``_MATMUL_MAX_LEN`` samples, taps past it
+    a band-matrix product at ``precision`` (:func:`band_precision`) up
+    to ``_MATMUL_MAX_LEN`` samples, float32 taps past it
     (``filters.py:101-124``)."""
     kernel = np.asarray(kernel, np.float64)
     n = vol.shape[axis]
     if n <= _MATMUL_MAX_LEN:
         band = _band_on(kernel.tobytes(), len(kernel), n, mode,
                         vol.device).to(vol.dtype)
-        return torch.movedim(
-            torch.tensordot(vol, band, dims=([axis], [0])), -1, axis)
+        with band_precision(precision, vol.device):
+            out = torch.tensordot(vol, band, dims=([axis], [0]))
+        return torch.movedim(out, -1, axis)
     return _conv1d_taps(vol, kernel, axis, mode, cval)
 
 
@@ -189,12 +231,13 @@ def gaussian_filter(
 
 def gaussian_laplace(
         vol: torch.Tensor, sigma, mode: str = "reflect",
-        truncate: float = 4.0) -> torch.Tensor:
+        truncate: float = 4.0,
+        precision: Optional[str] = None) -> torch.Tensor:
     """Laplacian of Gaussian over every axis of ``vol`` (scipy
     ``gaussian_laplace`` semantics; ``sigma`` a scalar or one per axis),
     each pass a :func:`conv1d`. A 3D volume shares the order-0 passes
-    across the three terms, 8 passes instead of 9 (``filters.py:
-    180-210``)."""
+    across the three terms, 8 passes instead of 9, and only those take
+    ``precision``, as in the reference (``filters.py:180-210``)."""
     ndim = vol.dim()
     sigmas = ((float(sigma),) * ndim if np.isscalar(sigma)
               else tuple(float(s) for s in sigma))
@@ -203,17 +246,19 @@ def gaussian_laplace(
     k0 = [gaussian_kernel1d(s, 0, truncate=truncate) for s in sigmas]
     k2 = [gaussian_kernel1d(s, 2, truncate=truncate) for s in sigmas]
 
-    def c(v, k, ax):
-        return conv1d(v, k, ax, mode)
-
     if ndim != 3:
         out = None
         for d_ax in range(ndim):
             term = vol
             for ax in range(ndim):
-                term = c(term, k2[ax] if ax == d_ax else k0[ax], ax)
+                term = conv1d(term, k2[ax] if ax == d_ax else k0[ax], ax,
+                              mode)
             out = term if out is None else out + term
         return out
+
+    def c(v, k, ax):
+        return conv1d(v, k, ax, mode, precision=precision)
+
     a = c(vol, k0[2], 2)                      # G0x f
     t1 = c(c(a, k0[1], 1), k2[0], 0)          # K2z G0y A
     t2 = c(c(a, k2[1], 1), k0[0], 0)          # G0z K2y A
@@ -224,7 +269,8 @@ def gaussian_laplace(
 
 def log_pyramid(
         vol: torch.Tensor, sigmas: Sequence[float], mode: str = "reflect",
-        truncate: float = 4.0) -> torch.Tensor:
+        truncate: float = 4.0,
+        precision: Optional[str] = None) -> torch.Tensor:
     """Scale-normalised negated LoG pyramid ``(S, Z, Y, X)`` of a
     ``(Z, Y, X)`` float32 volume, as seven scale-batched fp32 einsums
     (``filters.py:213-270``): the z pass uses linearity,
@@ -232,14 +278,16 @@ def log_pyramid(
     ``_MATMUL_MAX_LEN`` samples on any axis, the dense ``(S, n, n)`` band
     stacks would cost O(n^2) per axis, so the pyramid is a per-sigma
     :func:`gaussian_laplace` stack instead, each axis taking band or taps
-    on its own (``filters.py:230-240``)."""
+    on its own (``filters.py:230-240``). Every band product runs at
+    ``precision`` (:func:`band_precision`)."""
     if vol.dim() != 3:
         raise ValueError(f"log_pyramid takes a 3D volume, got {vol.dim()}D")
     sigmas = tuple(float(s) for s in sigmas)
     scale = sigma_tensor(sigmas, vol.device).to(vol.dtype) ** 2
     if max(vol.shape) > _MATMUL_MAX_LEN:
         stacked = torch.stack([
-            -gaussian_laplace(vol, s, mode=mode, truncate=truncate)
+            -gaussian_laplace(vol, s, mode=mode, truncate=truncate,
+                              precision=precision)
             for s in sigmas])
         return stacked * scale[:, None, None, None]
 
@@ -250,13 +298,15 @@ def log_pyramid(
     b0x, b2x = bands(0, 2), bands(2, 2)
     b0y, b2y = bands(0, 1), bands(2, 1)
     b0z, b2z = bands(0, 0), bands(2, 0)
-    a = torch.einsum("zyx,sxu->szyu", vol, b0x)        # G0x f
-    bx = torch.einsum("zyx,sxu->szyu", vol, b2x)       # K2x f
-    u0 = torch.einsum("szyx,syu->szux", a, b0y)        # G0y A
-    u2 = torch.einsum("szyx,syu->szux", a, b2y)        # K2y A
-    w = torch.einsum("szyx,syu->szux", bx, b0y)        # G0y B
-    t1 = torch.einsum("szyx,szu->suyx", u0, b2z)       # K2z G0y A
-    t23 = torch.einsum("szyx,szu->suyx", u2 + w, b0z)  # G0z (K2y A + G0y B)
+    with band_precision(precision, vol.device):
+        a = torch.einsum("zyx,sxu->szyu", vol, b0x)        # G0x f
+        bx = torch.einsum("zyx,sxu->szyu", vol, b2x)       # K2x f
+        u0 = torch.einsum("szyx,syu->szux", a, b0y)        # G0y A
+        u2 = torch.einsum("szyx,syu->szux", a, b2y)        # K2y A
+        w = torch.einsum("szyx,syu->szux", bx, b0y)        # G0y B
+        t1 = torch.einsum("szyx,szu->suyx", u0, b2z)       # K2z G0y A
+        # G0z (K2y A + G0y B)
+        t23 = torch.einsum("szyx,szu->suyx", u2 + w, b0z)
     return -(t1 + t23) * scale[:, None, None, None]
 
 

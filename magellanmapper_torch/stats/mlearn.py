@@ -140,9 +140,6 @@ def make_fn_detect_multi(
         if base_profile is not None:
             prof.update(dict(base_profile))
         prof.update(other_overrides)
-        if str(prof["log_dtype"]).lower() == "bfloat16":
-            raise NotImplementedError(
-                "log_dtype='bfloat16' is not ported; use float32")
         sigmas = tuple(detector.sigma_list(
             prof["min_sigma_factor"] * sf,
             prof["max_sigma_factor"] * sf, prof["num_sigma"]))
@@ -156,7 +153,8 @@ def make_fn_detect_multi(
         for c0 in range(0, len(thresholds), k_chunk):
             chunk = list(thresholds[c0:c0 + k_chunk])
             raws, valids = detector.blob_log_multi(
-                vol_t, sigmas, chunk, float(prof["overlap"]), cap)
+                vol_t, sigmas, chunk, float(prof["overlap"]), cap,
+                fast=detector.is_fast(prof))
             raws = raws.cpu().numpy()
             valids = valids.cpu().numpy()
             for k in range(len(chunk)):

@@ -336,8 +336,8 @@ def test_pipeline_cli_parses_as_the_reference(argv):
         assert getattr(got, name) == getattr(want, name), name
 
 
-@pytest.mark.parametrize("task", ["overlays", "merge_images",
-                                  "labels_diff", "no_such_task"])
+@pytest.mark.parametrize("task", ["zscores", "coefvar",
+                                  "melt_cols", "no_such_task"])
 def test_other_register_tasks_are_rejected_by_name(task):
     with pytest.raises(SystemExit, match=f"--register {task}"):
         cli.process_cli_args(["--img", "s.npy", "atlas", "--register", task])

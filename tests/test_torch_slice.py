@@ -152,10 +152,17 @@ def test_cli_rejects_what_is_not_ported(tmp_path, argv):
         cli.main(["--img", str(tmp_path / "x.npy")] + argv)
 
 
-def test_bfloat16_log_is_not_ported(volume):
-    with pytest.raises(NotImplementedError):
-        sd.detect_blobs_blocks(volume, _lightsheet(log_dtype="bfloat16"), RES,
-                               device="cpu")
+def test_bfloat16_log_is_not_ported(volume, port_resident):
+    """``log_dtype="bfloat16"`` (the fast LoG route, once rejected) runs
+    and, on the CPU, gives the reference's ``fast=True`` blobs, which
+    there are its float32 blobs: the route changes only the card's
+    band products."""
+    prof = _lightsheet(log_dtype="bfloat16")
+    want, _ = ref_sd.detect_blobs_blocks(volume, prof, RES, preprocess=True)
+    got, _ = sd.detect_blobs_blocks(volume, prof, RES, device="cpu")
+    assert rows_equal(got, want)
+    assert rows_equal(got, port_resident)
+    assert not torch.backends.cuda.matmul.allow_tf32
 
 
 def test_cli_runs_on_the_card_unless_told_otherwise(tmp_path, volume):

@@ -487,7 +487,7 @@ def test_cli_parses_as_the_reference(argv):
 
 
 @pytest.mark.parametrize("argv,named", [
-    (["--proc", "detect", "--register", "overlays"], "--register"),
+    (["--proc", "detect", "--register", "zscores"], "--register"),
     (["--proc", "detect", "--mesh", "1,1"], "--mesh"),
     (["--proc", "transform", "--save_subimg"], "--save_subimg"),
     (["--proc", "detect", "--df", "sum"], "--df"),
@@ -495,7 +495,7 @@ def test_cli_parses_as_the_reference(argv):
     (["--proc", "detect", "--notify", "x"], "--notify"),
     (["--proc", "no_such_task"], "--proc no_such_task"),
     (["--proc", "transform", "--truth_db", "t.db"], "--truth_db"),
-    (["--register", "merge_images"], "--register"),
+    (["--register", "coefvar"], "--register"),
 ])
 def test_cli_rejects_and_names_what_is_not_ported(argv, named):
     with pytest.raises(SystemExit) as err:
@@ -651,6 +651,26 @@ def _entry_points(tmp_path):
         "build_stack": lambda: export_stack.setup_stack(
             vol[None], rescale=0.5).build_stack(),
         "plot_knns": lambda: clustering.plot_knns([cloud]),
+        "segment_rw": lambda: segmenter.segment_rw(vol),
+        "segment_ws": lambda: segmenter.segment_ws(vol),
+        "watershed_distance": lambda: segmenter.watershed_distance(
+            vol > 0),
+        "labels_to_markers_blob": lambda:
+            segmenter.labels_to_markers_blob(labels),
+        "borders_distance": lambda: cv_nd.borders_distance(
+            vol > 0, vol > 0),
+        "signed_distance_transform": lambda:
+            cv_nd.signed_distance_transform(None, vol > 0),
+        "remove_bg_from_dil_fg": lambda: cv_nd.remove_bg_from_dil_fg(
+            vol, vol > 0, np.ones((3, 3, 3), bool)),
+        "interpolate_contours": lambda: cv_nd.interpolate_contours(
+            vol[0] > 0, vol[1] > 0, 0.5),
+        "measure_label_overlap": lambda: vols.measure_label_overlap(
+            labels, labels),
+        "labels_distance": lambda: vols.labels_distance(labels, labels),
+        "volumes_by_id": lambda: register.volumes_by_id([img]),
+        "cli.main labels_diff": lambda: cli.main(
+            ["--img", img, img, "--register", "labels_diff"]),
     }
 
 
@@ -673,7 +693,11 @@ def _entry_points(tmp_path):
     "render_isosurface", "render_volume_sw", "render_isosurface_sw",
     "render_channels_sw", "saturate_roi", "denoise_roi", "threshold",
     "deconvolve", "render_rotation", "animate_rotation_3d", "build_stack",
-    "plot_knns"])
+    "plot_knns", "segment_rw", "segment_ws", "watershed_distance",
+    "labels_to_markers_blob", "borders_distance",
+    "signed_distance_transform", "remove_bg_from_dil_fg",
+    "interpolate_contours", "measure_label_overlap", "labels_distance",
+    "volumes_by_id", "cli.main labels_diff"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()
@@ -899,3 +923,69 @@ def test_render_and_export_tasks_run_without_the_reference(tmp_path):
     assert "(8, 8, 3) 2 (12, 10) 1 4" in out.stdout
     assert os.path.isfile(str(tmp_path / "v.gif"))
     assert os.path.isfile(table + ".png")
+
+
+_SEGMENT_ALONE = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(1)  # beside the test workers, one thread is fastest
+from magellanmapper_torch import testing
+from magellanmapper_torch.cv import cv_nd, segmenter
+from magellanmapper_torch.io import cli, sitk_io
+img, yml, base_a, base_b, ref = sys.argv[1:6]
+fast = cli.main(["--img", img, "--proc", "detect", "--roi_profile",
+                 "lightsheet," + yml, "--device", "cpu"])
+vol = np.load(img)
+(walker,), = [segmenter.segment_rw(vol, blobs=fast.blobs, device="cpu")]
+ws = segmenter.segment_ws(vol, blobs=fast.blobs, device="cpu")
+markers = segmenter.labels_to_markers_blob(ws, device="cpu")
+dist = cv_nd.borders_distance(ws > 0, markers > 0, device="cpu")[0]
+mesh = cv_nd.surface_net_mesh(vol, float(np.percentile(vol, 95)))
+for base, lab in ((base_a, ws), (base_b, markers)):
+    sitk_io.write_med_img(sitk_io.reg_out_path(base, "annotation.mhd"),
+                          sitk_io.MedImage(lab.astype(np.int32)))
+    sitk_io.write_med_img(sitk_io.reg_out_path(base, "atlasVolume.mhd"),
+                          sitk_io.MedImage(vol.astype(np.float32)))
+outs = [cli.main(["--img", base_a, base_b, "--register", task,
+                  "--device", "cpu"]) for task in (
+    "vol_compare", "labels_diff", "labels_diff_stats", "labels_dist",
+    "merge_images", "merge_images_channels")]
+outs.append(cli.main(["--img", base_a, base_b, "--register",
+                      "export_common_labels", "--prefix",
+                      base_a + "_common.csv", "--device", "cpu"]))
+outs.append(cli.main(["--img", base_a, "--register", "make_labels_level",
+                      "--labels", "path_ref=" + ref, "level=1",
+                      "--device", "cpu"]))
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "magellanmapper_tpu"))
+assert not loaded, loaded
+print(len(fast), int(np.sum(walker == 1)), int(ws.max()),
+      int(np.sum(markers > 0)), len(mesh[1]), len(outs[0]))
+"""
+
+
+def test_segmentation_and_register_tasks_run_without_the_reference(
+        tmp_path):
+    """A fresh interpreter runs the fast LoG route through the CLI (a
+    profile file with ``log_dtype: bfloat16``), the random walker, the
+    distance watershed, the blob markers, border distances and the mesh,
+    then the new ``--register`` tasks on two samples written from those
+    labels, on the CPU; neither jax nor any module of the reference
+    package is loaded."""
+    vol = testing.make_nuclei_volume((24, 64, 64), seed=2)[0]
+    img = str(tmp_path / "nuclei.npy")
+    np.save(img, vol)
+    yml = tmp_path / "fast.yml"
+    yml.write_text("log_dtype: bfloat16\n")
+    out = subprocess.run(
+        [sys.executable, "-c", _SEGMENT_ALONE, img, str(yml),
+         str(tmp_path / "a.npy"), str(tmp_path / "b.npy"),
+         _ontology_files(tmp_path)[0]],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    n_blobs, n_fg, n_labels, n_markers, n_faces, n_regions = map(
+        int, out.stdout.split()[-6:])
+    assert n_blobs > 0 and n_fg >= n_blobs and n_labels > 1
+    assert n_markers > 0 and n_faces > 0 and n_regions > 0
+    assert os.path.isfile(str(tmp_path / "a_annotationDiff.mhd"))

@@ -225,16 +225,18 @@ def test_host_copies_match_reference():
     for combine_sides in (True, False):
         pd.testing.assert_frame_equal(
             vols.measure_label_overlap(f["labels"], other, f["heat"],
-                                       combine_sides),
+                                       combine_sides, device="cpu"),
             ref_vols.measure_label_overlap(f["labels"], other, f["heat"],
                                            combine_sides))
     pd.testing.assert_frame_equal(
-        vols.labels_distance(f["labels"], other, (2.0, 1.0, 1.0)),
+        vols.labels_distance(f["labels"], other, (2.0, 1.0, 1.0),
+                             device="cpu"),
         ref_vols.labels_distance(f["labels"], other, (2.0, 1.0, 1.0)))
     pd.testing.assert_frame_equal(
         vols.measure_labels_overlap((f["labels"], other), f["heat"],
                                     label_ids=[1, -2],
-                                    grouping={"Condition": "a"}),
+                                    grouping={"Condition": "a"},
+                                    device="cpu"),
         ref_vols.measure_labels_overlap((f["labels"], other), f["heat"],
                                         label_ids=[1, -2],
                                         grouping={"Condition": "a"}))
@@ -262,7 +264,8 @@ def test_host_copies_match_reference():
                                  spacing=(1.0, 2.0, 2.0)).measure()
     assert_metrics_match(got, want, f["labels"], f["atlas"], f["heat"])
     pd.testing.assert_frame_equal(
-        vols.MeasureLabelOverlap((f["labels"], other)).measure(),
+        vols.MeasureLabelOverlap((f["labels"], other),
+                                 device="cpu").measure(),
         ref_vols.MeasureLabelOverlap((f["labels"], other)).measure())
 
 

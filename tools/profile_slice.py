@@ -2,9 +2,10 @@
 """Where the time of the port's block detection goes, on one CUDA card.
 
 Run from the root of a checkout: ``python3 tools/profile_slice.py
-[--blocks 24] [--top 25]``. It makes ``chip_smoke.py``'s seeded
-(256, 1024, 1024) planted-nuclei volume with the ``lightsheet`` profile
-and prints, one JSON object a line:
+[--blocks 24] [--top 25] [--fast] [--turns N]``. It makes
+``chip_smoke.py``'s seeded (256, 1024, 1024) planted-nuclei volume with
+the ``lightsheet`` profile (``--fast``: with ``log_dtype: bfloat16``, the
+fast LoG route) and prints, one JSON object a line:
 
 1. the card's name, power limit and SM clock (``nvidia-smi``);
 2. ``stages``: CUDA events between the stages of the per-block step for
@@ -18,7 +19,10 @@ and prints, one JSON object a line:
    timings, the union of device-activity intervals (kernels and memcpys)
    and that union over the wall, the device's busy share;
 4. ``top``: the ``--top`` rows of device time by kernel or memcpy name,
-   with their call counts.
+   with their call counts;
+5. with ``--turns N``, ``turns``: the wall of ``N`` pairs of unprofiled
+   runs of the float32 and the fast route in turns (float32, fast, fast,
+   float32, ...), so the two routes are compared in one process.
 
 The profiler slows the host, so the profiled run's wall is longer than
 an unprofiled one; read the busy share as a lower bound.
@@ -86,7 +90,9 @@ def stage_split(torch, sd, filters, peaks, vol, prof, n_blocks):
         pre = sd.preprocess_block(
             block, params.denoise_shape, params.preproc_items)
         record(1)
-        cube = filters.log_pyramid(pre, params.sigmas)
+        cube = filters.log_pyramid(
+            pre, params.sigmas,
+            precision=filters.FAST_PRECISION if params.fast else None)
         record(2)
         coords4, _, count = peaks.find_peaks(
             cube, params.threshold, params.capacity)
@@ -120,6 +126,10 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--blocks", type=int, default=24)
     parser.add_argument("--top", type=int, default=25)
+    parser.add_argument("--fast", action="store_true",
+                        help="profile the fast LoG route")
+    parser.add_argument("--turns", type=int, default=0,
+                        help="pairs of unprofiled runs of both routes")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -134,6 +144,10 @@ def main() -> None:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
     prof = sd.roi_profile("lightsheet")
+    fast = sd.roi_profile("lightsheet")
+    fast["log_dtype"] = "bfloat16"
+    if args.fast:
+        prof = fast
     vol, _ = testing.make_nuclei_volume(SHAPE, seed=0)
 
     print(json.dumps({"stages": stage_split(
@@ -165,6 +179,19 @@ def main() -> None:
     print(json.dumps({"top": [
         {"name": name[:120], "ms": round(ms, 3), "calls": n}
         for name, (ms, n) in top]}), flush=True)
+
+    walls = {"fp32": [], "fast": []}
+    for i in range(2 * args.turns):
+        route = ("fp32", "fast", "fast", "fp32")[i % 4]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd.detect_blobs_blocks(
+            vol, fast if route == "fast" else sd.roi_profile("lightsheet"),
+            RES, device="cuda")
+        torch.cuda.synchronize()
+        walls[route].append(round(time.perf_counter() - t0, 4))
+    if args.turns:
+        print(json.dumps({"turns": walls}), flush=True)
 
 
 if __name__ == "__main__":

@@ -50,10 +50,13 @@ result, on any fault. Phases:
    within 1e-5), each step's wall and peak device memory, and each
    region's nuclei against the planted ones; ``vol_stats`` once more at
    the Allen CCFv3 25 um atlas's (528, 320, 456), several hundred IDs
-   (wall, peak memory, the same sums); ``run_gauntlet`` on the pair with
-   the reference's smoothing schedule and hard gates (dsc >= 0.95, label
-   median >= 0.90); ``register_duo`` on a (20, 28, 28) pair on the card
-   and on the CPU;
+   (wall, peak memory, the same sums); ``run_gauntlet_suite`` with the
+   seed-0 pair alone, the reference's smoothing schedule, failing on the
+   reference's gate (``passes``) and on the checks this script adds to it
+   (:func:`gauntlet_checks`: an affine-stage DSC, a B-spline gain above 0,
+   a warp error under the ground truth's displacement); ``register_duo``
+   on a (20, 28, 28) pair and on the suite's truncated pair of that shape
+   (its ``fixed_mask``), each on the card and on the CPU;
 7. ``cv.detector.detect_blobs`` on a (48, 192, 192) crop of the detect
    volume at resolutions (2, 1, 1) made isotropic, card against CPU;
 8. atlas construction, which runs none of the hand-written kernels (its
@@ -162,8 +165,30 @@ result, on any fault. Phases:
    samples, card against ``--device cpu`` (files equal, floats within
    1e-5). The segmentation and the tasks launch no kernel (``segment``,
    ``register_tasks``: 0 each);
-13. a JSON line of per-kernel results (launches summed over the paths,
+13. vendor import (:func:`vendor_path`): phase 4's volume written by the
+   port's writers as a CZI of Zstd1 hi-lo subblocks, a CZI of zlib
+   subblocks, a LIF and an IMS (``NativeHdf5Writer``, contiguous), each
+   imported through ``--proc import_only`` (array equal to the source,
+   resolutions 1 um, write and import MB/s), a small Gray8 CZI of JPEG
+   subblocks (within ``JPEG_ATOL`` of its source), and ``--proc detect``
+   on the Zstd1 CZI's import (launches of the ``vendor`` path as phase
+   4's, its bars, the blobs that differ from phase 4's,
+   ``utils.profiler.Throughput``); the system libraries found are
+   printed, and a form whose library is absent is named as not run;
+14. the profiler (:func:`profiler_path`): a detect block of phase 4's
+   volume stepped twice under ``utils.profiler.trace``, the second time
+   in ``annotate``'s range, the Chrome trace read back naming K1, K3 and
+   K4 inside the range on the device; ``entry.entry``'s step once on the
+   card (launches of the ``profile`` path);
+15. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
+
+``python3 chip_smoke.py --gauntlet-suite`` runs the reference's
+gauntlet suite alone instead: ``run_gauntlet_suite`` on (160, 240, 200)
+pairs of seeds 0 and 10 and the truncated seed-0 pair, ``iters_scale``
+1.0, on the card; each pair's numbers, then a failure unless every pair
+passes :func:`gauntlet_checks`; the ``nvidia-smi`` line and the final
+JSON line.
 
 ``python3 chip_smoke.py --k4-times [--root DIR]`` times K4
 alone instead (:func:`time_k4`, the same measure as phase 3) on one
@@ -379,6 +404,27 @@ RW_PROB_ATOL = 1e-5
 DIST_ATOL = 1e-5
 #: item-16 tasks' floats, card against CPU
 TASK_RTOL = 1e-5
+#: vendor import (phase 13): phase 4's volume written in each form (name,
+#: writer, CZI compression, the system library the form needs), the
+#: libraries looked up on the host, and the small JPEG CZI (a Gray8 plane
+#: of flat blocks) with its limit against the source: baseline JPEG at
+#: quality 100 keeps such planes within 2, as the CPU tests pin
+VENDOR_FORMS = (("czi_zstd1hilo", "czi", "zstd1hilo", "zstd"),
+                ("czi_zlib", "czi", "zlib", None),
+                ("lif", "lif", None, None),
+                ("ims", "ims", None, "hdf5"))
+VENDOR_LIBS = ("zstd", "jpeg", "openjp2", "hdf5_serial", "hdf5")
+JPEG_PLANE = (256, 320)
+JPEG_ATOL = 2
+#: the profiler phase (14): the kernels the trace of one detect block
+#: must name (K1, K3's pair pass, K4) and the range it annotates
+TRACE_KERNELS = ("peak_candidates_kernel", "pairs_kernel",
+                 "tile_percentiles")
+TRACE_RANGE = "detect_block"
+#: ``--gauntlet-suite``: the reference suite's seeded pairs and truncated
+#: pair (``gauntlet.py:453-478``)
+SUITE_SEEDS = (0, 10)
+SUITE_TRUNCATED = 0
 
 
 def fail(msg: str) -> None:
@@ -447,6 +493,21 @@ def record(results, name, *, ms, plain_ms, library_ms, nbytes, ops,
           f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
 
 
+def detect_block(torch, prof, vol, dev):
+    """The detect path's step parameters for ``vol`` and one of its block
+    windows on ``dev``."""
+    from magellanmapper_torch.cv import stack_detect as sd
+
+    blocks = sd.setup_blocks(prof, vol.shape, (1.0, 1.0, 1.0))
+    block_shape = np.minimum(blocks.max_pixels + blocks.overlap, vol.shape)
+    params = sd.step_params(prof, blocks, block_shape, (1.0, 1.0, 1.0),
+                            float(np.percentile(vol[::16], 99.5)))
+    bz, by, bx = (int(v) for v in block_shape)
+    block = torch.from_numpy(np.ascontiguousarray(
+        vol[64:64 + bz, 256:256 + by, 256:256 + bx])).to(dev)
+    return params, block
+
+
 def block_inputs(torch, prof, vol, dev):
     """One block of the detect path on ``dev``: its parameters, the raw
     block, its LoG cube, and the LoG cube of a ragged (31, 64, 130)
@@ -454,15 +515,9 @@ def block_inputs(torch, prof, vol, dev):
     from magellanmapper_torch.cv import stack_detect as sd
     from magellanmapper_torch.ops import filters
 
-    blocks = sd.setup_blocks(prof, vol.shape, (1.0, 1.0, 1.0))
-    block_shape = np.minimum(blocks.max_pixels + blocks.overlap, vol.shape)
-    params = sd.step_params(prof, blocks, block_shape, (1.0, 1.0, 1.0),
-                            float(np.percentile(vol[::16], 99.5)))
-    bz, by, bx = (int(v) for v in block_shape)
-    print(f"block window {(bz, by, bx)}, capacity "
+    params, block = detect_block(torch, prof, vol, dev)
+    print(f"block window {tuple(block.shape)}, capacity "
           f"{params.capacity}, {len(params.sigmas)} scales", flush=True)
-    block = torch.from_numpy(np.ascontiguousarray(
-        vol[64:64 + bz, 256:256 + by, 256:256 + bx])).to(dev)
     pre = sd.preprocess_block(block, params.denoise_shape,
                               params.preproc_items)
     cube = filters.log_pyramid(pre, params.sigmas).contiguous()
@@ -1195,54 +1250,87 @@ def vol_stats_25um(torch, pair, blobs):
              "CPU's")
 
 
-def gauntlet_path(pair):
-    """``run_gauntlet`` on the pair, on the card, with the reference's
-    smoothing schedule; fails below the reference's hard gates (dsc 0.95,
-    label median 0.90)."""
+def gauntlet_checks(name, res):
+    """The reference's gate on one pair of the suite, and the checks this
+    script adds to it, which the gate lets through: the affine stage's
+    DSC recorded, a B-spline stage that gained DSC, and a warp error under
+    the ground truth's mean displacement (the registration recovered more
+    of the warp than it left). Returns the failures."""
+    bad = [] if res["passes"] else ["below the reference's gate"]
+    if "affine" not in res["stage_dsc"]:
+        bad.append("no affine-stage DSC")
+    if not res["bspline_dsc_gain"] > 0:
+        bad.append(f"B-spline DSC gain {res['bspline_dsc_gain']} <= 0")
+    if not res["warp_err_vox"] < res["gt_disp_vox"]:
+        bad.append(f"warp error {res['warp_err_vox']} not under the "
+                   f"ground truth's displacement {res['gt_disp_vox']}")
+    return [f"{name}: {b}" for b in bad]
+
+
+def gauntlet_suite(seeds, truncated_seed):
+    """``run_gauntlet_suite`` of ``REG_SHAPE`` pairs on the card with the
+    reference's smoothing schedule: each pair's numbers printed, then a
+    failure unless every pair passes :func:`gauntlet_checks`."""
     from magellanmapper_torch.atlas import gauntlet
 
-    res = gauntlet.run_gauntlet(pair, device="cuda")
-    print("gauntlet: " + json.dumps(res), flush=True)
-    if res["dsc"] < 0.95 or res["label_dsc_median"] < 0.90:
-        fail(f"gauntlet below its gates: dsc {res['dsc']}, label median "
-             f"{res['label_dsc_median']}")
-    print(f"gauntlet: passes {res['passes']}", flush=True)
+    t0 = time.perf_counter()
+    suite = gauntlet.run_gauntlet_suite(
+        REG_SHAPE, seeds=seeds, truncated_seed=truncated_seed,
+        device="cuda")
+    bad = []
+    for name, res in suite["pairs"].items():
+        print(f"gauntlet {name}: " + json.dumps(res), flush=True)
+        bad += gauntlet_checks(name, res)
+    print(f"gauntlet suite {list(suite['pairs'])}: passes "
+          f"{suite['passes']}, registrations {suite['wall_s']:.2f} s, "
+          f"wall {time.perf_counter() - t0:.2f} s", flush=True)
+    if bad or not suite["passes"]:
+        fail("gauntlet suite: " + "; ".join(bad))
+    return suite
 
 
-def register_crop():
+def register_crop(truncated=False):
     """``register_duo`` on a small pair (every stride 1, no jitter) on the
     card and on the CPU; fails if the parameters differ beyond
     ``REG_CROP_ATOL`` or the order-0 labels in more than 0.1% of
-    voxels."""
+    voxels. ``truncated`` takes the suite's truncated pair: its specimen
+    cut off in z and registered under its ``fixed_mask``."""
     from magellanmapper_torch.atlas import gauntlet, reg_engine
     from magellanmapper_torch.settings.atlas_prof import AtlasProfile
 
-    pair = gauntlet.build_pair(REG_CROP, seed=SEED, device="cpu",
-                               ffd_spacing=16.0, ffd_ctrl_sigma=3.0)
+    build = gauntlet.build_truncated_pair if truncated else \
+        gauntlet.build_pair
+    pair = build(REG_CROP, seed=SEED, device="cpu", ffd_spacing=16.0,
+                 ffd_ctrl_sigma=3.0)
+    mask = pair.get("fixed_mask")
     runs = {}
     for dev in ("cuda", "cpu"):
         t0 = time.perf_counter()
         _, res = reg_engine.register_duo(
             pair["fixed"], pair["moving"], AtlasProfile(),
-            iters_scale=REG_CROP_ITERS, device=dev)
+            iters_scale=REG_CROP_ITERS, device=dev,
+            fixed_mask=None if mask is None else mask.astype(np.float32))
         runs[dev] = (res, time.perf_counter() - t0)
     (card, t_card), (cpu, t_cpu) = runs["cuda"], runs["cpu"]
+    what = "truncated register crop" if truncated else "register crop"
     worst = {}
     for (kind, a), (_, b) in zip(card.stages_numpy(), cpu.stages_numpy()):
         for k in a:
             err = float(np.abs(a[k] - b[k]).max())
             worst[f"{kind}.{k}"] = err
             if err > REG_CROP_ATOL[f"{kind}.{k}"]:
-                fail(f"register crop: {kind} {k} differs by {err} between "
-                     "the card and the CPU")
+                fail(f"{what}: {kind} {k} differs by {err} between the "
+                     "card and the CPU")
     labels = [r.transform_img(pair["labels"], order=0) for r in (card, cpu)]
+    if mask is not None:
+        labels = [np.where(mask, lab, 0) for lab in labels]
     frac = float(np.mean(labels[0] != labels[1]))
-    print(f"register crop {REG_CROP}: card {t_card:.2f} s, CPU "
-          f"{t_cpu:.2f} s; max param diffs {worst}; label voxels differing "
-          f"{frac:.6f}; dsc card {card.metrics['dsc_fixed_moved']:.5f} CPU "
+    print(f"{what} {REG_CROP}: card {t_card:.2f} s, CPU {t_cpu:.2f} s; "
+          f"max param diffs {worst}; label voxels differing {frac:.6f}; "
+          f"dsc card {card.metrics['dsc_fixed_moved']:.5f} CPU "
           f"{cpu.metrics['dsc_fixed_moved']:.5f}", flush=True)
     if frac > 1e-3:
-        fail(f"register crop: {frac:.4%} of label voxels differ")
+        fail(f"{what}: {frac:.4%} of label voxels differ")
 
 
 def detect_blobs_crop(torch, crop, launches):
@@ -3043,6 +3131,248 @@ def phase12(torch, vol, centres, fp32, grid_roi, grid_centres, grid_df,
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def write_vendor(form, vol, path):
+    """Write ``vol`` at 1 um as one of ``VENDOR_FORMS``."""
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import czi_lif
+
+    _, fmt, compression, _ = form
+    if fmt == "czi":
+        czi_lif.write_czi(path, vol, resolutions=(1.0, 1.0, 1.0),
+                          compression=compression)
+    elif fmt == "lif":
+        czi_lif.write_lif(path, vol, resolutions=(1.0, 1.0, 1.0))
+    else:
+        # contiguous, its extents one micrometre a voxel (axis 0 is x)
+        nz, ny, nx = vol.shape
+        testing.write_ims(path, [vol], vol.shape, ext={
+            "ExtMin0": 0, "ExtMax0": nx, "ExtMin1": 0, "ExtMax1": ny,
+            "ExtMin2": 0, "ExtMax2": nz})
+
+
+def jpeg_czi(work):
+    """A small Gray8 CZI of JPEG subblocks through ``--proc import_only``,
+    within ``JPEG_ATOL`` of its source. Where the JPEG codec cannot be
+    built (no libjpeg or ``jpeglib.h``), a JPEG subblock must raise by
+    name instead; returns whether the form ran."""
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import _jpegcodec, cli, czi_lif
+
+    try:
+        _jpegcodec.library()
+    except (RuntimeError, OSError) as err:
+        path = os.path.join(work, "nojpeg.czi")
+        with open(path, "wb") as f:
+            f.write(testing.czi_segment(b"ZISRAWFILE", b"\x00" * 512)
+                    + testing.czi_segment(b"ZISRAWSUBBLOCK",
+                                          testing.czi_subblock(
+                                              b"\xff\xd8\xff",
+                                              [(b"Y", 0, 2), (b"X", 0, 2)],
+                                              pixel_type=0, compression=1)))
+        try:
+            czi_lif.read_czi(path)
+        except (RuntimeError, OSError) as raised:
+            if "libjpeg" not in str(raised):
+                fail(f"a JPEG CZI without its codec raised {raised}")
+        else:
+            fail("a JPEG CZI read without its codec")
+        print(f"vendor import: czi_jpeg not run: the JPEG codec did not "
+              f"build ({str(err).splitlines()[0]}); a JPEG subblock "
+              "raises naming libjpeg", flush=True)
+        return False
+    plane = np.full((1,) + JPEG_PLANE, 40, np.uint8)
+    plane[0, :128, :160] = 200
+    plane[0, 96:224, 96:288] = 120
+    src = os.path.join(work, "jpeg.czi")
+    czi_lif.write_czi(src, plane, compression="jpeg")
+    img5d = cli.main(["--img", src, "--proc", "import_only", "--prefix",
+                      os.path.join(work, "jpeg.npy")])
+    got = np.asarray(img5d.img[0])
+    err = int(np.abs(got.astype(int) - plane.astype(int)).max())
+    print(f"vendor import: czi_jpeg {plane.shape} uint8, max |difference| "
+          f"{err} from the source (limit {JPEG_ATOL})", flush=True)
+    if got.shape != plane.shape or got.dtype != np.uint8 or err > JPEG_ATOL:
+        fail(f"JPEG CZI import: {got.shape} {got.dtype}, {err} from the "
+             "source")
+    return True
+
+
+def vendor_path(torch, vol, centres, fp32, work, launches):
+    """Phase 13: phase 4's volume written as each of ``VENDOR_FORMS``,
+    imported through ``--proc import_only`` (each array equal to the
+    source, resolutions 1 um; write and import MB/s), the small JPEG CZI,
+    and ``--proc detect`` on the Zstd1 CZI's import (launches of the
+    ``vendor`` path; phase 4's bars and its blobs). A form whose system
+    library is absent is named as not run."""
+    import ctypes.util
+
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import cli, hdf5_native
+    from magellanmapper_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    found = {name: ctypes.util.find_library(name) for name in VENDOR_LIBS}
+    have = {"zstd": found["zstd"] is not None,
+            "hdf5": hdf5_native.available()}
+    print("vendor import: system libraries " + json.dumps(found)
+          + f"; libhdf5 bound {have['hdf5']}", flush=True)
+    mb = vol.nbytes / 1e6
+    rates, not_run, imported = {}, [], {}
+    for form in VENDOR_FORMS:
+        name, fmt, _, lib = form
+        if lib is not None and not have[lib]:
+            not_run.append(name)
+            print(f"vendor import: {name} not run: lib{lib} absent",
+                  flush=True)
+            continue
+        src = os.path.join(work, f"{name}.{fmt}")
+        t0 = time.perf_counter()
+        write_vendor(form, vol, src)
+        t_write = time.perf_counter() - t0
+        out = os.path.join(work, f"{name}.npy")
+        t0 = time.perf_counter()
+        img5d = cli.main(["--img", src, "--proc", "import_only", "--prefix",
+                          out])
+        t_import = time.perf_counter() - t0
+        res = np.asarray(img5d.meta.get("resolutions")).tolist()
+        if img5d.img.shape != (1,) + vol.shape or img5d.img.dtype != \
+                vol.dtype or not np.array_equal(img5d.img[0], vol):
+            fail(f"vendor import: {name} imported {img5d.img.shape} "
+                 f"{img5d.img.dtype}, not the source")
+        # LIF stores extents in metres: 1 um comes back within rounding
+        if not np.allclose(res, [[1.0, 1.0, 1.0]], rtol=1e-12, atol=0):
+            fail(f"vendor import: {name} resolutions {res}, not 1 um")
+        rates[name] = {"write_mb_per_s": mb / t_write,
+                       "import_mb_per_s": mb / t_import,
+                       "file_mb": os.path.getsize(src) / 1e6,
+                       "write_s": t_write, "import_s": t_import}
+        print(f"vendor import: {name} equal to the source, resolutions "
+              f"{res}; " + json.dumps(rates[name]), flush=True)
+        os.remove(src)
+        imported[name] = out
+        del img5d
+    if not jpeg_czi(work):
+        not_run.append("czi_jpeg")
+
+    # detection on the CZI import: the Zstd1 form, or zlib without libzstd
+    name = "czi_zstd1hilo" if "czi_zstd1hilo" in imported else "czi_zlib"
+    torch.cuda.synchronize()
+    dev_mod.reset_launches()
+    rate = profiler.Throughput()
+    rate.start()
+    blobs = cli.main(["--img", imported[name], "--proc", "detect",
+                      "--roi_profile", "lightsheet", "--device", "cuda"])
+    torch.cuda.synchronize()
+    rate.stop(vol.size)
+    launches["vendor"] = dict(dev_mod.LAUNCHES)
+    for kernel in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        if launches["vendor"][kernel] != launches["detect"][kernel]:
+            fail(f"vendor detect: {kernel} launched "
+                 f"{launches['vendor'][kernel]} times, phase 4 "
+                 f"{launches['detect'][kernel]}")
+    det = blobs.blobs
+    if det is None or det.shape[1] != 10 or not np.all(np.isfinite(det)):
+        fail("vendor detect: no or non-finite blobs")
+    sens, ppv = testing.sens_ppv(
+        det, centres, SLICE_SHAPE, VERIFY_TILE, VERIFY_TOL)
+    changes = blob_changes(det, fp32["blobs"])
+    print(f"vendor detect on the {name} import: launches "
+          f"{launches['vendor']}; {len(det)} blobs, sensitivity {sens:.4f} "
+          f"PPV {ppv:.4f}; against phase 4's blobs {json.dumps(changes)}; "
+          f"profiler.Throughput {json.dumps(rate.summary())}", flush=True)
+    if not (sens > 0.85 and ppv > 0.7):
+        fail(f"vendor detect below the bars: sens {sens} ppv {ppv}")
+    print(f"vendor import: phase 13 wall {time.perf_counter() - t_phase:.1f}"
+          f" s; not run: {not_run or 'none'}", flush=True)
+    return rates
+
+
+def profiler_path(torch, vol, work, launches):
+    """Phase 14: a detect block of phase 4's volume stepped twice under
+    ``utils.profiler.trace``, the second time in ``annotate``'s range; in
+    the written Chrome trace, the range on the device must hold K1, K3
+    and K4 (``TRACE_KERNELS``); then ``entry.entry(device="cuda")``'s
+    step once (launches of the ``profile`` path)."""
+    import glob
+
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import entry
+    from magellanmapper_torch.cv import stack_detect as sd
+    from magellanmapper_torch.utils import profiler
+
+    t_phase = time.perf_counter()
+    params, block = detect_block(torch, sd.roi_profile("lightsheet"), vol,
+                                 torch.device("cuda"))
+    log_dir = os.path.join(work, "trace")
+    torch.cuda.synchronize()
+    dev_mod.reset_launches()
+    with profiler.trace(log_dir):
+        # one step before the range: after an earlier trace in the
+        # process, the first kernels of a trace can go unrecorded
+        sd.detect_step(block, params)
+        torch.cuda.synchronize()
+        with profiler.annotate(TRACE_RANGE):
+            _, valid, count = sd.detect_step(block, params)
+            torch.cuda.synchronize()
+    files = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    if len(files) != 1:
+        fail(f"profiler: {len(files)} trace files in {log_dir}")
+    with open(files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("name") == TRACE_RANGE
+             and e.get("cat") == "gpu_user_annotation"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"
+               and any(lo <= e["ts"] <= hi for lo, hi in spans)}
+    missing = [k for k in TRACE_KERNELS
+               if not any(k in name for name in kernels)]
+    print(f"profiler: trace of one block {tuple(block.shape)} "
+          f"({int(valid.sum())} blobs of {count} peaks): "
+          f"{os.path.getsize(files[0])} bytes, {len(events)} events, "
+          f"{len(spans)} device range(s) {TRACE_RANGE} holding "
+          f"{len(kernels)} kernel names; {TRACE_KERNELS} missing {missing}",
+          flush=True)
+    if missing or not spans:
+        fail(f"profiler: the range {TRACE_RANGE} on the device lacks "
+             f"kernels {missing} or is not in the trace")
+    fn, (batch,) = entry.entry(device="cuda")
+    raws, valids, counts = fn(batch)
+    torch.cuda.synchronize()
+    launches["profile"] = dict(dev_mod.LAUNCHES)
+    print(f"profiler: entry() step on {tuple(batch.shape)}: raws "
+          f"{tuple(raws.shape)}, valid rows {valids.sum(1).tolist()}, "
+          f"counts {counts.tolist()}; launches {launches['profile']}; "
+          f"phase 14 wall {time.perf_counter() - t_phase:.1f} s", flush=True)
+    if raws.shape != (2, 256, 4) or not bool(torch.isfinite(raws).all()) \
+            or int(valids.sum()) <= 0:
+        fail("profiler: entry()'s step gave no or non-finite blobs")
+
+
+def suite_main() -> None:
+    """``--gauntlet-suite``: the reference's suite on the card alone."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "magellanmapper_torch")):
+        fail(f"run from a checkout of the repository ({ROOT} has no "
+             "magellanmapper_torch package)")
+    sys.path.insert(0, ROOT)
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
+          f"CUDA {torch.version.cuda}", flush=True)
+    gauntlet_suite(SUITE_SEEDS, SUITE_TRUNCATED)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def main() -> None:
     try:
         import torch
@@ -3205,8 +3535,9 @@ def main() -> None:
     torch.cuda.empty_cache()
     vol_stats_25um(torch, pair, spec_blobs)
     torch.cuda.empty_cache()
-    gauntlet_path(pair)
+    gauntlet_suite((SEED,), None)
     register_crop()
+    register_crop(truncated=True)
 
     # 7. detect_blobs, card against CPU
     detect_blobs_crop(torch, det_crop, launches)
@@ -3250,7 +3581,16 @@ def main() -> None:
     # random walker and the watersheds, the atlas-register tasks
     phase12(torch, vol, centres, fp32, grid_roi, grid_centres, grid_df,
             labels, work, launches)
-    del vol, grid_roi, labels
+    del grid_roi, labels
+
+    # 13. vendor import: the slice as CZI, LIF and IMS files through
+    # --proc import_only, then --proc detect on the CZI's import
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        vendor_path(torch, vol, centres, fp32, tmp, launches)
+    # 14. the profiler: one detect block traced, entry()'s step
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        profiler_path(torch, vol, tmp, launches)
+    del vol
 
     for name in results:
         n = sum(path[name] for path in launches.values())
@@ -3279,8 +3619,12 @@ if __name__ == "__main__":
                         help="time K4 alone instead of the smoke run")
     parser.add_argument("--root", default=ROOT,
                         help="checkout whose K4 --k4-times times")
+    parser.add_argument("--gauntlet-suite", action="store_true",
+                        help="run the reference's gauntlet suite instead")
     args = parser.parse_args()
     if args.k4_times:
         k4_times(args.root)
+    elif args.gauntlet_suite:
+        suite_main()
     else:
         main()

@@ -10,8 +10,7 @@ through the known warp at order 0, so overlap, label transfer and warp
 error can be scored against the truth. The anatomy and the modality gap
 are host numpy (copies of the reference); the two ground-truth warps run
 through the port's :mod:`.transform` on the device asked for.
-
-Not ported yet: ``run_gauntlet_suite`` (ROADMAP queue item 6).
+:func:`run_gauntlet_suite` scores several such pairs and a truncated one.
 """
 
 from __future__ import annotations
@@ -348,6 +347,34 @@ def gates_pass(dsc: float, label_median: float, label_min: float,
         and (label_min >= 0.80 or label_p10 >= 0.85)
         and (gain >= 0.05 or closure >= 0.5))
 
+
+def run_gauntlet_suite(
+        shape: Sequence[int] = (160, 240, 200),
+        seeds: Sequence[int] = (0, 10),
+        truncated_seed: Optional[int] = 0,
+        iters_scale: float = 1.0, device="cuda", **gt_kwargs) -> Dict:
+    """Multi-pair gauntlet (``gauntlet.py:453-478``): one pair
+    ``seed{s}`` for each seed plus the truncated-specimen partial-overlap
+    pair ``trunc{truncated_seed}``, each built and registered on ``device``
+    and scored by :func:`run_gauntlet`, so the gates are not tuned to one
+    fixture. The suite passes only when every pair passes every gate.
+    Returns ``pairs`` (each pair's scores by name), ``passes`` and
+    ``wall_s`` (the registrations' walls summed). The reference's
+    ``cache_dir`` is not taken: the port's pairs are built anew (ROADMAP
+    section 3)."""
+    builds = [(f"seed{s}", build_pair, s) for s in seeds]
+    if truncated_seed is not None:
+        builds.append((f"trunc{truncated_seed}", build_truncated_pair,
+                       truncated_seed))
+    results = {}
+    for name, build, seed in builds:
+        pair = build(shape, seed=seed, device=device, **gt_kwargs)
+        results[name] = run_gauntlet(pair, iters_scale=iters_scale,
+                                     device=device)
+    return {
+        "pairs": results,
+        "passes": bool(all(r["passes"] for r in results.values())),
+        "wall_s": float(sum(r["wall_s"] for r in results.values()))}
 
 
 def label_transfer_dsc(

@@ -12,19 +12,16 @@ versions the tests hold these to.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parents[1] / "csrc" / "host" / "tiffcodec.cpp"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "host"
-CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-Wall")
+from magellanmapper_torch.io import _hostbuild
+
+_SRC = _hostbuild.SRC_DIR / "tiffcodec.cpp"
+_BUILD_DIR = _hostbuild.BUILD_DIR
 _ARGTYPES = [ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
              ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64,
              ctypes.POINTER(ctypes.c_int64)]
@@ -37,35 +34,12 @@ _lib: Optional[ctypes.CDLL] = None
 
 def library_path() -> Path:
     """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(_SRC.read_bytes())
-    digest.update(" ".join(CXX_FLAGS).encode())
-    return _BUILD_DIR / f"libtiffcodec_{digest.hexdigest()[:16]}.so"
+    return _hostbuild.library_path(_SRC, _BUILD_DIR)
 
 
 def build() -> Path:
     """Compile the decoders unless a library for this source exists."""
-    out = library_path()
-    if out.exists():
-        return out
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        raise RuntimeError(
-            "no C++ compiler (g++ or c++) on PATH: the native TIFF "
-            "decoders cannot be built")
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # a private name, then a rename: processes building at once each
-    # write their own file and the last rename wins
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(_SRC)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"{cxx} failed with code {proc.returncode} building {_SRC}:\n"
-            f"{proc.stdout}")
-    os.replace(tmp, out)
-    return out
+    return _hostbuild.build(_SRC, _BUILD_DIR)
 
 
 def library() -> ctypes.CDLL:

@@ -7,10 +7,13 @@ around it.
 import_only [--set_meta resolutions=z,y,x] [--prefix out]`` imports a
 (multi-page, OME-) TIFF into ``<prefix or stack>_image5d.npy`` and its
 metadata (:func:`~magellanmapper_torch.io.importer.import_tiff`); the
-vendor formats (``.czi``, ``.lif``, ``.nd2``, ``.oib``, ``.oif``,
-``.ims``) raise naming the reader they need. ``--proc load`` returns the
-image; ``--proc export_tif`` and ``export_raw`` write its first time
-point as ``<prefix or image base>.tif`` and the whole array as ``.raw``;
+vendor formats (``.czi``, ``.lif`` (its ``--series``), ``.nd2``,
+``.oib``, ``.oif``, ``.ims``) import by extension through the port's
+copies of the reference's readers
+(:data:`~magellanmapper_torch.io.importer.VENDOR_IMPORTERS`).
+``--proc load`` returns the image; ``--proc export_tif`` and
+``export_raw`` write its first time point as ``<prefix or image
+base>.tif`` and the whole array as ``.raw``;
 ``--proc export_blobs`` writes ``blobs.npz`` as ``<base>_blobs.csv``.
 ``--proc extract [--offset x,y,z] [--plane xy|xz|yz]`` saves the plane at
 the offset's z (default 0) as ``<base>_plane<plane><z>.npy``; ``--proc
@@ -880,10 +883,11 @@ def process_host_task(rc: RunConfig):
     planes' paths) and ``animated`` (the animation's path)."""
     path = rc.filenames[0]
     if rc.proc == "import_only":
-        fn = importer.VENDOR_IMPORTERS.get(
-            os.path.splitext(path)[1].lower(), importer.import_tiff)
+        ext = os.path.splitext(path)[1].lower()
+        fn = importer.VENDOR_IMPORTERS.get(ext, importer.import_tiff)
+        kwargs = {"series": rc.series} if ext == ".lif" else {}
         return fn(path, out_path=rc.prefix or path,
-                  resolutions=rc.resolutions)
+                  resolutions=rc.resolutions, **kwargs)
     if rc.proc == "export_blobs":
         return export_rois.blobs_to_csv(rc)
     img5d = load_image(rc)

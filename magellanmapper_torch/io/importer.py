@@ -9,9 +9,11 @@ groups (:func:`setup_import_multipage`, :func:`setup_import_metadata`,
 same files import to the same ``.npy`` archives and metadata as the
 reference's.
 
-The vendor formats (CZI, LIF, ND2, OIB, OIF, IMS) need readers the port
-does not have yet (``czi_lif``, ``nd2``, ``oib``, ``hdf5``/
-``hdf5_native`` and ``jp2k``); their importers raise naming them.
+The vendor formats import through the port's copies of the reference's
+readers: :func:`import_czi` and :func:`import_lif` (``czi_lif``),
+:func:`import_nd2` (``nd2`` with ``jp2k``), :func:`import_oib` and
+:func:`import_oif` (``oib``) and :func:`import_ims` (``hdf5`` with
+``hdf5_native``), with the reference's signatures.
 """
 
 from __future__ import annotations
@@ -144,25 +146,85 @@ def import_tiff(
                            resolutions=_res_list(resolutions))
 
 
-def _vendor(fmt: str, reader: str):
-    def importer(path, *args, **kwargs):
-        raise NotImplementedError(
-            f"{fmt} import needs the reference's {reader} reader, which "
-            "magellanmapper_torch does not have yet (ROADMAP queue 1, "
-            "item 11: the vendor readers); import with "
-            "magellanmapper_tpu.io.importer, or convert to TIFF")
-    importer.__name__ = f"import_{fmt.lower()}"
-    importer.__doc__ = f"{fmt} import: raises (the {reader} reader is " \
-        "not ported yet)."
-    return importer
+def _write_vendor(path, out_path, arr, meta, resolutions,
+                  channels_first=False) -> np_io.Image5d:
+    """Write a vendor reader's array as an image5d, its calibration unless
+    ``resolutions`` are given; ``channels_first`` readers return
+    ``(C, Z, Y, X)``, moved to ``(Z, Y, X, C)``."""
+    if channels_first and arr.ndim == 4:
+        arr = np.moveaxis(arr, 0, -1)
+    return np_io.write_npy(
+        out_path or path, arr[None],
+        resolutions=_res_list(resolutions or meta.get("resolutions")))
 
 
-import_czi = _vendor("CZI", "io.czi_lif")
-import_lif = _vendor("LIF", "io.czi_lif")
-import_nd2 = _vendor("ND2", "io.nd2 (with io.jp2k)")
-import_oib = _vendor("OIB", "io.oib")
-import_oif = _vendor("OIF", "io.oib")
-import_ims = _vendor("IMS", "io.hdf5 (and io.hdf5_native)")
+def import_czi(
+        path: str, out_path: Optional[str] = None,
+        resolutions: Optional[Sequence[float]] = None) -> np_io.Image5d:
+    """Import a Zeiss CZI file into a memmapped image5d through the
+    pure-Python ZISRAW reader (:func:`.czi_lif.read_czi`)."""
+    from magellanmapper_torch.io import czi_lif
+    arr, meta = czi_lif.read_czi(path)
+    return _write_vendor(path, out_path, arr, meta, resolutions)
+
+
+def import_lif(
+        path: str, out_path: Optional[str] = None, series: int = 0,
+        resolutions: Optional[Sequence[float]] = None) -> np_io.Image5d:
+    """Import one series of a Leica LIF file into a memmapped image5d
+    (:func:`.czi_lif.read_lif`)."""
+    from magellanmapper_torch.io import czi_lif
+    arr, meta = czi_lif.read_lif(path, series=series)
+    return _write_vendor(path, out_path, arr, meta, resolutions)
+
+
+def import_nd2(
+        path: str, out_path: Optional[str] = None,
+        resolutions: Optional[Sequence[float]] = None) -> np_io.Image5d:
+    """Import a Nikon ND2 file into a memmapped image5d through the
+    chunk-map reader, or the JPEG 2000 route for legacy files
+    (:func:`.nd2.read_nd2`); compressed chunk-map planes raise."""
+    from magellanmapper_torch.io import nd2
+    arr, meta = nd2.read_nd2(path)
+    return _write_vendor(path, out_path, arr, meta, resolutions,
+                         channels_first=True)
+
+
+def import_oib(
+        path: str, out_path: Optional[str] = None,
+        resolutions: Optional[Sequence[float]] = None) -> np_io.Image5d:
+    """Import an Olympus OIB archive (OLE2 compound file of per-plane
+    TIFFs) through :func:`.oib.read_oib`."""
+    from magellanmapper_torch.io import oib
+    arr, meta = oib.read_oib(path)
+    return _write_vendor(path, out_path, arr, meta, resolutions,
+                         channels_first=True)
+
+
+def import_oif(
+        path: str, out_path: Optional[str] = None,
+        resolutions: Optional[Sequence[float]] = None) -> np_io.Image5d:
+    """Import an Olympus OIF main file and its ``.files`` plane
+    directory through :func:`.oib.read_oif`."""
+    from magellanmapper_torch.io import oib
+    arr, meta = oib.read_oif(path)
+    return _write_vendor(path, out_path, arr, meta, resolutions,
+                         channels_first=True)
+
+
+def import_ims(
+        path: str, out_path: Optional[str] = None,
+        resolution_level: int = 0,
+        resolutions: Optional[Sequence[float]] = None) -> np_io.Image5d:
+    """Import an Imaris IMS (HDF5) volume through the pure-Python HDF5
+    reader, or the system libhdf5 for 'latest'-profile files
+    (:func:`.hdf5.read_ims`)."""
+    from magellanmapper_torch.io import hdf5
+    arr, meta = hdf5.read_ims(path, resolution_level=resolution_level)
+    return _write_vendor(path, out_path, arr, meta, resolutions,
+                         channels_first=True)
+
+
 #: the vendor formats' importers by file extension
 VENDOR_IMPORTERS = {".czi": import_czi, ".lif": import_lif,
                     ".nd2": import_nd2, ".oib": import_oib,

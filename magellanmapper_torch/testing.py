@@ -10,6 +10,8 @@ set cut from a volume for stitching."""
 
 from __future__ import annotations
 
+import struct
+import zlib
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -512,3 +514,505 @@ def sens_ppv(
     sens = tp / len(truth) if len(truth) else 0.0
     ppv = tp / len(blobs) if len(blobs) else 0.0
     return sens, ppv
+
+
+# -- vendor files built byte by byte from their specifications --------------
+#
+# Copies of the builders of the reference's reader tests
+# (``tests/test_czi_lif.py``, ``test_nd2.py``, ``test_nd2_legacy.py``,
+# ``test_oib.py``, ``test_hdf5_ims.py``, ``test_hdf5_native.py``), so
+# the readers are held to the formats and not to their own writers.
+
+def same_outcome(want_fn, got_fn):
+    """Run the reference's reader (``want_fn``) and the port's
+    (``got_fn``): both raise an exception of the same type and message,
+    or both return equal results (arrays of equal dtype and values,
+    dicts, tuples and lists equal item by item). Returns the port's."""
+    def run(fn):
+        try:
+            return True, fn()
+        except Exception as err:  # noqa: BLE001 - compared below
+            return False, (type(err).__name__, str(err))
+
+    (ok_want, want), (ok_got, got) = run(want_fn), run(got_fn)
+    assert ok_want == ok_got, (want, got)
+    if not ok_want:
+        assert want == got, (want, got)
+        return got
+    _assert_same(want, got)
+    return got
+
+
+def _assert_same(want, got, where="result"):
+    if isinstance(want, np.ndarray) or isinstance(got, np.ndarray):
+        want, got = np.asarray(want), np.asarray(got)
+        assert want.dtype == got.dtype, (where, want.dtype, got.dtype)
+        np.testing.assert_array_equal(got, want, err_msg=where)
+    elif isinstance(want, dict):
+        assert isinstance(got, dict) and set(want) == set(got), (
+            where, sorted(want), sorted(got))
+        for k in want:
+            _assert_same(want[k], got[k], f"{where}[{k!r}]")
+    elif isinstance(want, (tuple, list)):
+        assert type(want) is type(got) and len(want) == len(got), where
+        for i, (a, b) in enumerate(zip(want, got)):
+            _assert_same(a, b, f"{where}[{i}]")
+    else:
+        assert want == got and type(want) is type(got), (where, want, got)
+
+
+def czi_segment(sid: bytes, payload: bytes) -> bytes:
+    """A ZISRAW segment: 16-byte id, allocated and used sizes, payload
+    padded to 32 bytes."""
+    alloc = (len(payload) + 31) // 32 * 32
+    return (sid.ljust(16, b"\x00") + struct.pack("<qq", alloc, len(payload))
+            + payload.ljust(alloc, b"\x00"))
+
+
+def czi_subblock(data: bytes, dims, pixel_type=1, compression=0,
+                 pyramid_type=0, stored_override=None) -> bytes:
+    """DV subblock payload per spec: SubBlock fixed part (MetadataSize,
+    AttachmentSize, DataSize), directory entry (schema 'DV', PixelType,
+    FilePosition/FilePart, Compression, PyramidType+spare, DimensionCount,
+    DimensionEntryDV1 list), padding to >=256, then data."""
+    entry = (b"DV" + struct.pack("<i", pixel_type) + b"\x00" * 12
+             + struct.pack("<i", compression)
+             + bytes([pyramid_type]) + b"\x00" * 5
+             + struct.pack("<i", len(dims)))
+    for name, start, size in dims:
+        stored = size if stored_override is None else stored_override.get(
+            name.decode(), size)
+        entry += (name.ljust(4, b"\x00") + struct.pack("<ii", start, size)
+                  + struct.pack("<fi", float(start), stored))
+    head = struct.pack("<ii", 0, 0) + struct.pack("<q", len(data)) + entry
+    return head + b"\x00" * (max(256, len(head)) - len(head)) + data
+
+
+def czi_metadata(xml: bytes) -> bytes:
+    """ZISRAWMETADATA payload: XmlSize, AttachmentSize, 248 spare bytes,
+    then the XML."""
+    return struct.pack("<ii", len(xml), 0) + b"\x00" * 248 + xml
+
+
+#: ND2 chunk magic and the chunk map's signature
+ND2_MAGIC = 0x0ABECEDA
+ND2_SIG = b"ND2 CHUNK MAP SIGNATURE 0000001!"
+
+
+def nd2_chunk(name: bytes, data: bytes) -> bytes:
+    return struct.pack("<IIQ", ND2_MAGIC, len(name), len(data)) + name + data
+
+
+def lv_item(name: str, value, dtype: int) -> bytes:
+    """One scalar item of ND2's lite-variant metadata."""
+    wname = (name + "\x00").encode("utf-16-le")
+    head = struct.pack("<BB", dtype, len(name) + 1) + wname
+    fmt = {1: "<B", 2: "<i", 3: "<I", 5: "<Q", 6: "<d"}
+    if dtype == 1:
+        return head + struct.pack("<B", int(value))
+    if dtype in fmt:
+        return head + struct.pack(fmt[dtype], value)
+    if dtype == 8:
+        return head + (value + "\x00").encode("utf-16-le")
+    raise ValueError(dtype)
+
+
+def lv_level(name: str, items: list) -> bytes:
+    """A nested lite-variant level: ``<count:u32> <byte_len:u64>``, the
+    items, a trailing u64 offset index."""
+    body = b"".join(items)
+    wname = (name + "\x00").encode("utf-16-le")
+    head = struct.pack("<BB", 11, len(name) + 1) + wname
+    index = struct.pack("<%dQ" % len(items), *range(len(items)))
+    return (head + struct.pack("<IQ", len(items), len(body) + len(index))
+            + body + index)
+
+
+def nd2_attributes(width, height, comp=1, bpc=16, n_seq=1, stride=None,
+                   compression=None) -> bytes:
+    stride = stride if stride is not None else width * comp * (bpc // 8)
+    items = [lv_item("uiWidth", width, 3), lv_item("uiWidthBytes", stride, 3),
+             lv_item("uiHeight", height, 3), lv_item("uiComp", comp, 3),
+             lv_item("uiBpcInMemory", bpc, 3),
+             lv_item("uiBpcSignificant", bpc, 3),
+             lv_item("uiSequenceCount", n_seq, 3)]
+    if compression is not None:
+        items.append(lv_item("eCompression", compression, 2))
+    return lv_level("SLxImageAttributes", items)
+
+
+def nd2_bytes(planes, attrs: bytes, extra_chunks=(), stride=None) -> bytes:
+    """A chunk-map ND2: signature chunk, attribute and plane chunks, the
+    chunk map and the 40-byte tail."""
+    chunks = [(b"ND2 FILE SIGNATURE CHUNK NAME01!", b"Ver3.0\x00"),
+              (b"ImageAttributesLV!", attrs)]
+    for i, plane in enumerate(planes):
+        if stride is None:
+            pix = plane.tobytes()
+        else:
+            pix = b"".join(
+                r.tobytes().ljust(stride, b"\x00")
+                for r in plane.reshape(plane.shape[0], -1))
+        chunks.append((b"ImageDataSeq|%d!" % i,
+                       struct.pack("<d", 1000.0 * i) + pix))
+    chunks.extend(extra_chunks)
+    blob = b""
+    offsets = {}
+    for name, data in chunks:
+        offsets[name] = len(blob)
+        blob += nd2_chunk(name, data)
+    map_data = b"".join(name + struct.pack("<QQ", off, 16 + len(name))
+                        for name, off in offsets.items())
+    map_data += ND2_SIG + struct.pack("<QQ", 0, 0)
+    map_offset = len(blob)
+    blob += nd2_chunk(ND2_SIG, map_data)
+    return blob + ND2_SIG + struct.pack("<Q", map_offset)
+
+
+def jp2_box(btype: bytes, payload: bytes) -> bytes:
+    return struct.pack(">I", 8 + len(payload)) + btype + payload
+
+
+def jp2_xlbox(btype: bytes, payload: bytes) -> bytes:
+    """Extended-length box: length field 1 + u64 XLBox length."""
+    return (struct.pack(">I", 1) + btype
+            + struct.pack(">Q", 16 + len(payload)) + payload)
+
+
+def jp2_header(h: int, w: int, nc: int = 1, bpc: int = 16,
+               res_box: bytes = b"") -> bytes:
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc - 1, 7,
+                                        0, 0))
+    colr = jp2_box(b"colr", struct.pack(">BbBI", 1, 0, 0, 17))
+    return jp2_box(b"jp2h", ihdr + colr + res_box)
+
+
+def jp2_resc(ppm_num: int, ppm_den: int, exp: int) -> bytes:
+    """Capture-resolution superbox: the same grid density on both axes."""
+    return jp2_box(b"res ", jp2_box(b"resc", struct.pack(
+        ">HHHHbb", ppm_num, ppm_den, ppm_num, ppm_den, exp, exp)))
+
+
+#: the JP2 signature box and a file-type box, as legacy ND2 files open
+JP2_SIG = b"\x00\x00\x00\x0cjP  \r\n\x87\n"
+JP2_FTYP = jp2_box(b"ftyp", b"jp2 " + struct.pack(">I", 0) + b"jp2 ")
+
+# compound files (v3: 512-byte sectors, 64-byte mini sectors)
+_SS, _MS = 512, 64
+_END, _FREE, _FATSECT = 0xFFFFFFFE, 0xFFFFFFFF, 0xFFFFFFFD
+OLE_MAGIC = b"\xd0\xcf\x11\xe0\xa1\xb1\x1a\xe1"
+
+
+def _dir_entry(name: str, obj_type: int, start: int, size: int,
+               child: int = _FREE) -> bytes:
+    wname = name.encode("utf-16-le") + b"\x00\x00"
+    e = bytearray(128)
+    e[:len(wname)] = wname
+    struct.pack_into("<H", e, 64, len(wname))
+    e[66] = obj_type
+    e[67] = 1
+    struct.pack_into("<III", e, 68, _FREE, _FREE, child)
+    struct.pack_into("<I", e, 116, start)
+    struct.pack_into("<Q", e, 120, size)
+    return bytes(e)
+
+
+def cfbf_bytes(streams) -> bytes:
+    """A v3 compound file (OIB's container) of ``{name: bytes}``; streams
+    under 4096 bytes go through the mini stream and mini FAT."""
+    big = {n: d for n, d in streams.items() if len(d) >= 4096}
+    small = {n: d for n, d in streams.items() if len(d) < 4096}
+    mini_container = b""
+    mini_start = {}
+    mini_fat = []
+    for name, data in small.items():
+        n_minis = max(1, -(-len(data) // _MS))
+        mini_start[name] = len(mini_fat)
+        mini_fat += [len(mini_fat) + i + 1 for i in range(n_minis - 1)]
+        mini_fat.append(_END)
+        mini_container += data.ljust(n_minis * _MS, b"\x00")
+    sectors = []
+    fat = []
+
+    def add_chain(data: bytes) -> int:
+        n = max(1, -(-len(data) // _SS))
+        first = len(sectors)
+        for i in range(n):
+            sectors.append(data[i * _SS:(i + 1) * _SS].ljust(_SS, b"\x00"))
+            fat.append(first + i + 1 if i < n - 1 else _END)
+        return first
+
+    big_start = {n: add_chain(d) for n, d in big.items()}
+    mini_cont_start = add_chain(mini_container) if mini_container else _END
+    minifat_start = (add_chain(struct.pack("<%dI" % len(mini_fat),
+                                           *mini_fat))
+                     if mini_fat else _END)
+    entries = [_dir_entry("Root Entry", 5, mini_cont_start,
+                          len(mini_container), child=1)]
+    for name, data in streams.items():
+        start = big_start[name] if name in big else mini_start[name]
+        entries.append(_dir_entry(name, 2, start, len(data)))
+    dir_start = add_chain(b"".join(entries))
+    per = _SS // 4
+    n_fat = -(-(len(sectors) + 1) // per)
+    fat_start = len(sectors)
+    fat += [_FATSECT] * n_fat
+    words = fat + [_FREE] * (n_fat * per - len(fat))
+    sectors += [struct.pack("<%dI" % per, *words[i * per:(i + 1) * per])
+                for i in range(n_fat)]
+    header = bytearray(512)
+    header[:8] = OLE_MAGIC
+    struct.pack_into("<HHHH", header, 26, 3, 0xFFFE, 9, 6)
+    struct.pack_into("<II", header, 44, n_fat, dir_start)
+    struct.pack_into("<IIIII", header, 56, 4096, minifat_start,
+                     1 if mini_fat else 0, _END, 0)
+    difat = [fat_start + i for i in range(n_fat)]
+    struct.pack_into("<109I", header, 76, *(difat + [_FREE] * (109 - n_fat)))
+    return bytes(header) + b"".join(sectors)
+
+
+def tiff_bytes(plane: np.ndarray) -> bytes:
+    """A one-page uncompressed TIFF of ``plane``, written by the port."""
+    import os
+    import tempfile
+
+    from magellanmapper_torch.io import tiff
+
+    fd, path = tempfile.mkstemp(suffix=".tif")
+    os.close(fd)
+    try:
+        tiff.write_tiff(path, plane[None])
+        with open(path, "rb") as f:
+            return f.read()
+    finally:
+        os.unlink(path)
+
+
+def oif_files(directory: str, planes: np.ndarray, name: str = "img",
+              ini_extra: str = "") -> str:
+    """An OIF main file (UTF-16 INI: x/y calibration 0.62, z interval
+    1.5) beside its ``.oif.files`` directory of one TIFF a plane of the
+    ``(Z, Y, X)`` ``planes``; returns the main file's path."""
+    import os
+
+    from magellanmapper_torch.io import tiff
+
+    files = os.path.join(directory, f"{name}.oif.files")
+    os.makedirs(files)
+    for z in range(planes.shape[0]):
+        tiff.write_tiff(os.path.join(files, f"s_C001Z{z + 1:03d}.tif"),
+                        planes[z][None])
+    ini = ("[Reference Image Parameter]\nWidthConvertValue=0.62\n"
+           "[Axis 3 Parameters Common]\n"
+           'AxisCode="Z"\nInterval=1.5\n' + ini_extra)
+    main = os.path.join(directory, f"{name}.oif")
+    with open(main, "wb") as f:
+        f.write(b"\xff\xfe" + ini.encode("utf-16-le"))
+    return main
+
+
+def s1(text: str) -> np.ndarray:
+    """An Imaris-style one-char-per-element string attribute."""
+    return np.frombuffer(text.encode(), "S1")
+
+
+class H5Builder:
+    """An HDF5 file byte by byte: superblock v0, v1 object headers,
+    symbol-table groups, contiguous and chunked (v1 B-tree; gzip,
+    shuffle) datasets, v1 attributes."""
+
+    UNDEF = 0xFFFFFFFFFFFFFFFF
+    SIGNATURE = b"\x89HDF\r\n\x1a\n"
+
+    def __init__(self):
+        self.buf = bytearray(96)
+
+    def add(self, data: bytes) -> int:
+        while len(self.buf) % 8:
+            self.buf.append(0)
+        addr = len(self.buf)
+        self.buf += data
+        return addr
+
+    @staticmethod
+    def msg(mtype: int, body: bytes) -> bytes:
+        pad = (-len(body)) % 8
+        return (struct.pack("<HHB3x", mtype, len(body) + pad, 0) + body
+                + b"\x00" * pad)
+
+    @staticmethod
+    def dataspace(shape) -> bytes:
+        return (struct.pack("<BB6x", 1, len(shape))
+                + b"".join(struct.pack("<Q", s) for s in shape))
+
+    @staticmethod
+    def datatype(dt) -> bytes:
+        dt = np.dtype(dt)
+        if dt.kind in "ui":
+            cls, bits = 0, 0x08 if dt.kind == "i" else 0
+            props = struct.pack("<HH", 0, dt.itemsize * 8)
+        elif dt.kind == "f":
+            cls, bits = 1, 0x20
+            props = struct.pack("<HHBBBBH", 0, dt.itemsize * 8, 0, 23, 23,
+                                8, 127)
+        elif dt.kind == "S":
+            cls, bits, props = 3, 0, b""
+        else:
+            raise ValueError(dt)
+        return struct.pack("<BBBBI", (1 << 4) | cls, bits, 0, 0,
+                           dt.itemsize) + props
+
+    def attribute(self, name: str, value) -> bytes:
+        value = np.asarray(value)
+        nb = name.encode() + b"\x00"
+        dt = self.datatype(value.dtype)
+        ds = self.dataspace(value.shape)
+
+        def p8(b):
+            return b + b"\x00" * ((-len(b)) % 8)
+
+        return (struct.pack("<BxHHH", 1, len(nb), len(dt), len(ds))
+                + p8(nb) + p8(dt) + p8(ds) + value.tobytes())
+
+    def object_header(self, messages) -> int:
+        body = b"".join(messages)
+        return self.add(struct.pack("<BxHII4x", 1, len(messages), 1,
+                                    len(body)) + body)
+
+    def dataset(self, arr: np.ndarray, attrs=None, chunk=None, gzip=False,
+                shuffle=False, extra_msgs=()) -> int:
+        msgs = [self.msg(0x0001, self.dataspace(arr.shape)),
+                self.msg(0x0003, self.datatype(arr.dtype))]
+        if chunk is None:
+            addr = self.add(arr.tobytes())
+            msgs.append(self.msg(0x0008, struct.pack("<BBQQ", 3, 1, addr,
+                                                     arr.nbytes)))
+        else:
+            filters = ([2] if shuffle else []) + ([1] if gzip else [])
+            if filters:
+                fb = struct.pack("<BB6x", 1, len(filters))
+                for fid in filters:
+                    vals = (1,) if fid == 1 else (arr.itemsize,)
+                    fb += struct.pack("<HHHH", fid, 0, 1, len(vals))
+                    fb += b"".join(struct.pack("<I", v) for v in vals)
+                    fb += b"\x00" * 4 * (len(vals) % 2)
+                msgs.append(self.msg(0x000B, fb))
+            entries = []
+            for offs in np.ndindex(*[-(-s // c) for s, c in
+                                     zip(arr.shape, chunk)]):
+                origin = [o * c for o, c in zip(offs, chunk)]
+                block = np.zeros(chunk, arr.dtype)
+                sl = tuple(slice(o, min(o + c, s))
+                           for o, c, s in zip(origin, chunk, arr.shape))
+                block[tuple(slice(0, s.stop - s.start) for s in sl)] = \
+                    arr[sl]
+                raw = block.tobytes()
+                if shuffle:
+                    raw = np.frombuffer(raw, np.uint8).reshape(
+                        -1, arr.itemsize).T.tobytes()
+                if gzip:
+                    raw = zlib.compress(raw)
+                entries.append((len(raw), origin, self.add(raw)))
+            node = struct.pack("<4sBBH", b"TREE", 1, 0, len(entries))
+            node += struct.pack("<QQ", self.UNDEF, self.UNDEF)
+            for size, origin, caddr in entries:
+                node += struct.pack("<II", size, 0)
+                node += b"".join(struct.pack("<Q", o) for o in origin)
+                node += struct.pack("<QQ", 0, caddr)
+            node += struct.pack("<II", 0, 0) + b"\x00" * 8 * (arr.ndim + 1)
+            layout = struct.pack("<BBBQ", 3, 2, arr.ndim + 1, self.add(node))
+            layout += b"".join(struct.pack("<I", c) for c in chunk)
+            msgs.append(self.msg(0x0008, layout + struct.pack(
+                "<I", arr.itemsize)))
+        msgs += list(extra_msgs)
+        for name, val in (attrs or {}).items():
+            msgs.append(self.msg(0x000C, self.attribute(name, val)))
+        return self.object_header(msgs)
+
+    def group(self, children, attrs=None) -> int:
+        """``children``: ``{name: object header address}``."""
+        heap_data = bytearray(8)
+        offsets = {}
+        for name in children:
+            offsets[name] = len(heap_data)
+            nb = name.encode() + b"\x00"
+            heap_data += nb + b"\x00" * ((-len(nb)) % 8)
+        heap_data_addr = self.add(bytes(heap_data))
+        heap = self.add(struct.pack("<4sB3xQQQ", b"HEAP", 0, len(heap_data),
+                                    len(heap_data), heap_data_addr))
+        snod = struct.pack("<4sBBH", b"SNOD", 1, 0, len(children))
+        for name in sorted(children):
+            snod += struct.pack("<QQ", offsets[name], children[name])
+            snod += b"\x00" * 24
+        snod_addr = self.add(snod)
+        node = struct.pack("<4sBBH", b"TREE", 0, 0, 1)
+        node += struct.pack("<QQQQQ", self.UNDEF, self.UNDEF, 0, snod_addr,
+                            0)
+        msgs = [self.msg(0x0011, struct.pack("<QQ", self.add(node), heap))]
+        for name, val in (attrs or {}).items():
+            msgs.append(self.msg(0x000C, self.attribute(name, val)))
+        return self.object_header(msgs)
+
+    def finish(self, root_addr: int) -> bytes:
+        sb = bytearray(96)
+        sb[:8] = self.SIGNATURE
+        sb[13] = sb[14] = 8
+        struct.pack_into("<HH", sb, 16, 4, 16)
+        struct.pack_into("<QQQQQ", sb, 24, 0, 0, len(self.buf), self.UNDEF,
+                         0)
+        struct.pack_into("<Q", sb, 64, root_addr)
+        struct.pack_into("<I", sb, 72, 1)
+        self.buf[:96] = sb
+        return bytes(self.buf)
+
+
+def ims_bytes(vols, sizes=None, ext=None, chunk=(2, 4, 4)) -> bytes:
+    """An Imaris-layout file (``DataSet/ResolutionLevel 0/TimePoint 0/
+    Channel N/Data``, chunk-padded and gzipped, with ``ImageSize*``
+    attributes, and ``DataSetInfo/Image`` attributes) by
+    :class:`H5Builder`."""
+    b = H5Builder()
+    channels = {}
+    for ci, vol in enumerate(vols):
+        padded = np.zeros([-(-s // c) * c for s, c in zip(vol.shape, chunk)],
+                          vol.dtype)
+        padded[tuple(slice(0, s) for s in vol.shape)] = vol
+        attrs = {f"ImageSize{ax}": s1(str(s))
+                 for ax, s in zip("ZYX", vol.shape)}
+        channels[f"Channel {ci}"] = b.group(
+            {"Data": b.dataset(padded, chunk=chunk, gzip=True)}, attrs=attrs)
+    dataset = b.group({"ResolutionLevel 0": b.group(
+        {"TimePoint 0": b.group(channels)})})
+    img_attrs = {}
+    if sizes:
+        img_attrs.update({ax: s1(str(s)) for ax, s in zip("XYZ", sizes)})
+    for i, (lo, hi) in enumerate(ext or ()):
+        img_attrs[f"ExtMin{i}"] = s1(str(lo))
+        img_attrs[f"ExtMax{i}"] = s1(str(hi))
+    info = b.group({"Image": b.group({}, attrs=img_attrs)})
+    return b.finish(b.group({"DataSet": dataset, "DataSetInfo": info}))
+
+
+def write_ims(path: str, vols, sizes_zyx, libver: str = "earliest",
+              ext=None, chunks=None, gzip=None, shuffle=False) -> str:
+    """An Imaris-shaped file written by the system libhdf5
+    (:class:`~magellanmapper_torch.io.hdf5_native.NativeHdf5Writer`):
+    each ``(Z, Y, X)`` volume of ``vols`` as ``Channel N/Data`` with
+    ``ImageSize*`` attributes, ``DataSetInfo/Image`` sizes and the
+    ``ext`` attributes (``ExtMin0`` ...); contiguous unless ``chunks``."""
+    from magellanmapper_torch.io import hdf5_native
+
+    with hdf5_native.NativeHdf5Writer(path, libver=libver) as w:
+        base = "DataSet/ResolutionLevel 0/TimePoint 0"
+        for ci, vol in enumerate(vols):
+            ch = f"{base}/Channel {ci}"
+            w.write_dataset(f"{ch}/Data", vol, chunks=chunks, gzip=gzip,
+                            shuffle=shuffle)
+            for ax, size in zip("ZYX", sizes_zyx):
+                w.write_attr(ch, f"ImageSize{ax}", str(size))
+        w.create_group("DataSetInfo/Image")
+        for ax, size in zip("ZYX", sizes_zyx):
+            w.write_attr("DataSetInfo/Image", ax, str(size))
+        for key, val in (ext or {}).items():
+            w.write_attr("DataSetInfo/Image", key, str(val))
+    return path

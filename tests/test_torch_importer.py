@@ -1,8 +1,8 @@
 """The port's importer (``magellanmapper_torch.io.importer``) and the rest
 of its ``io.np_io`` against the reference's: the same TIFF, OME-TIFF, RAW,
 plane and channel files import to equal ``.npy`` archives and metadata,
-the name and metadata helpers return the same, and the vendor formats
-raise naming the reader they need."""
+the name and metadata helpers return the same, and each vendor format
+imports to the reference's archive."""
 
 import os
 import types
@@ -277,14 +277,54 @@ def test_assign_metadata_copy(tmp_path):
             mod.assign_metadata(img, md)
 
 
-@pytest.mark.parametrize("ext,reader", [
-    (".czi", "czi_lif"), (".lif", "czi_lif"), (".nd2", "nd2"),
-    (".oib", "oib"), (".oif", "oib"), (".ims", "hdf5")])
-def test_vendor_formats_raise_by_name(tmp_path, ext, reader):
+def _vendor_file(tmp_path, ext, vol):
+    """A two-channel ``(Z, Y, X, C)`` ``vol`` as a small file of a vendor
+    format, calibrated where the format carries it."""
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import czi_lif
+    path = str(tmp_path / f"src{ext}")
+    chans = np.moveaxis(vol, -1, 0)
+    if ext == ".czi":
+        czi_lif.write_czi(path, vol, resolutions=(2.0, 0.5, 0.5))
+    elif ext == ".lif":
+        czi_lif.write_lif(path, vol, resolutions=(2.0, 0.5, 0.5))
+    elif ext == ".nd2":
+        data = testing.nd2_bytes(list(vol), testing.nd2_attributes(
+            vol.shape[2], vol.shape[1], comp=2, n_seq=vol.shape[0]))
+    elif ext == ".oib":
+        data = testing.cfbf_bytes({
+            f"s_C{c + 1:03d}Z{z + 1:03d}.tif": testing.tiff_bytes(
+                chans[c, z]) for c in range(2) for z in range(len(vol))})
+    elif ext == ".oif":
+        path = testing.oif_files(str(tmp_path), chans[0], name="src")
+        for z in range(len(vol)):
+            (tmp_path / "src.oif.files" / f"s_C002Z{z + 1:03d}.tif"
+             ).write_bytes(testing.tiff_bytes(chans[1, z]))
+    else:
+        data = testing.ims_bytes(list(chans), ext=[(0, 9), (0, 6), (0, 8)])
+    if ext in (".nd2", ".oib", ".ims"):
+        with open(path, "wb") as f:
+            f.write(data)
+    return path
+
+
+@pytest.mark.parametrize("ext", [".czi", ".lif", ".nd2", ".oib", ".oif",
+                                 ".ims"])
+def test_vendor_formats_import_as_reference(tmp_path, ext):
+    """Each vendor importer (``import_czi`` ... ``import_ims``) writes the
+    reference importer's archive and metadata from the same two-channel
+    file, channels last; the by-name stubs they replace are gone."""
+    vol = np.random.default_rng(3).integers(0, 4000, (4, 6, 9, 2)).astype(
+        np.uint16)
+    src = _vendor_file(tmp_path, ext, vol)
     fn = getattr(importer, f"import_{ext[1:]}")
-    with pytest.raises(NotImplementedError, match=reader):
-        fn(str(tmp_path / f"img{ext}"), resolutions=(1.0, 1.0, 1.0))
-    assert fn.__name__ == f"import_{ext[1:]}"
+    assert fn is importer.VENDOR_IMPORTERS[ext]
+    got, want = _both(
+        tmp_path, lambda out: fn(src, out_path=out),
+        lambda out: getattr(ref_importer, f"import_{ext[1:]}")(
+            src, out_path=out))
+    _same_archive(got, want)
+    np.testing.assert_array_equal(np.asarray(got.img)[0], vol)
 
 
 # -- the rest of np_io -------------------------------------------------------

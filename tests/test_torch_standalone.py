@@ -25,7 +25,7 @@ from magellanmapper_tpu.io import yaml_io as ref_yaml_io
 from magellanmapper_tpu.settings import grid_search_prof as ref_gs_prof
 from magellanmapper_tpu.settings import roi_prof as ref_roi_prof
 from magellanmapper_tpu.utils import libmag as ref_libmag
-from magellanmapper_torch import testing
+from magellanmapper_torch import entry, testing
 from magellanmapper_torch.atlas import (
     atlas_refiner, edge_seg, gauntlet, ontology, reg_engine, register,
     transformer)
@@ -671,6 +671,9 @@ def _entry_points(tmp_path):
         "volumes_by_id": lambda: register.volumes_by_id([img]),
         "cli.main labels_diff": lambda: cli.main(
             ["--img", img, img, "--register", "labels_diff"]),
+        "run_gauntlet_suite": lambda: gauntlet.run_gauntlet_suite(
+            (20, 28, 28), seeds=(0,), truncated_seed=None),
+        "entry": lambda: entry.entry(),
     }
 
 
@@ -697,7 +700,8 @@ def _entry_points(tmp_path):
     "labels_to_markers_blob", "borders_distance",
     "signed_distance_transform", "remove_bg_from_dil_fg",
     "interpolate_contours", "measure_label_overlap", "labels_distance",
-    "volumes_by_id", "cli.main labels_diff"])
+    "volumes_by_id", "cli.main labels_diff", "run_gauntlet_suite",
+    "entry"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()
@@ -803,24 +807,48 @@ out_raw = cli.main(["--img", spec, "--proc", "export_raw", "--prefix",
                     spec + "_raw"])
 df = cli.main(["--img", spec, "--proc", "export_blobs", "--prefix",
                blobs_base])
-for ext in (".czi", ".lif", ".nd2", ".oib", ".oif", ".ims"):
-    try:
-        cli.main(["--img", "x" + ext, "--proc", "import_only"])
-    except NotImplementedError as err:
-        assert "reader" in str(err), err
-    else:
-        raise AssertionError(ext)
+vendor = [cli.main(["--img", src, "--proc", "import_only"]).img.shape
+          for src in sys.argv[4:]]
+assert len(vendor) == 6, vendor
 loaded_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "magellanmapper_tpu"))
 assert not loaded_mods, loaded_mods
-print(img.img.shape, loaded.img.shape, out_tif, out_raw, len(df))
+print(img.img.shape, loaded.img.shape, out_tif, out_raw, len(df), vendor)
 """
+
+
+def _vendor_files(directory, vol):
+    """``vol`` as a CZI, LIF, ND2, OIB, OIF and IMS file each, built by
+    the port's writers and ``testing``'s byte-level builders."""
+    from magellanmapper_torch.io import czi_lif
+    paths = [str(directory / "czi.czi"), str(directory / "lif.lif")]
+    czi_lif.write_czi(paths[0], vol, resolutions=(5.0, 1.5, 1.5))
+    czi_lif.write_lif(paths[1], vol, resolutions=(5.0, 1.5, 1.5))
+    files = {
+        "nd2.nd2": testing.nd2_bytes(list(vol), testing.nd2_attributes(
+            vol.shape[2], vol.shape[1], n_seq=len(vol))),
+        "oib.oib": testing.cfbf_bytes({
+            f"s_C001Z{z + 1:03d}.tif": testing.tiff_bytes(vol[z])
+            for z in range(len(vol))}),
+        "ims.ims": testing.ims_bytes([vol], ext=[(0, 18), (0, 20), (0, 6)]),
+    }
+    for name, data in files.items():
+        (directory / name).write_bytes(data)
+        paths.append(str(directory / name))
+    paths.insert(4, testing.oif_files(str(directory), vol, name="oif"))
+    return paths
+
+
+def _same_image5d(got, want):
+    np.testing.assert_array_equal(np.asarray(got.img), np.asarray(want.img))
+    assert got.meta.get("resolutions") == want.meta.get("resolutions")
 
 
 def test_host_cli_tasks_match_the_reference_without_it(tmp_path):
     """``--proc import_only|load|export_tif|export_raw|export_blobs`` in a
     fresh interpreter, on the host (no ``--device``, no card asked for),
-    with neither jax nor the reference package loaded; their files equal
+    with neither jax nor the reference package loaded, ``import_only``
+    also of a CZI, LIF, ND2, OIB, OIF and IMS file; their files equal
     the reference CLI's on copies of the same inputs."""
     rng = np.random.default_rng(9)
     vol = rng.integers(0, 3000, (6, 20, 18)).astype(np.uint16)
@@ -839,12 +867,19 @@ def test_host_cli_tasks_match_the_reference_without_it(tmp_path):
         archive.save_archive()
         paths[sub] = (str(d / "stack.tif"), str(d / "spec.npy"),
                       str(d / "p"))
+        vendor = d / "vendor"
+        vendor.mkdir()
+        paths[sub] += tuple(_vendor_files(vendor, vol))
     out = subprocess.run(
         [sys.executable, "-c", _HOST_TASKS_ALONE, *paths["port"]],
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "(1, 6, 20, 18)" in out.stdout and "(1, 2, 5, 4)" in out.stdout
-    tif, spec, base = paths["ref"]
+    for got, want in zip(paths["port"][3:], paths["ref"][3:]):
+        ref_cli.main(["--img", want, "--proc", "import_only"])
+        _same_image5d(np_io.read_file(os.path.splitext(got)[0]),
+                      ref_np_io.read_file(os.path.splitext(want)[0]))
+    tif, spec, base = paths["ref"][:3]
     ref_cli.main(["--img", tif, "--proc", "import_only", "--set_meta",
                   "resolutions=5.0,1.5,1.5"])
     ref_cli.main(["--img", spec, "--proc", "export_tif"])

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 
 from magellanmapper_tpu.io import tiff as ref_tiff
-from magellanmapper_torch.io import _tiffcodec, tiff
+from magellanmapper_torch.io import _hostbuild, _tiffcodec, tiff
 
 _DTYPES = [np.uint8, np.uint16, np.int16, np.uint32, np.int32, np.float32,
            np.float64]
@@ -274,7 +274,7 @@ def test_no_python_fallback_when_the_build_fails(tmp_path, monkeypatch):
     tiff.write_tiff(path, arr, compression="lzw")
     monkeypatch.setattr(_tiffcodec, "_lib", None)
     monkeypatch.setattr(_tiffcodec, "_BUILD_DIR", tmp_path / "nobuild")
-    monkeypatch.setattr(_tiffcodec.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_hostbuild.shutil, "which", lambda name: None)
     with pytest.raises(RuntimeError, match="C\\+\\+ compiler"):
         tiff.read_tiff(path)
     # uncompressed and deflate strips need no native code

@@ -180,8 +180,43 @@ result, on any fault. Phases:
    in ``annotate``'s range, the Chrome trace read back naming K1, K3 and
    K4 inside the range on the device; ``entry.entry``'s step once on the
    card (launches of the ``profile`` path);
-15. a JSON line of per-kernel results (launches summed over the paths,
+15. the study tables (:func:`study_tables`): twelve brains, six of
+   ``WT`` and six of ``het`` (``null``, the third key of
+   ``config.GROUPS_NUMERIC``, reads back from a CSV as missing), on phase
+   6's 25 um labels, each a seeded Poisson heat map drawn on the card
+   (1.6 nuclei a labelled voxel; 30% more in 20 seeded regions of the
+   second condition that expect 1,000 or more) and measured by
+   ``vols.measure_labels_metrics`` on the card (one brain through
+   ``--register vol_stats``, equal to the direct call, floats within
+   1e-5); the tables merged by ``python -m magellanmapper_torch.io.cli
+   --df merge_csvs`` in a fresh interpreter beside
+   ``clrstats.meas_group_stats`` by ``ttest``, ``wilcoxon``, ``gee`` and
+   ``linregr`` (seconds each; the t-test must call 18 or more of the
+   planted regions at BH-adjusted p < 0.05 with a positive effect, and at
+   most 5% of the others), then ``--df append_csvs_cols --groups``,
+   ``zscore``, ``pivot_table``, ``exps_by_region``, ``divide_cols``,
+   ``melt_cols``, ``replace_vals`` and ``normalize`` (its ratios equal
+   ``divide_cols'``) and ``--register combine_cols``, ``zscores``,
+   ``coefvar``, ``melt_cols``, ``pivot_conds``, ``meas_improvement`` (on
+   the t-test's table) and ``smoothing_peaks`` (on ``smooth_labels``'
+   metrics at filter sizes 1-3 on a central crop) through the CLI in this
+   process, each returning its table and writing its file where the
+   reference writes one; ``reg_tasks.build_labels_diff_images`` of the
+   conditions' mean density on the card (ms and peak memory), equal bit
+   for bit to the host loop (``vols.map_meas_to_labels``) over 66 central
+   planes (its seconds) and at every planted region to the pivoted
+   table's difference; ``load_env.check_accelerator()`` reporting
+   ``gpu``; ``extract_blocks`` on a float32 memmap of the detect slice's
+   first 32 block windows equal to numpy slicing (MB/s of both, two
+   turns). The matplotlib tasks (``--register plot_region_dev``,
+   ``plot_lateral_unlabeled``, ``plot_intens_nuc``,
+   ``plot_cluster_blobs``, ``clrstats.plot_volcano``) are named as not
+   run; the CPU tests hold them. Launches: ``stats``, 0 each;
+16. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
+
+``python3 chip_smoke.py --study-tables`` runs phase 15 alone, on the
+seed-0 pair's labels at 25 um and the detect slice's volume.
 
 ``python3 chip_smoke.py --gauntlet-suite`` runs the reference's
 gauntlet suite alone instead: ``run_gauntlet_suite`` on (160, 240, 200)
@@ -425,6 +460,40 @@ TRACE_RANGE = "detect_block"
 #: pair (``gauntlet.py:453-478``)
 SUITE_SEEDS = (0, 10)
 SUITE_TRUNCATED = 0
+#: the study tables (phase 15): twelve brains, six a condition (keys of
+#: ``config.GROUPS_NUMERIC``; not its "null", which pandas' CSV reader,
+#: and so every table task of both packages, reads back as missing), on
+#: phase 6's 25 um labels; Poisson
+#: nuclei at ``STUDY_NUCLEI_PER_VOXEL`` a labelled voxel, uniform over the
+#: brain as the specimen's lattice of nuclei is (1.6 a 25 um voxel is
+#: about 100,000 a cubic millimetre, the order of a mouse brain's), and
+#: ``STUDY_EFFECT`` more in ``STUDY_PLANTED`` seeded regions of the
+#: second condition, drawn among the regions expecting at least
+#: ``STUDY_MIN_NUCLEI`` a brain; the t-test must call at least
+#: ``STUDY_MIN_CALLED`` of them at BH-adjusted p < ``STUDY_ALPHA`` and at
+#: most ``STUDY_MAX_FALSE`` of the other regions
+STUDY_CONDS = ("WT", "het")
+STUDY_BRAINS = 6
+STUDY_NUCLEI_PER_VOXEL = 1.6
+STUDY_EFFECT = 0.30
+STUDY_PLANTED = 20
+STUDY_MIN_NUCLEI = 1000
+STUDY_MIN_CALLED = 18
+STUDY_ALPHA = 0.05
+STUDY_MAX_FALSE = 0.05
+STUDY_MODELS = ("ttest", "wilcoxon", "gee", "linregr")
+#: the host loop (``vols.map_meas_to_labels``) paints the difference
+#: image over this many central planes of the 25 um labels (the whole
+#: image takes it a tenth of a second a region), to hold the card's image
+#: there bit for bit
+STUDY_LOOP_PLANES = 66
+#: ``smooth_labels(metrics=True)``'s filter sizes on a central crop of the
+#: labels (each axis a quarter), the table ``--register smoothing_peaks``
+#: reads
+STUDY_FILTER_SIZES = (1, 2, 3)
+#: ``extract_blocks``: the detect slice's first block windows, from a
+#: float32 memmap of the planes they cover
+STUDY_EXTRACT_BLOCKS = 32
 
 
 def fail(msg: str) -> None:
@@ -1165,19 +1234,14 @@ def specimen_chain(torch, pair, work, launches):
     return blobs, vol
 
 
-def vol_stats_25um(torch, pair, blobs):
-    """``measure_labels_metrics`` once on the card at the Allen CCFv3
-    25 um atlas's size: the pair's ground-truth labels resized there at
-    order 0 and split by a coarse grid into several hundred IDs (the left
-    half negative, as a mirrored annotation), the fixed image resized as
-    the intensity, and the specimen's blobs as an int32 heat map; fails
-    unless the regions' sums equal the heat map's and the labels'."""
+def ccf25_labels(torch, pair):
+    """The pair's ground-truth labels resized to the Allen CCFv3 25 um
+    atlas's size at order 0 and split by a coarse grid into several
+    hundred IDs (the left half negative, as a mirrored annotation), and
+    the fixed image resized as the intensity: ``(labels, intensity)``,
+    int32 and float32 on the host."""
     from magellanmapper_torch import device as dev_mod
-    from magellanmapper_torch.atlas import ontology
-    from magellanmapper_torch.cv import cv_nd
-    from magellanmapper_torch.io import np_io
     from magellanmapper_torch.ops import resize
-    from magellanmapper_torch.stats import vols
 
     dev = dev_mod.resolve("cuda")
     gt = torch.from_numpy(pair["labels_fixed_gt"]).to(dev)
@@ -1192,6 +1256,20 @@ def vol_stats_25um(torch, pair, blobs):
     labels = (labels * side).to(torch.int32).cpu().numpy()
     intensity = resize.resize(torch.from_numpy(pair["fixed"]).to(dev),
                               CCF25_SHAPE).cpu().numpy()
+    return labels, intensity
+
+
+def vol_stats_25um(torch, pair, blobs):
+    """``measure_labels_metrics`` once on the card at the Allen CCFv3
+    25 um atlas's size (:func:`ccf25_labels`), with the specimen's blobs
+    as an int32 heat map; fails unless the regions' sums equal the heat
+    map's and the labels'. Returns the labels and intensity."""
+    from magellanmapper_torch.atlas import ontology
+    from magellanmapper_torch.cv import cv_nd
+    from magellanmapper_torch.io import np_io
+    from magellanmapper_torch.stats import vols
+
+    labels, intensity = ccf25_labels(torch, pair)
     scaling = np_io.find_scaling(
         tuple(s * SPEC_FACTOR for s in REG_SHAPE), CCF25_SHAPE)
     heat = cv_nd.build_heat_map(
@@ -1248,6 +1326,7 @@ def vol_stats_25um(torch, pair, blobs):
     if not np.array_equal(got, want, equal_nan=True):
         fail("vol_stats 25um: the card's cluster columns differ from the "
              "CPU's")
+    return labels, intensity
 
 
 def gauntlet_checks(name, res):
@@ -3349,6 +3428,374 @@ def profiler_path(torch, vol, work, launches):
         fail("profiler: entry()'s step gave no or non-finite blobs")
 
 
+def study_brains(torch, labels, intensity, work):
+    """The study's twelve brains (``STUDY_CONDS`` x ``STUDY_BRAINS``) on
+    the 25 um ``labels``: each a seeded Poisson heat map drawn on the
+    card, measured by ``vols.measure_labels_metrics`` on the card and
+    written as ``--register vol_stats`` writes it
+    (``<brain>_vols.csv``); the first brain goes through ``--register
+    vol_stats`` itself (its registered images written beside it), and its
+    table must equal the direct call's (floats within ``TASK_RTOL``: the
+    card's float sums add in no fixed order). Returns the brains' names,
+    conditions, table paths, the planted regions, the regions' IDs and
+    expected nuclei, and the walls (with the float columns of the CLI's
+    table that equal the direct call's bit for bit)."""
+    from magellanmapper_torch.io import cli, sitk_io
+    from magellanmapper_torch.stats import vols
+
+    dev = torch.device("cuda")
+    lab = torch.from_numpy(labels).to(dev).abs()
+    ids, counts = torch.unique(lab, return_counts=True)
+    ids, counts = ids[1:].cpu().numpy(), counts[1:].cpu().numpy()
+    expect = counts * STUDY_NUCLEI_PER_VOXEL
+    rng = np.random.default_rng(SEED)
+    planted = np.sort(rng.choice(ids[expect >= STUDY_MIN_NUCLEI],
+                                 STUDY_PLANTED, replace=False))
+    base = (lab != 0).to(torch.float32) * STUDY_NUCLEI_PER_VOXEL
+    boost = torch.isin(lab, torch.from_numpy(planted).to(dev))
+    rates = {STUDY_CONDS[0]: base,
+             STUDY_CONDS[1]: base * torch.where(boost, 1 + STUDY_EFFECT, 1)}
+    del lab, boost
+    names, conds, paths, walls = [], [], [], {}
+    for i in range(2 * STUDY_BRAINS):
+        cond = STUDY_CONDS[i // STUDY_BRAINS]
+        name = f"{cond}{i % STUDY_BRAINS + 1}"
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1 + i)
+        heat = torch.poisson(rates[cond], generator=gen).to(
+            torch.int32).cpu().numpy()
+        img = os.path.join(work, f"{name}.npy")
+        t0 = time.perf_counter()
+        df = vols.measure_labels_metrics(intensity, labels, heat_map=heat,
+                                         device="cuda")
+        walls[f"{name}_s"] = time.perf_counter() - t0
+        if i == 0:
+            sitk_io.write_reg_images({
+                "atlasVolume.mhd": sitk_io.MedImage(intensity),
+                "annotation.mhd": sitk_io.MedImage(labels),
+                "heat.mhd": sitk_io.MedImage(heat)}, img)
+            t0 = time.perf_counter()
+            got = cli.main(["--img", img, "--register", "vol_stats",
+                            "--device", "cuda"])
+            walls["vol_stats_cli_s"] = time.perf_counter() - t0
+            # float sums on the card add in no fixed order: integers
+            # equal, floats within TASK_RTOL
+            if not same_table(got, df):
+                fail("study: --register vol_stats's table differs from "
+                     "measure_labels_metrics on the same images")
+            walls["vol_stats_cli_float_cols_bit_equal"] = [
+                c for c in df.columns if df[c].dtype.kind == "f"
+                and np.array_equal(df[c].to_numpy(), got[c].to_numpy(),
+                                   equal_nan=True)]
+        else:
+            df.to_csv(os.path.join(work, f"{name}_vols.csv"), index=False)
+        names.append(name)
+        conds.append(cond)
+        paths.append(os.path.join(work, f"{name}_vols.csv"))
+    del rates, base
+    return names, conds, paths, planted, expect, ids, walls
+
+
+def smoothing_table(labels, work):
+    """``smooth_labels(metrics=True)`` on a central crop of ``labels``
+    (each axis a quarter) at ``STUDY_FILTER_SIZES``: the aggregated rows,
+    written as ``smoothing.csv`` (``config.PATH_SMOOTHING_METRICS``).
+    Returns its path and the crop's number of labels."""
+    import pandas as pd
+
+    from magellanmapper_torch.atlas import atlas_refiner
+    from magellanmapper_torch.settings import config
+
+    crop = tuple(slice(s // 2 - s // 8, s // 2 + s // 8)
+                 for s in labels.shape)
+    rows = []
+    for size in STUDY_FILTER_SIZES:
+        smoothed = np.array(labels[crop])
+        aggr, _ = atlas_refiner.smooth_labels(smoothed, size, metrics=True,
+                                              device="cuda")
+        rows.append(aggr)
+    path = os.path.join(work, config.PATH_SMOOTHING_METRICS)
+    pd.concat(rows, ignore_index=True).to_csv(path, index=False)
+    return path, len(np.unique(labels[crop])) - 1
+
+
+def run_task(walls, name, argv, out=None):
+    """``cli.main(argv)`` in this process, its wall in ``walls[name]``;
+    fails unless it returns a result and writes ``out`` when given."""
+    from magellanmapper_torch.io import cli
+
+    t0 = time.perf_counter()
+    res = cli.main(argv)
+    walls[name] = time.perf_counter() - t0
+    if res is None or (hasattr(res, "__len__") and not len(res)):
+        fail(f"study: {name} returned no result")
+    if out is not None and not os.path.isfile(out):
+        fail(f"study: {name} did not write {out}")
+    return res
+
+
+def study_tables(torch, labels, intensity, vol, work, launches):
+    """Phase 15, the study tables: twelve brains' ``vol_stats`` tables
+    (:func:`study_brains`), merged, reshaped and normalised by ``--df``
+    tasks and summarised by the ``--register`` table tasks through the
+    CLI; ``clrstats.meas_group_stats`` over every region by each of
+    ``STUDY_MODELS``, the t-test gated on the planted regions; the
+    difference image of the conditions' mean density painted on the card
+    by ``reg_tasks.build_labels_diff_images`` (held bit for bit against
+    the host loop on ``STUDY_LOOP_PLANES`` central planes, and at each
+    planted region against the pivoted table); ``load_env``'s probe; and
+    ``extract_blocks`` on a float32 memmap against numpy slicing. Prints
+    each task's wall and the phase's."""
+    import io
+
+    import pandas as pd
+
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch.atlas import reg_tasks
+    from magellanmapper_torch.cv import stack_detect as sd
+    from magellanmapper_torch.io import _blockio, load_env
+    from magellanmapper_torch.stats import clrstats, vols
+
+    t_phase = time.perf_counter()
+    dev_mod.reset_launches()
+    walls = {}
+    names, conds, paths, planted, expect, ids, brain_walls = study_brains(
+        torch, labels, intensity, work)
+    walls["brains_s"] = time.perf_counter() - t_phase
+    print(f"study: {len(names)} brains on {labels.shape} labels, "
+          f"{len(ids)} regions ({int(np.sum(expect >= STUDY_MIN_NUCLEI))} "
+          f"expecting {STUDY_MIN_NUCLEI}+ nuclei), planted "
+          f"{planted.tolist()}; " + json.dumps(brain_walls), flush=True)
+
+    # each brain's table with its sample and condition (the study's sample
+    # sheet), merged through the entry point
+    study_paths = []
+    for name, cond, path in zip(names, conds, paths):
+        df = pd.read_csv(path)
+        df.insert(0, "Condition", cond)
+        df.insert(0, "Sample", name)
+        study_paths.append(path.replace("_vols.csv", "_study.csv"))
+        df.to_csv(study_paths[-1], index=False)
+    # the merge runs through the entry point in a fresh interpreter while
+    # this one fits the statistics to the same rows concatenated here
+    study = os.path.join(work, "study.csv")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "magellanmapper_torch.io.cli", "--df",
+         "merge_csvs", *study_paths, "--prefix", study],
+        stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True,
+        cwd=ROOT)
+    # the rows as the merged file will read back (a CSV round trip may
+    # move a float's last bit)
+    merged = pd.read_csv(io.StringIO(pd.concat(
+        [pd.read_csv(p) for p in study_paths],
+        ignore_index=True).to_csv(index=False)))
+    stats, model_s = {}, {}
+    for model in STUDY_MODELS:
+        t1 = time.perf_counter()
+        stats[model] = clrstats.meas_group_stats(
+            merged, "Density", conds=list(STUDY_CONDS), model=model)
+        model_s[model] = time.perf_counter() - t1
+    _, err = proc.communicate()
+    walls["df merge_csvs (python -m, beside the statistics)"] = \
+        time.perf_counter() - t0
+    if proc.returncode != 0 or not os.path.isfile(study):
+        fail(f"study: python -m ... --df merge_csvs exited "
+             f"{proc.returncode}: {err[-2000:]}")
+    if not pd.read_csv(study).equals(merged):
+        fail("study: merge_csvs's table differs from the brains' rows")
+
+    def out(name):
+        return os.path.join(work, name)
+
+    df_tasks = (
+        ("df append_csvs_cols", ["--df", "append_csvs_cols", *paths,
+                                 "--groups", *names, "--prefix",
+                                 out("study_wide.csv")], "study_wide.csv"),
+        ("df zscore", ["--df", "zscore", study, "--labels",
+                       "group_cols=Region", "metric_cols=Density,Nuclei",
+                       "--prefix", out("study_z.csv")], "study_z.csv"),
+        ("df pivot_table", ["--df", "pivot_table", study, "--labels",
+                            "index=Region", "columns=Condition",
+                            "values=Density", "--prefix",
+                            out("study_piv.csv")], "study_piv.csv"),
+        ("df exps_by_region", ["--df", "exps_by_region", study], None),
+        ("df divide_cols", ["--df", "divide_cols", out("study_piv.csv"),
+                            "--labels", f"col1={STUDY_CONDS[1]}",
+                            f"col2={STUDY_CONDS[0]}", "name=Ratio",
+                            "--prefix", out("study_ratio.csv")],
+         "study_ratio.csv"),
+        ("df melt_cols", ["--df", "melt_cols", out("study_piv.csv"),
+                          "--labels", "id_cols=Region",
+                          "melt_cols=" + ",".join(STUDY_CONDS), "--prefix",
+                          out("study_long.csv")], "study_long.csv"),
+        ("df replace_vals", ["--df", "replace_vals", out("study_long.csv"),
+                             "--labels", f"vals_from={STUDY_CONDS[0]}",
+                             "vals_to=ctl", "cols=Group", "--prefix",
+                             out("study_ctl.csv")], "study_ctl.csv"),
+        ("df normalize", ["--df", "normalize", out("study_ctl.csv"),
+                          "--labels", "id_cols=Region", "cond_col=Group",
+                          "cond_base=ctl", "metric_cols=Value", "--prefix",
+                          out("study_norm.csv")], "study_norm.csv"),
+    )
+    for name, argv, path in df_tasks:
+        run_task(walls, name, argv, path and out(path))
+    ratio = pd.read_csv(out("study_ratio.csv")).set_index("Region")["Ratio"]
+    norm = pd.read_csv(out("study_norm.csv"))
+    norm = norm[norm["Group"] == STUDY_CONDS[1]].set_index("Region")["Value"]
+    if not np.array_equal(norm.loc[ratio.index].to_numpy(),
+                          ratio.to_numpy()):
+        fail("study: normalize's ratios differ from divide_cols'")
+
+    # the statistics' calls, then the --register table tasks
+    ttest = stats["ttest"]
+    ttest.to_csv(out("study_ttest.csv"), index=False)
+    called = ttest[(ttest["Padj"] < STUDY_ALPHA) & (ttest["Effect"] > 0)]
+    hits = int(np.isin(planted, called["Region"]).sum())
+    others = ttest[~ttest["Region"].isin(planted)]
+    false_share = float(np.mean(others["Padj"] < STUDY_ALPHA))
+    calls = {m: {"regions": len(t), "planted_called": int(np.isin(
+        planted, t[t["Padj"] < STUDY_ALPHA]["Region"]).sum()),
+        "others_called": int(np.sum((t["Padj"] < STUDY_ALPHA)
+                                    & ~t["Region"].isin(planted))),
+        "s": model_s[m]} for m, t in stats.items()}
+    print("study: meas_group_stats of Density " + json.dumps(calls),
+          flush=True)
+    if hits < STUDY_MIN_CALLED or false_share > STUDY_MAX_FALSE:
+        fail(f"study: the t-test called {hits} of {STUDY_PLANTED} planted "
+             f"regions with a positive effect and {false_share:.4f} of the "
+             "others")
+
+    t0 = time.perf_counter()
+    smoothing, n_smoothed = smoothing_table(labels, work)
+    walls["smoothing table"] = time.perf_counter() - t0
+    reg_tasks_ = (
+        ("register combine_cols", study, "study.csv_combined.csv"),
+        ("register zscores", study, "study_zscores.csv"),
+        ("register coefvar", study, None),
+        ("register melt_cols", study, "study.csv_melted.csv"),
+        ("register pivot_conds", study, "study.csv_pivoted.csv"),
+        ("register meas_improvement", out("study_ttest.csv"), None),
+        ("register smoothing_peaks", smoothing, None),
+    )
+    for name, img, path in reg_tasks_:
+        res = run_task(walls, name, ["--img", img, "--register",
+                                     name.split()[1]], path and out(path))
+    print(f"study: smoothing_peaks on smoothing.csv ({n_smoothed} labels, "
+          f"filter sizes {list(STUDY_FILTER_SIZES)}): best row "
+          f"{json.dumps(res.to_dict())}", flush=True)
+
+    # the conditions' mean density difference painted on the card
+    long_df = pd.read_csv(out("study_long.csv"))
+    paint_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        painted = reg_tasks.build_labels_diff_images(
+            labels, long_df, "Value", cond_col="Group", conds=STUDY_CONDS,
+            device="cuda")
+        torch.cuda.synchronize()
+        paint_ms.append((time.perf_counter() - t0) * 1e3)
+    paint_mib = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    written = reg_tasks.build_labels_diff_images(
+        labels, long_df, "Value", cond_col="Group", conds=STUDY_CONDS,
+        out_path=out("study_diff.mhd"), device="cuda")
+    write_s = time.perf_counter() - t0
+    if not np.array_equal(written, painted):
+        fail("study: the difference image changed between calls")
+    del written
+    piv = pd.read_csv(out("study_piv.csv")).set_index("Region")
+    diff = (piv[STUDY_CONDS[1]] - piv[STUDY_CONDS[0]]).dropna()
+    table = pd.DataFrame({"Region": diff.index, "Value": diff.values})
+    z0 = (labels.shape[0] - STUDY_LOOP_PLANES) // 2
+    slab = slice(z0, z0 + STUDY_LOOP_PLANES)
+    t0 = time.perf_counter()
+    loop = vols.map_meas_to_labels(labels[slab], table, "Value")
+    loop_s = time.perf_counter() - t0
+    if painted.dtype != loop.dtype or not np.array_equal(
+            painted[slab], loop):
+        fail("study: the card's difference image differs from the host "
+             "loop's")
+    lab_t = torch.from_numpy(labels).cuda().abs()
+    painted_t = torch.from_numpy(painted).cuda()
+    for region in planted:
+        vals = painted_t[lab_t == int(region)]
+        if not bool((vals == float(diff.loc[region])).all()):
+            fail(f"study: region {region}'s painted value is not its "
+                 "difference in the pivoted table")
+    del lab_t, painted_t
+    slab_vox = int(np.prod(loop.shape))
+    print("study: build_labels_diff_images of the mean Density "
+          + json.dumps({
+              "shape": list(labels.shape), "rows": len(table),
+              "card_ms": paint_ms, "card_peak_device_mib": paint_mib,
+              "card_mvox_per_s": painted.size / min(paint_ms) / 1e3,
+              "with_mhd_write_s": write_s,
+              "host_loop_planes": STUDY_LOOP_PLANES,
+              "host_loop_s": loop_s,
+              "host_loop_mvox_per_s": slab_vox / loop_s / 1e6})
+          + "; equal to the host loop there and to the pivoted table at "
+          "every planted region", flush=True)
+
+    accel = load_env.check_accelerator()
+    print(f"study: load_env.check_accelerator() {json.dumps(accel)}",
+          flush=True)
+    if accel["platform"] != "gpu" or accel["device_count"] < 1:
+        fail(f"study: check_accelerator reported {accel}")
+
+    # extract_blocks: the detect slice's first block windows from a float32
+    # memmap of the planes they cover, against numpy slicing
+    blocks = sd.setup_blocks(sd.roi_profile("lightsheet"), vol.shape,
+                             (1.0, 1.0, 1.0))
+    shape = np.minimum(blocks.max_pixels + blocks.overlap, vol.shape)
+    starts = np.asarray([sd._window_for_block(vol.shape, o, shape)
+                         for o in blocks.sub_rois_offsets.reshape(-1, 3)])
+    starts = starts[:STUDY_EXTRACT_BLOCKS]
+    depth = int(starts[:, 0].max() + shape[0])
+    mm_path = out("slab_f32.npy")
+    mm = np.lib.format.open_memmap(mm_path, "w+", np.float32,
+                                   (depth,) + vol.shape[1:])
+    mm[:] = vol[:depth]
+    mm.flush()
+    del mm
+    t0 = time.perf_counter()
+    _blockio.library()
+    walls["blockio build"] = time.perf_counter() - t0
+    ways = {
+        "extract_blocks": lambda mm: _blockio.extract_blocks(
+            mm, starts, shape),
+        "numpy": lambda mm: np.stack([
+            mm[z:z + shape[0], y:y + shape[1], x:x + shape[2]]
+            for z, y, x in starts])}
+    rates, got = {name: [] for name in ways}, {}
+    for _ in range(2):
+        for name, fn in ways.items():
+            # a fresh mapping each time: each pays its own page faults
+            mm = np.load(mm_path, mmap_mode="r")
+            t0 = time.perf_counter()
+            got[name] = fn(mm)
+            rates[name].append(got[name].nbytes / 1e6
+                               / (time.perf_counter() - t0))
+            del mm
+    print(f"study: {len(starts)} windows of "
+          f"{tuple(int(v) for v in shape)} from a float32 memmap (MB/s, "
+          f"two turns): {json.dumps(rates)}", flush=True)
+    if got["extract_blocks"].dtype != got["numpy"].dtype or \
+            not np.array_equal(got["extract_blocks"], got["numpy"]):
+        fail("study: extract_blocks differs from numpy slicing")
+    del got
+    os.remove(mm_path)
+
+    launches["stats"] = dict(dev_mod.LAUNCHES)
+    print("study: not run on the card (matplotlib absent there): "
+          "--register plot_region_dev, plot_lateral_unlabeled, "
+          "plot_intens_nuc, plot_cluster_blobs and clrstats.plot_volcano; "
+          f"launches {launches['stats']}; task walls {json.dumps(walls)}; "
+          f"phase 15 wall {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def suite_main() -> None:
     """``--gauntlet-suite``: the reference's suite on the card alone."""
     import torch
@@ -3367,6 +3814,38 @@ def suite_main() -> None:
     print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"CUDA {torch.version.cuda}", flush=True)
     gauntlet_suite(SUITE_SEEDS, SUITE_TRUNCATED)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def study_main() -> None:
+    """``--study-tables``: phase 15 alone, on the labels of the seed-0
+    pair at 25 um and the detect slice's volume."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    sys.path.insert(0, ROOT)
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.atlas import gauntlet
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; nvidia-smi: {smi}", flush=True)
+    pair = gauntlet.build_pair(REG_SHAPE, seed=SEED, device="cuda")
+    labels, intensity = ccf25_labels(torch, pair)
+    del pair
+    vol, _ = testing.make_nuclei_volume(SLICE_SHAPE, SEED)
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        study_tables(torch, labels, intensity, vol, tmp, launches)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3533,7 +4012,7 @@ def main() -> None:
     scene, scene_centres = testing.make_specimen(
         pair, SPEC_FACTOR, SEED, "cuda", z_lattice=False, noise=0.0)
     torch.cuda.empty_cache()
-    vol_stats_25um(torch, pair, spec_blobs)
+    ccf25 = vol_stats_25um(torch, pair, spec_blobs)
     torch.cuda.empty_cache()
     gauntlet_suite((SEED,), None)
     register_crop()
@@ -3590,7 +4069,13 @@ def main() -> None:
     # 14. the profiler: one detect block traced, entry()'s step
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         profiler_path(torch, vol, tmp, launches)
-    del vol
+    # 15. the study tables: twelve brains' region tables on phase 6's
+    # 25 um labels through --df and the --register table tasks, the group
+    # statistics, the difference image painted on the card
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        study_tables(torch, *ccf25, vol, tmp, launches)
+    del vol, ccf25
 
     for name in results:
         n = sum(path[name] for path in launches.values())
@@ -3621,10 +4106,14 @@ if __name__ == "__main__":
                         help="checkout whose K4 --k4-times times")
     parser.add_argument("--gauntlet-suite", action="store_true",
                         help="run the reference's gauntlet suite instead")
+    parser.add_argument("--study-tables", action="store_true",
+                        help="run phase 15, the study tables, alone")
     args = parser.parse_args()
     if args.k4_times:
         k4_times(args.root)
     elif args.gauntlet_suite:
         suite_main()
+    elif args.study_tables:
+        study_main()
     else:
         main()

@@ -30,6 +30,7 @@ import torch
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.cv import chunking, detector
+from magellanmapper_torch.io import _blockio
 from magellanmapper_torch.settings import roi_prof
 from magellanmapper_torch.ops import filters, preproc
 
@@ -40,6 +41,10 @@ _logger = logging.getLogger(__name__)
 _RESIDENT_BYTES_BUDGET = 1 << 30
 #: per-axis cap on the device block edge
 _DEVICE_BLOCK_CAP = 256
+#: volume types whose single windows go through the threaded extractor
+#: (the reference's gather ships the narrow integer types as they are)
+_EXTRACTED = tuple(np.dtype(t) for t in (
+    np.uint32, np.int32, np.float32, np.float64))
 
 
 class Blocks(NamedTuple):
@@ -425,7 +430,13 @@ def detect_blobs_blocks(
             return out
 
         def gather(wstart) -> torch.Tensor:
-            """Ship one block window on its own."""
+            """Ship one block window on its own; wider volumes are read
+            and cast to float32 by the threaded extractor, as in the
+            reference's gather (the device step casts to float32 all the
+            same)."""
+            if chan_img.dtype in _EXTRACTED:
+                return to_device(_blockio.extract_blocks(
+                    chan_img, np.asarray([wstart]), (bz, by, bx))[0])
             return to_device(chan_img[wstart[0]:wstart[0] + bz,
                                       wstart[1]:wstart[1] + by,
                                       wstart[2]:wstart[2] + bx])

@@ -1,7 +1,7 @@
 """Command-line entry of the port: image import and export, plane, ROI
 and plot exports, blob detection and the analysis of its blobs, its grid
-search, single-sample atlas registration, and the specimen pipeline
-around it.
+search, atlas registration and construction, the specimen pipeline
+around it, and the regions' tables of a study.
 
 ``python -m magellanmapper_torch.io.cli --img stack.tif --proc
 import_only [--set_meta resolutions=z,y,x] [--prefix out]`` imports a
@@ -119,27 +119,33 @@ the confirmed blobs of the truth database
 writing ``<image>_gridsearch.csv`` as the reference's task does. As in the
 reference, ``--grid_search`` takes precedence over ``--proc``.
 
-The parser takes the reference's flag names
-(``magellanmapper_tpu/io/cli.py:124-194``) for what the port accepts:
-``--img``, ``--proc detect|detect_coloc|coloc_match|classify|transform|
-preprocess|import_only|load|export_tif|export_raw|export_blobs|extract|
-export_rois|export_planes|export_planes_channels|animated``, ``--plot_2d``,
-``--register single|register_rev|make_density_images|
-vol_stats|export_regions|group|import_atlas|new_atlas|
-make_edge_images[_exp]|merge_atlas_segs[_exp]|make_subsegs|
-cluster_blobs|export_common_labels|convert_itksnap_labels|
-make_labels_level|labels_diff[_stats]|labels_dist|smoothing_metrics_aggr|
-plot_knns|plot_smoothing_metrics|export_metrics_compactness|vol_compare|
-overlays|merge_images[_channels]``, ``--classifier``,
-``--roi_profile`` (one per channel), ``--atlas_profile``,
-``--reg_suffixes``, ``--transform``, ``--plane``, ``--labels``,
-``--channel``, ``--series``, ``--prefix``,
-``--subimg_offset``/``--subimg_size``, ``--set_meta resolutions=z,y,x``,
-``--grid_search``, ``--truth_db`` (with ``--grid_search``, the detect
-tasks or ``export_rois``), ``--save_subimg`` (with the detect tasks),
-``--offset``, ``--slice``, ``--delay``, ``--savefig``, ``--plot_labels``
-and ``--device``. Any other flag or task is rejected with a message that
-names it.
+The study tables, on the host whatever ``--device`` says: ``--df
+<task> [tables...]`` runs one of the 13 ``df_io.DFTasks`` (``merge_csvs``,
+``merge_csvs_cols``, ``append_csvs_cols`` with ``--groups``,
+``exps_by_region``, ``melt_cols``, ``pivot_table``, ``sum_cols``,
+``subtract_cols``, ``multiply_cols``, ``divide_cols``, ``normalize``,
+``zscore``, ``replace_vals``) on the tables after its name (else
+``--img``), its columns named by ``--labels``, and writes the result to
+``--prefix`` (:func:`df_task`); ``--img table.csv --register
+smoothing_peaks|combine_cols|zscores|coefvar|melt_cols|pivot_conds|
+meas_improvement|plot_region_dev|plot_lateral_unlabeled|plot_intens_nuc``
+and ``--img image --register plot_cluster_blobs`` summarise and plot the
+regions' tables as the reference does (:func:`register_stats`; the plots
+are matplotlib's).
+
+The parser takes every flag of the reference's
+(``magellanmapper_tpu/io/cli.py:124-194``) with its meaning, and
+``--device``; ``--version`` prints the port's name and version,
+``--seed`` seeds numpy's global generator, ``-v`` sets the root logger to
+DEBUG, and the display and compatibility flags (``--meta``,
+``--prefix_out``, ``--suffix``, ``--size``, ``--db``, ``--cpus``,
+``--load``, ``--theme``, ``--show``, ``--alphas``, ``--vmin``, ``--vmax``,
+``--rgb``) are kept in :class:`RunConfig` as the reference keeps them.
+``--truth_db`` goes with ``--grid_search``, the detect tasks or
+``export_rois``, ``--save_subimg`` with the detect tasks. ``--mesh``,
+``--notify`` and ``--ec2_*`` are rejected naming the ROADMAP item that
+ports them (:data:`NOT_PORTED`), and any other flag or task with a
+message that names it.
 
 ``--device`` picks where the device step runs: ``cuda`` (the default)
 fails without a card, and the CPU, which runs the kernels' plain
@@ -153,7 +159,6 @@ import dataclasses
 import logging
 import os
 from dataclasses import dataclass, field
-from enum import Enum, auto
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -168,12 +173,13 @@ from magellanmapper_torch.cv import (
     classifier as classifier_mod, colocalizer, detector, stack_detect,
     verifier)
 from magellanmapper_torch.io import (
-    export_regions, export_rois, export_stack, importer, naming, np_io,
-    sitk_io, sqlite, tiff)
+    df_io, export_regions, export_rois, export_stack, importer, naming,
+    np_io, sitk_io, sqlite, tiff)
 from magellanmapper_torch.plot import plot_support
 from magellanmapper_torch.settings.atlas_prof import AtlasProfile
+from magellanmapper_torch.settings.config import RegisterTypes
 from magellanmapper_torch.settings.roi_prof import ROIProfile
-from magellanmapper_torch.stats import clustering, mlearn, vols
+from magellanmapper_torch.stats import atlas_stats, clustering, mlearn, vols
 from magellanmapper_torch.utils import libmag
 
 _logger = logging.getLogger(__name__)
@@ -189,50 +195,6 @@ TASKS = ("detect", "detect_coloc", "coloc_match", "classify", "transform",
 DETECT_TASKS = ("detect", "detect_coloc")
 
 
-class RegisterTypes(Enum):
-    """The ``--register`` task names (copy of the reference's
-    ``settings.config.RegisterTypes``)."""
-    SINGLE = auto()
-    GROUP = auto()
-    REGISTER_REV = auto()
-    OVERLAYS = auto()
-    EXPORT_REGIONS = auto()
-    NEW_ATLAS = auto()
-    IMPORT_ATLAS = auto()
-    EXPORT_COMMON_LABELS = auto()
-    CONVERT_ITKSNAP_LABELS = auto()
-    MAKE_EDGE_IMAGES = auto()
-    MAKE_EDGE_IMAGES_EXP = auto()
-    MERGE_ATLAS_SEGS = auto()
-    VOL_STATS = auto()
-    VOL_COMPARE = auto()
-    MAKE_DENSITY_IMAGES = auto()
-    MERGE_ATLAS_SEGS_EXP = auto()
-    MAKE_SUBSEGS = auto()
-    EXPORT_METRICS_COMPACTNESS = auto()
-    PLOT_SMOOTHING_METRICS = auto()
-    SMOOTHING_PEAKS = auto()
-    SMOOTHING_METRICS_AGGR = auto()
-    MERGE_IMAGES = auto()
-    MERGE_IMAGES_CHANNELS = auto()
-    LABELS_DIFF = auto()
-    LABELS_DIFF_STATS = auto()
-    MAKE_LABELS_LEVEL = auto()
-    COMBINE_COLS = auto()
-    ZSCORES = auto()
-    COEFVAR = auto()
-    MELT_COLS = auto()
-    PLOT_REGION_DEV = auto()
-    PLOT_LATERAL_UNLABELED = auto()
-    PLOT_INTENS_NUC = auto()
-    PIVOT_CONDS = auto()
-    MEAS_IMPROVEMENT = auto()
-    CLUSTER_BLOBS = auto()
-    PLOT_KNNS = auto()
-    PLOT_CLUSTER_BLOBS = auto()
-    LABELS_DIST = auto()
-
-
 #: the ``--register`` tasks that compare, merge or plot registered
 #: images and their tables (:func:`register_tables`)
 TABLE_TASKS = (
@@ -244,30 +206,30 @@ TABLE_TASKS = (
     RegisterTypes.EXPORT_METRICS_COMPACTNESS, RegisterTypes.VOL_COMPARE,
     RegisterTypes.OVERLAYS, RegisterTypes.MERGE_IMAGES,
     RegisterTypes.MERGE_IMAGES_CHANNELS)
-#: ``--register`` tasks the port runs
-REGISTER_TASKS = (
-    RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV,
-    RegisterTypes.MAKE_DENSITY_IMAGES, RegisterTypes.VOL_STATS,
-    RegisterTypes.EXPORT_REGIONS, RegisterTypes.GROUP,
-    RegisterTypes.IMPORT_ATLAS, RegisterTypes.NEW_ATLAS,
-    RegisterTypes.MAKE_EDGE_IMAGES, RegisterTypes.MAKE_EDGE_IMAGES_EXP,
-    RegisterTypes.MERGE_ATLAS_SEGS, RegisterTypes.MERGE_ATLAS_SEGS_EXP,
-    RegisterTypes.MAKE_SUBSEGS, RegisterTypes.CLUSTER_BLOBS) + TABLE_TASKS
+#: the ``--register`` tasks over the regions' tables (pandas, scipy and
+#: matplotlib on the host): :func:`register_stats`
+STATS_TASKS = (
+    RegisterTypes.SMOOTHING_PEAKS, RegisterTypes.COMBINE_COLS,
+    RegisterTypes.ZSCORES, RegisterTypes.COEFVAR, RegisterTypes.MELT_COLS,
+    RegisterTypes.PIVOT_CONDS, RegisterTypes.MEAS_IMPROVEMENT,
+    RegisterTypes.PLOT_REGION_DEV, RegisterTypes.PLOT_LATERAL_UNLABELED,
+    RegisterTypes.PLOT_INTENS_NUC, RegisterTypes.PLOT_CLUSTER_BLOBS)
+#: ``--register`` tasks the port runs: all of the reference's
+REGISTER_TASKS = tuple(RegisterTypes)
 #: the tasks that register an atlas directory onto a sample
 PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 #: what the port runs, for the messages that reject the rest
-SUPPORTED = ("--proc detect/detect_coloc/coloc_match/classify/transform/"
-             "preprocess/import_only/load/export_tif/export_raw/"
-             "export_blobs/extract/export_rois/export_planes[_channels]/"
-             "animated, --plot_2d, --grid_search and --register single/"
-             "register_rev/make_density_images/vol_stats/export_regions/"
-             "group/import_atlas/new_atlas/make_edge_images[_exp]/"
-             "merge_atlas_segs[_exp]/make_subsegs/cluster_blobs/"
-             "export_common_labels/convert_itksnap_labels/"
-             "make_labels_level/labels_diff[_stats]/labels_dist/"
-             "smoothing_metrics_aggr/plot_knns/plot_smoothing_metrics/"
-             "export_metrics_compactness/vol_compare/overlays/"
-             "merge_images[_channels]")
+SUPPORTED = ("--proc " + "/".join(TASKS) + ", --plot_2d, --df, "
+             "--grid_search and every --register task")
+#: flags of the reference that the port rejects by name, with the ROADMAP
+#: item that ports them
+NOT_PORTED = {
+    "mesh": "item 10 (parallel/ and the sharded variants)",
+    "notify": "item 12 (cloud stages)",
+    "ec2_start": "item 12 (cloud stages)",
+    "ec2_list": "item 12 (cloud stages)",
+    "ec2_terminate": "item 12 (cloud stages)",
+}
 
 
 @dataclass
@@ -303,6 +265,22 @@ class RunConfig:
     savefig: Optional[str] = None
     plot_labels: Dict[str, str] = field(default_factory=dict)
     plot_2d_task: Optional[str] = None
+    df_task: Optional[List[str]] = None
+    groups: Optional[List[str]] = None
+    size: Optional[List[int]] = None
+    db_path: Optional[str] = None
+    prefix_out: Optional[str] = None
+    suffix: Optional[str] = None
+    verbose: bool = False
+    meta_paths: Optional[List[str]] = None
+    load_data: Dict[str, str] = field(default_factory=dict)
+    cpus: Optional[int] = None
+    show: bool = False
+    theme: Optional[List[str]] = None
+    alphas: Optional[List[float]] = None
+    vmin: Optional[List[float]] = None
+    vmax: Optional[List[float]] = None
+    rgb: bool = False
     device: str = "cuda"
 
 
@@ -321,56 +299,85 @@ def args_to_dict(args: Optional[Sequence[str]]) -> Dict[str, str]:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m magellanmapper_torch.io.cli",
-        description="MagellanMapper blob detection on PyTorch/CUDA")
+        description="MagellanMapper on PyTorch/CUDA")
+    p.add_argument("--version", action="store_true",
+                   help="show the version and exit")
     p.add_argument("--img", nargs="*", help="image path(s)")
+    p.add_argument("--meta", nargs="*", help="metadata path(s)")
     p.add_argument("--prefix", help="output path prefix")
+    p.add_argument("--prefix_out", help="output path prefix when --prefix "
+                   "modifies the input path")
+    p.add_argument("--suffix", help="output path suffix")
     p.add_argument("--channel", nargs="*", type=int, help="channel(s)")
     p.add_argument("--series", type=int, default=0, help="series index")
     p.add_argument("--subimg_offset", nargs="*", help="sub-image offset x,y,z")
     p.add_argument("--subimg_size", nargs="*", help="sub-image size x,y,z")
-    p.add_argument("--truth_db", nargs="*", help="truth DB mode and path")
     p.add_argument("--offset", nargs="*", help="ROI offset x,y,z")
+    p.add_argument("--size", nargs="*", help="ROI size x,y,z")
+    p.add_argument("--db", help="database path")
+    p.add_argument("--truth_db", nargs="*", help="truth DB mode and path")
+    p.add_argument("--cpus", help="worker count")
+    p.add_argument("--load", nargs="*", help="data to load")
     p.add_argument("--proc", nargs="*",
                    help="processing task: detect, detect_coloc, "
                    "coloc_match, classify, transform, preprocess <tasks>, "
                    "import_only, load, export_tif, export_raw, "
                    "export_blobs, extract, export_rois, export_planes, "
                    "export_planes_channels or animated")
+    p.add_argument("--register", help="registration or table task: "
+                   + ", ".join(t.name.lower() for t in RegisterTypes))
+    p.add_argument("--df", nargs="*",
+                   help="data-frame task and its CSV paths: " + ", ".join(
+                       t.name.lower() for t in df_io.DFTasks))
     p.add_argument("--plot_2d", help="2D plot task of a CSV table")
-    p.add_argument("--plot_labels", nargs="*", help="plot labels")
-    p.add_argument("--slice", help="plane range start,stop[,step]")
-    p.add_argument("--delay", type=int, help="animation delay (ms)")
-    p.add_argument("--savefig", help="figure file format")
-    p.add_argument("--register",
-                   help="registration task: single, register_rev, "
-                   "make_density_images, vol_stats, export_regions, group, "
-                   "import_atlas, new_atlas, make_edge_images[_exp], "
-                   "merge_atlas_segs[_exp], make_subsegs, cluster_blobs, "
-                   "export_common_labels, convert_itksnap_labels, "
-                   "make_labels_level, labels_diff[_stats], labels_dist, "
-                   "smoothing_metrics_aggr, plot_knns, "
-                   "plot_smoothing_metrics, export_metrics_compactness, "
-                   "vol_compare, overlays or merge_images[_channels]")
     p.add_argument("--roi_profile", nargs="*", help="ROI profile(s)")
     p.add_argument("--atlas_profile", help="atlas profile")
+    p.add_argument("--grid_search", help="grid search profile")
+    p.add_argument("--theme", nargs="*", help="GUI theme")
+    p.add_argument("--labels", nargs="*", help="labels and table args "
+                   "(path_ref=..., level=..., col1=..., ...)")
+    p.add_argument("--transform", nargs="*", help="transform args "
+                   "(rescale=...)")
     p.add_argument("--reg_suffixes", nargs="*",
                    help="registered image suffixes (atlas=..., "
                    "annotation=...)")
-    p.add_argument("--labels", nargs="*", help="labels args "
-                   "(path_ref=..., level=...)")
-    p.add_argument("--transform", nargs="*", help="transform args "
-                   "(rescale=...)")
-    p.add_argument("--plane", help="plane orientation (xy/xz/yz)")
-    p.add_argument("--grid_search", help="grid search profile")
-    p.add_argument("--classifier", nargs="*",
-                   help="blob classifier model file (--proc classify)")
-    p.add_argument("--save_subimg", action="store_true",
-                   help="save the sub-image that detection read")
+    p.add_argument("--plot_labels", nargs="*", help="plot labels")
     p.add_argument("--set_meta", nargs="*",
                    help="metadata overrides (resolutions=z,y,x)")
+    p.add_argument("--classifier", nargs="*",
+                   help="blob classifier model file (--proc classify)")
+    p.add_argument("--plane", help="plane orientation (xy/xz/yz)")
+    p.add_argument("--show", action="store_true", help="show figures")
+    p.add_argument("--alphas", nargs="*", help="channel alphas")
+    p.add_argument("--vmin", nargs="*", help="display vmin")
+    p.add_argument("--vmax", nargs="*", help="display vmax")
+    p.add_argument("--rgb", action="store_true", help="RGB display")
+    p.add_argument("--seed", type=int, help="seed of numpy's global "
+                   "random generator")
+    p.add_argument("--save_subimg", action="store_true",
+                   help="save the sub-image that detection read")
+    p.add_argument("--slice", help="plane range start,stop[,step]")
+    p.add_argument("--delay", type=int, help="animation delay (ms)")
+    p.add_argument("--savefig", help="figure file format")
+    p.add_argument("--groups", nargs="*", help="group names")
+    p.add_argument("-v", "--verbose", nargs="*", help="verbose logging")
+    for name in NOT_PORTED:
+        p.add_argument(f"--{name}", nargs="*",
+                       help=f"not ported yet: ROADMAP {NOT_PORTED[name]}")
     p.add_argument("--device", default="cuda",
                    help="cuda (default; fails without a card) or cpu")
     return p
+
+
+def df_task_type(name: str) -> "df_io.DFTasks":
+    """The ``DFTasks`` member of a ``--df`` task name; an unknown name
+    raises ``SystemExit`` naming the flag and the known tasks."""
+    try:
+        return df_io.DFTasks[name.upper()]
+    except KeyError:
+        raise SystemExit(
+            f"unknown --df task: {name}; options: " + ", ".join(
+                e.name.lower() for e in df_io.DFTasks)) from None
 
 
 def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
@@ -381,14 +388,30 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
     if unknown:
         raise SystemExit(
             "magellanmapper_torch does not take "
-            f"{' '.join(flags or unknown)}; it supports only {SUPPORTED} "
-            "so far (use magellanmapper_tpu.io.cli for other tasks)")
+            f"{' '.join(flags or unknown)}; it supports {SUPPORTED}")
+    if args.version:
+        import magellanmapper_torch
+        print(f"magellanmapper_torch {magellanmapper_torch.__version__}")
+        raise SystemExit(0)
+    for name, item in NOT_PORTED.items():
+        if getattr(args, name) is not None:
+            raise SystemExit(
+                f"magellanmapper_torch does not take --{name} yet: ROADMAP "
+                f"{item} (use magellanmapper_tpu.io.cli)")
     rc = RunConfig(device=args.device)
     if args.img:
         rc.filenames = list(args.img)
     rc.channel = args.channel
     rc.series = args.series
     rc.prefix = args.prefix
+    rc.prefix_out = args.prefix_out
+    rc.suffix = args.suffix
+    rc.db_path = args.db
+    rc.verbose = args.verbose is not None
+    if rc.verbose:
+        logging.getLogger().setLevel(logging.DEBUG)
+    if args.seed is not None:
+        np.random.seed(args.seed)
 
     def parse_coords(vals):
         if not vals:
@@ -398,13 +421,26 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
     rc.subimg_offsets = parse_coords(args.subimg_offset)
     rc.subimg_sizes = parse_coords(args.subimg_size)
     offsets = parse_coords(args.offset)
+    sizes = parse_coords(args.size)
     rc.offset = offsets[0] if offsets else None
+    rc.size = sizes[0] if sizes else None
     if args.slice:
         rc.slice_vals = [int(v) for v in args.slice.split(",")]
     rc.delay = args.delay
     rc.savefig = args.savefig
     rc.plot_labels = args_to_dict(args.plot_labels)
     rc.plot_2d_task = args.plot_2d
+    rc.df_task = args.df
+    rc.groups = args.groups
+    rc.meta_paths = args.meta
+    rc.load_data = args_to_dict(args.load)
+    rc.cpus = int(args.cpus) if args.cpus else None
+    rc.show = bool(args.show)
+    rc.theme = args.theme
+    rc.alphas = [float(v) for v in args.alphas] if args.alphas else None
+    rc.vmin = [float(v) for v in args.vmin] if args.vmin else None
+    rc.vmax = [float(v) for v in args.vmax] if args.vmax else None
+    rc.rgb = bool(args.rgb)
     meta = args_to_dict(args.set_meta)
     if "resolutions" in meta:
         rc.resolutions = [float(v) for v in meta["resolutions"].split(",")]
@@ -434,25 +470,28 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
         task = f"--register {args.register}"
         rc.register_type = RegisterTypes.__members__.get(
             args.register.upper())
-        if rc.register_type not in REGISTER_TASKS:
+        if rc.register_type is None:
             raise SystemExit(
-                f"magellanmapper_torch runs only {SUPPORTED} so far (got "
-                f"{task}); use magellanmapper_tpu.io.cli for other tasks")
+                f"unknown task {task}; options: " + ", ".join(
+                    t.name.lower() for t in RegisterTypes))
         if rc.register_type in PAIR_TASKS and len(rc.filenames) < 2:
             raise SystemExit(f"{task} needs --img <sample> <atlas_dir>")
     elif rc.plot_2d_task:
         task = f"--plot_2d {rc.plot_2d_task}"
         plot_2d_type(rc.plot_2d_task)
+    elif rc.df_task is not None:
+        if not rc.df_task:
+            raise SystemExit("--df needs a task")
+        task = f"--df {rc.df_task[0]}"
+        df_task_type(rc.df_task[0])
     else:
         task = "--grid_search" if rc.grid_search else (
             f"--proc {rc.proc}" if rc.proc else None)
         if not rc.grid_search and rc.proc not in TASKS:
             raise SystemExit(
-                f"magellanmapper_torch supports only {SUPPORTED} so far "
-                f"(got {task}); use magellanmapper_tpu.io.cli for other "
-                "tasks")
+                f"magellanmapper_torch supports {SUPPORTED} (got {task})")
     by_proc = (rc.register_type is None and not rc.plot_2d_task
-               and not rc.grid_search)
+               and rc.df_task is None and not rc.grid_search)
     detects = by_proc and rc.proc in DETECT_TASKS
     if rc.truth_db and not (rc.grid_search or detects or (
             by_proc and rc.proc == "export_rois")):
@@ -463,7 +502,10 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
         raise SystemExit(
             "magellanmapper_torch takes --save_subimg only with --proc "
             "detect/detect_coloc")
-    if not rc.filenames and rc.register_type is not \
+    has_paths = rc.filenames or (
+        rc.register_type is None and not rc.plot_2d_task
+        and rc.df_task and len(rc.df_task) > 1)
+    if not has_paths and rc.register_type is not \
             RegisterTypes.EXPORT_REGIONS:
         raise SystemExit(f"{task} needs --img")
     return rc
@@ -821,6 +863,139 @@ def register_tables(rc: RunConfig, device):
     return med
 
 
+def register_stats(rc: RunConfig):
+    """The ``--register`` tasks over the regions' tables, on the host
+    (reference ``cli._process_register``), each reading
+    ``filenames[0]``'s table and writing the reference's files:
+    ``smoothing_peaks`` (the row of the best smoothing quality, returned
+    only), ``combine_cols`` (``_combined.csv``), ``zscores``
+    (``<table base>_zscores.csv``), ``coefvar`` (returned only),
+    ``melt_cols`` (``_melted.csv``), ``pivot_conds`` (``_pivoted.csv``),
+    ``meas_improvement`` (``--proc`` args ``col_effect=``, ``col_p=``,
+    ``col_wt=``; returned only) and the matplotlib figures of
+    ``plot_region_dev``, ``plot_lateral_unlabeled``, ``plot_intens_nuc``
+    (every ``--img`` table) and ``plot_cluster_blobs`` (the blobs beside
+    the image, at ``--offset``'s z)."""
+    task = rc.register_type
+    path = rc.filenames[0]
+    out_base = rc.prefix or path
+    if task is RegisterTypes.SMOOTHING_PEAKS:
+        df = pd.read_csv(path)
+        qcol = "SmoothingQuality" if "SmoothingQuality" in df.columns \
+            else "Smoothing_quality"
+        fcol = "Filter" if "Filter" in df.columns else "Filter_size"
+        return atlas_stats.smoothing_peak(df, qcol, fcol)
+    if task is RegisterTypes.COMBINE_COLS:
+        out = df_io.combine_cols(pd.read_csv(path), list(vols.MetricCombos))
+        out.to_csv(out_base + "_combined.csv", index=False)
+        return out
+    if task is RegisterTypes.ZSCORES:
+        return atlas_stats.meas_plot_zscores(
+            path, [m.name for m in vols.VAR_METRICS], ["Region"],
+            [vols.MetricCombos.HOMOGENEITY])
+    if task is RegisterTypes.COEFVAR:
+        return atlas_stats.meas_plot_coefvar(
+            path, ["Region"], "Condition", None, ["Volume"])
+    if task is RegisterTypes.MELT_COLS:
+        df = pd.read_csv(path)
+        id_cols = [c for c in ("Sample", "Region") if c in df.columns]
+        out = df_io.melt_cols(
+            df, id_cols, [c for c in df.columns if c not in id_cols])
+        out.to_csv(out_base + "_melted.csv", index=False)
+        return out
+    if task is RegisterTypes.PIVOT_CONDS:
+        df = pd.read_csv(path)
+        piv, _ = df_io.pivot_with_conditions(
+            df, "Sample", "Condition",
+            "Volume" if "Volume" in df.columns else df.columns[-1])
+        piv.to_csv(out_base + "_pivoted.csv")
+        return piv
+    if task is RegisterTypes.MEAS_IMPROVEMENT:
+        cols = rc.proc_args or {}
+        return atlas_stats.meas_improvement(
+            path, cols.get("col_effect", "Effect"), cols.get("col_p", "P"),
+            col_wt=cols.get("col_wt"))
+    if task is RegisterTypes.PLOT_REGION_DEV:
+        return atlas_stats.plot_region_development(
+            "Volume", pd.read_csv(path))
+    if task is RegisterTypes.PLOT_LATERAL_UNLABELED:
+        return atlas_stats.plot_unlabeled_hemisphere(path, ["Unlabeled"])
+    if task is RegisterTypes.PLOT_INTENS_NUC:
+        return atlas_stats.plot_intensity_nuclei(
+            rc.filenames, ["DensityIntens", "Density"])
+    # plot_cluster_blobs
+    return atlas_stats.plot_clusters_by_label(
+        libmag.combine_paths(path, "blobs.npz"),
+        rc.offset[2] if rc.offset else 0)
+
+
+def df_task(rc: RunConfig):
+    """The ``--df`` tasks over CSV tables (reference ``cli._df_task``), on
+    the host: the tables are the paths after the task's name, else
+    ``--img``; ``--labels`` names the columns (``id_cols=``,
+    ``melt_cols=``, ``group_cols=``, ``metric_cols=``, ``id_col=``,
+    ``index=``, ``columns=``, ``values=``, ``col1=``, ``col2=``,
+    ``name=``, ``cond_col=``, ``cond_base=``, ``vals_from=``,
+    ``vals_to=``, ``cols=``) and ``--groups`` the labels of
+    ``append_csvs_cols``; the result is written to ``--prefix`` when
+    given (``exps_by_region`` returns its tables only). Returns the
+    task's table (``exps_by_region``: a table a measurement)."""
+    tasks = df_io.DFTasks
+    task = df_task_type(rc.df_task[0])
+    paths = rc.df_task[1:] or rc.filenames
+    labels = rc.labels
+    if task is tasks.MERGE_CSVS:
+        return df_io.merge_csvs(paths, rc.prefix)
+    if task is tasks.EXPS_BY_REGION:
+        return df_io.exps_by_regions(paths[0])
+    # the tasks of several tables read them all, the others the first
+    if task in (tasks.APPEND_CSVS_COLS, tasks.MERGE_CSVS_COLS):
+        dfs = [pd.read_csv(p_) for p_ in paths]
+    else:
+        df = pd.read_csv(paths[0])
+    if task is tasks.APPEND_CSVS_COLS:
+        out = df_io.append_cols(
+            dfs, rc.groups or [str(i) for i in range(len(dfs))])
+    elif task is tasks.MERGE_CSVS_COLS:
+        out = df_io.join_dfs(dfs, str(labels.get("id_col", "Sample")))
+    elif task is tasks.MELT_COLS:
+        out = df_io.melt_cols(
+            df, str(labels.get("id_cols", "Region")).split(","),
+            str(labels.get("melt_cols", "")).split(","))
+    elif task is tasks.ZSCORE:
+        out = df_io.zscore_df(
+            df, str(labels.get("group_cols", "Region")).split(","),
+            str(labels.get("metric_cols", "Volume")).split(","))
+    elif task is tasks.PIVOT_TABLE:
+        out = df_io.pivot_table(
+            df, str(labels.get("index", df.columns[0])),
+            str(labels.get("columns", df.columns[1])),
+            str(labels.get("values", df.columns[-1])))
+    elif task in (tasks.SUM_COLS, tasks.SUBTRACT_COLS,
+                  tasks.MULTIPLY_COLS, tasks.DIVIDE_COLS):
+        col1 = str(labels.get("col1", df.columns[-2]))
+        col2 = str(labels.get("col2", df.columns[-1]))
+        fn = {tasks.SUM_COLS: np.add, tasks.SUBTRACT_COLS: np.subtract,
+              tasks.MULTIPLY_COLS: np.multiply,
+              tasks.DIVIDE_COLS: np.divide}[task]
+        name = labels.get("name") or f"{col1}_{task.name.lower()}"
+        df_io.func_to_paired_cols(df, col1, col2, fn, str(name))
+        out = df
+    elif task is tasks.NORMALIZE:
+        out = df_io.normalize_df(
+            df, str(labels.get("id_cols", "Region")).split(","),
+            str(labels.get("cond_col", "Condition")),
+            str(labels.get("cond_base", "ctl")),
+            str(labels.get("metric_cols", "Volume")).split(","))
+    else:  # replace_vals
+        out = df_io.replace_vals(
+            df, labels.get("vals_from"), labels.get("vals_to"),
+            labels.get("cols"))
+    if rc.prefix:
+        df_io.data_frames_to_csv(out, rc.prefix)
+    return out
+
+
 def make_edge_images(rc: RunConfig, device) -> Dict[str, np.ndarray]:
     """The ``--register make_edge_images`` task: the edge images of the
     registered atlas and labels at ``filenames[0]``
@@ -973,9 +1148,16 @@ def main(argv: Optional[Sequence[str]] = None
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
     rc = process_cli_args(argv)
+    if rc.register_type in STATS_TASKS:
+        _logger.info("--register %s on the host",
+                     rc.register_type.name.lower())
+        return register_stats(rc)
     if rc.register_type is None and rc.plot_2d_task:
         _logger.info("--plot_2d %s on the host", rc.plot_2d_task)
         return plot_2d_task(rc)
+    if rc.register_type is None and rc.df_task:
+        _logger.info("--df %s on the host", rc.df_task[0])
+        return df_task(rc)
     if rc.register_type is None and not rc.grid_search \
             and rc.proc in HOST_TASKS:
         _logger.info("--proc %s on the host", rc.proc)

@@ -222,18 +222,27 @@ def assign_blob_regions(
     return np.column_stack([blobs, regions])
 
 
-def update_image5d_np_ver(meta: Dict, ver: int) -> Dict:
+def update_image5d_np_ver(meta: Dict, ver: int,
+                          img: Optional[np.ndarray] = None) -> Dict:
     """Migrate an older metadata archive to the current layout: fills
-    keys added in later versions. Returns the upgraded dict with ``ver``
-    bumped."""
+    keys added in later versions (the near-min/max intensity bounds from
+    ``img`` when given) so archives written by old builds keep loading.
+    Returns the upgraded dict with ``ver`` bumped."""
     meta = dict(meta)
     if ver >= IMAGE5D_NP_VER:
         return meta
+    # <= v9: no separate zoom/magnification
     meta.setdefault("magnification", 1.0)
     meta.setdefault("zoom", 1.0)
+    # <= v11: no near-min/max intensity bounds
     if meta.get("near_min") is None or meta.get("near_max") is None:
-        meta.setdefault("near_min", None)
-        meta.setdefault("near_max", None)
+        if img is not None:
+            near_min, near_max = calc_intensity_bounds(img)
+            meta["near_min"], meta["near_max"] = near_min, near_max
+        else:
+            meta.setdefault("near_min", None)
+            meta.setdefault("near_max", None)
+    # <= v13: no scaling/plane records
     meta.setdefault("scaling", None)
     meta.setdefault("plane", None)
     meta["ver"] = IMAGE5D_NP_VER

@@ -58,3 +58,12 @@ class GridSearchProfile(Profile):
     def get_param_grid(self) -> dict:
         """The active hyperparameter grid (param -> list of values)."""
         return dict(self["hyperparams"] or {})
+
+
+def make_hyperparm_arr(start, stop, num_steps: int, num_col: int,
+                       coli: int, base=1) -> np.ndarray:
+    """2D hyperparameter array varying one column over ``linspace``
+    (reference ``grid_search_prof.make_hyperparm_arr :14``)."""
+    arr = np.ones((num_steps, num_col)) * base
+    arr[:, coli] = np.linspace(start, stop, num_steps)
+    return arr

@@ -4,14 +4,17 @@ Copy of ``Profile`` from ``magellanmapper_tpu/settings/profiles.py``: a
 base dictionary of defaults over which named *modifier* profiles are
 applied left to right from a comma-delimited chain; a profile may also be
 a YAML file whose values override keys, reloaded when its file changes
-(``refresh_profile``).
+(``refresh_profile``). Also ``SettingsDict``, the reference's name for
+that base class, and ``RegParamMap``, one registration stage's
+parameters.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 import os
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 from magellanmapper_torch.io import yaml_io
 
@@ -124,6 +127,10 @@ class Profile(dict):
                 self.add_profiles(chain)
         return stale
 
+    def save_settings(self, path: str):
+        """Persist current settings to YAML."""
+        yaml_io.save_yaml(path, dict(self))
+
 
 def _deep_update(base: dict, mods: dict):
     for key, val in mods.items():
@@ -131,3 +138,44 @@ def _deep_update(base: dict, mods: dict):
             _deep_update(base[key], val)
         else:
             base[key] = val
+
+
+@dataclasses.dataclass
+class RegParamMap:
+    """One registration stage's parameters.
+
+    The reference's ``RegParamMap`` vocabulary (Elastix's names):
+    ``map_name`` selects the transform model, ``metric_similarity`` the
+    loss, ``max_iter`` the optimizer steps per resolution, and the grid
+    fields the B-spline control-point spacing.
+    """
+
+    map_name: str = "affine"
+    #: similarity metric; "AdvancedMattesMutualInformation" or
+    #: "AdvancedNormalizedCorrelation" (reference names preserved).
+    metric_similarity: str = "AdvancedMattesMutualInformation"
+    max_iter: int = 256
+    #: number of multi-resolution pyramid levels.
+    num_resolutions: int = 4
+    #: B-spline grid spacing in voxels at the finest level.
+    grid_space_voxels: Optional[int] = None
+    #: per-level multipliers on grid spacing (coarse->fine).
+    grid_spacing_schedule: Optional[Sequence[float]] = None
+    #: erode the fixed-image mask before use.
+    erode_mask: bool = False
+    #: include a corresponding-points (landmark) distance term.
+    point_based: bool = False
+    #: optimizer learning rate of the registration engine.
+    learning_rate: Optional[float] = None
+
+    def update(self, mods: dict):
+        for key, val in mods.items():
+            setattr(self, key, val)
+        return self
+
+
+class SettingsDict(Profile):
+    """Reference name for the profile base class
+    (``profiles.SettingsDict :37``): a dict with named-modifier deep
+    merging, which :class:`Profile` implements."""
+

@@ -339,8 +339,19 @@ def test_pipeline_cli_parses_as_the_reference(argv):
 @pytest.mark.parametrize("task", ["zscores", "coefvar",
                                   "melt_cols", "no_such_task"])
 def test_other_register_tasks_are_rejected_by_name(task):
+    """A ``--register`` task the port does not run is rejected by name.
+    The port runs all of the reference's tasks, so only an unknown name is
+    rejected; the table tasks once rejected here parse as the
+    reference's."""
+    argv = ["--img", "s.npy", "atlas", "--register", task]
+    if task.upper() in cli.RegisterTypes.__members__:
+        got = cli.process_cli_args(argv + ["--device", "cpu"])
+        want = ref_cli.process_cli_args(argv)
+        assert got.register_type in cli.REGISTER_TASKS
+        assert got.register_type.name == want.register_type.name
+        return
     with pytest.raises(SystemExit, match=f"--register {task}"):
-        cli.process_cli_args(["--img", "s.npy", "atlas", "--register", task])
+        cli.process_cli_args(argv)
 
 
 def test_register_entry_points_ask_for_the_card(pair):

@@ -4,12 +4,14 @@ the command line) against the reference, the port's entry points asking
 for the card by default, and every command-line task in an interpreter
 without jax or the reference package."""
 
+import logging
 import os
 import sqlite3
 import subprocess
 import sys
 
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
@@ -27,8 +29,8 @@ from magellanmapper_tpu.settings import roi_prof as ref_roi_prof
 from magellanmapper_tpu.utils import libmag as ref_libmag
 from magellanmapper_torch import entry, testing
 from magellanmapper_torch.atlas import (
-    atlas_refiner, edge_seg, gauntlet, ontology, reg_engine, register,
-    transformer)
+    atlas_refiner, edge_seg, gauntlet, ontology, reg_engine, reg_tasks,
+    register, transformer)
 from magellanmapper_torch.cv import blobs, chunking, cv_nd, segmenter
 from magellanmapper_torch.cv import (
     classifier, colocalizer, stack_detect, verifier)
@@ -465,19 +467,42 @@ _ACCEPTED = [
      "150"],
     ["--img", "t.csv", "--plot_2d", "bar_plot", "--plot_labels",
      "x_col=a", "y_col=b", "--prefix", "t.png"],
+    ["--df", "merge_csvs", "a.csv", "b.csv", "--prefix", "m.csv"],
+    ["--img", "a.csv", "--df", "normalize", "--labels", "id_cols=Region",
+     "cond_col=Condition", "cond_base=WT", "--prefix", "n.csv"],
+    ["--df", "append_csvs_cols", "a.csv", "b.csv", "--groups", "A", "B"],
+    ["--img", "t.csv", "--register", "zscores"],
+    ["--img", "t.csv", "--register", "meas_improvement", "--proc", "detect",
+     "col_wt=Volume"],
+    ["--img", "v.npy", "--register", "plot_cluster_blobs", "--offset",
+     "1,2,3"],
+    ["--img", "v.npy", "--proc", "detect", "--meta", "m.yml", "--prefix_out",
+     "o", "--suffix", "_s", "--size", "4,5,6", "--db", "d.db", "--cpus", "2",
+     "--load", "blobs", "--theme", "dark", "--show", "--alphas", "0.5",
+     "--vmin", "1", "--vmax", "9", "--rgb", "--seed", "3", "-v"],
 ]
 
 
 @pytest.mark.parametrize("argv", _ACCEPTED)
 def test_cli_parses_as_the_reference(argv):
-    got = cli.process_cli_args(argv + ["--device", "cpu"])
-    want = ref_cli.process_cli_args(argv)
+    root = logging.getLogger()
+    level = root.level
+    try:
+        got = cli.process_cli_args(argv + ["--device", "cpu"])
+        want = ref_cli.process_cli_args(argv)
+    finally:
+        root.setLevel(level)
     for name in ("filenames", "channel", "series", "subimg_offsets",
                  "subimg_sizes", "proc_args", "resolutions", "truth_db",
                  "prefix", "grid_search", "classifier", "save_subimg",
                  "offset", "slice_vals", "delay", "savefig", "plot_labels",
-                 "plot_2d_task"):
+                 "plot_2d_task", "df_task", "groups", "labels", "size",
+                 "db_path", "prefix_out", "suffix", "verbose", "meta_paths",
+                 "load_data", "cpus", "show", "theme", "alphas", "vmin",
+                 "vmax", "rgb"):
         assert getattr(got, name) == getattr(want, name), name
+    assert (got.register_type and got.register_type.name) == (
+        want.register_type and want.register_type.name)
     assert got.proc == (want.proc.name.lower() if want.proc else None)
     assert dict(got.roi_profile) == dict(want.roi_profile)
     assert [dict(p) for p in got.roi_profiles] == [
@@ -487,7 +512,7 @@ def test_cli_parses_as_the_reference(argv):
 
 
 @pytest.mark.parametrize("argv,named", [
-    (["--proc", "detect", "--register", "zscores"], "--register"),
+    (["--proc", "detect", "--register", "no_such_task"], "--register"),
     (["--proc", "detect", "--mesh", "1,1"], "--mesh"),
     (["--proc", "transform", "--save_subimg"], "--save_subimg"),
     (["--proc", "detect", "--df", "sum"], "--df"),
@@ -495,7 +520,7 @@ def test_cli_parses_as_the_reference(argv):
     (["--proc", "detect", "--notify", "x"], "--notify"),
     (["--proc", "no_such_task"], "--proc no_such_task"),
     (["--proc", "transform", "--truth_db", "t.db"], "--truth_db"),
-    (["--register", "coefvar"], "--register"),
+    (["--register", "coefvars"], "--register"),
 ])
 def test_cli_rejects_and_names_what_is_not_ported(argv, named):
     with pytest.raises(SystemExit) as err:
@@ -674,6 +699,9 @@ def _entry_points(tmp_path):
         "run_gauntlet_suite": lambda: gauntlet.run_gauntlet_suite(
             (20, 28, 28), seeds=(0,), truncated_seed=None),
         "entry": lambda: entry.entry(),
+        "build_labels_diff_images": lambda: reg_tasks.build_labels_diff_images(
+            labels, pd.DataFrame({"Region": [1, 1], "Condition": ["a", "b"],
+                                  "Volume": [1.0, 2.0]}), "Volume"),
     }
 
 
@@ -701,10 +729,37 @@ def _entry_points(tmp_path):
     "signed_distance_transform", "remove_bg_from_dil_fg",
     "interpolate_contours", "measure_label_overlap", "labels_distance",
     "volumes_by_id", "cli.main labels_diff", "run_gauntlet_suite",
-    "entry"])
+    "entry", "build_labels_diff_images"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()
+
+
+#: the modules this slice added (stats tables and host runtime)
+_HOST_RUNTIME_MODULES = (
+    "settings/config", "settings/logs", "settings/prefs_prof",
+    "utils/timing", "utils/libmag", "io/packaging", "io/load_env",
+    "io/df_io", "io/_blockio", "brain_globe", "stats/atlas_stats",
+    "stats/clrstats", "atlas/labels_meta", "atlas/reg_tasks")
+
+
+@pytest.mark.parametrize("name", _HOST_RUNTIME_MODULES)
+def test_new_modules_import_neither_jax_nor_the_reference(name):
+    """Each module's import statements (module level and inside its
+    functions) name no ``jax*`` and no ``magellanmapper_tpu*`` module."""
+    import ast
+    path = os.path.join(ROOT, "magellanmapper_torch", name + ".py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    bad = [n for n in names if n.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "orbax", "magellanmapper_tpu")]
+    assert names and not bad, bad
 
 
 _BOTH_TASKS_ALONE = """
@@ -797,9 +852,13 @@ def test_both_cli_tasks_run_without_the_reference(tmp_path):
 _HOST_TASKS_ALONE = """
 import sys
 from magellanmapper_torch.io import cli
-tif, spec, blobs_base = sys.argv[1:4]
+tif, spec, blobs_base, table = sys.argv[1:5]
 img = cli.main(["--img", tif, "--proc", "import_only", "--set_meta",
                 "resolutions=5.0,1.5,1.5"])
+merged = cli.main(["--df", "merge_csvs", table, table, "--prefix",
+                   table + "_merged.csv"])
+zscores = cli.main(["--img", table, "--register", "zscores"])
+assert len(merged) == 2 * len(zscores)
 loaded = cli.main(["--img", tif, "--proc", "load", "--subimg_offset",
                    "1,2,3", "--subimg_size", "4,5,2"])
 out_tif = cli.main(["--img", spec, "--proc", "export_tif"])
@@ -808,13 +867,25 @@ out_raw = cli.main(["--img", spec, "--proc", "export_raw", "--prefix",
 df = cli.main(["--img", spec, "--proc", "export_blobs", "--prefix",
                blobs_base])
 vendor = [cli.main(["--img", src, "--proc", "import_only"]).img.shape
-          for src in sys.argv[4:]]
+          for src in sys.argv[5:]]
 assert len(vendor) == 6, vendor
 loaded_mods = sorted(m for m in sys.modules if m.split(".")[0] in (
     "jax", "jaxlib", "magellanmapper_tpu"))
 assert not loaded_mods, loaded_mods
 print(img.img.shape, loaded.img.shape, out_tif, out_raw, len(df), vendor)
 """
+
+
+def _region_table(seed=4):
+    """A small region table with the columns ``--register zscores``
+    reads."""
+    rng = np.random.default_rng(seed)
+    n = 6
+    return pd.DataFrame({
+        "Sample": np.repeat(["a", "b"], n // 2), "Region": np.arange(n) % 3,
+        "VarIntensity": rng.random(n), "MeanIntensity": rng.random(n),
+        "VarNuclei": rng.random(n), "MeanNuclei": rng.random(n),
+        "EdgeDistSum": rng.random(n), "Volume": rng.random(n) * 100})
 
 
 def _vendor_files(directory, vol):
@@ -845,11 +916,12 @@ def _same_image5d(got, want):
 
 
 def test_host_cli_tasks_match_the_reference_without_it(tmp_path):
-    """``--proc import_only|load|export_tif|export_raw|export_blobs`` in a
-    fresh interpreter, on the host (no ``--device``, no card asked for),
-    with neither jax nor the reference package loaded, ``import_only``
-    also of a CZI, LIF, ND2, OIB, OIF and IMS file; their files equal
-    the reference CLI's on copies of the same inputs."""
+    """``--proc import_only|load|export_tif|export_raw|export_blobs``,
+    ``--df merge_csvs`` and ``--register zscores`` in a fresh
+    interpreter, on the host (no ``--device``, no card asked for), with
+    neither jax nor the reference package loaded, ``import_only`` also of
+    a CZI, LIF, ND2, OIB, OIF and IMS file; their files equal the
+    reference CLI's on copies of the same inputs."""
     rng = np.random.default_rng(9)
     vol = rng.integers(0, 3000, (6, 20, 18)).astype(np.uint16)
     rows = np.column_stack([rng.integers(0, 6, 5), rng.integers(0, 20, 5),
@@ -865,8 +937,9 @@ def test_host_cli_tasks_match_the_reference_without_it(tmp_path):
         archive = blobs.Blobs(rows.astype(float))
         archive.path = str(d / "p_blobs.npz")
         archive.save_archive()
+        _region_table().to_csv(str(d / "vols.csv"), index=False)
         paths[sub] = (str(d / "stack.tif"), str(d / "spec.npy"),
-                      str(d / "p"))
+                      str(d / "p"), str(d / "vols.csv"))
         vendor = d / "vendor"
         vendor.mkdir()
         paths[sub] += tuple(_vendor_files(vendor, vol))
@@ -875,20 +948,23 @@ def test_host_cli_tasks_match_the_reference_without_it(tmp_path):
         capture_output=True, text=True, timeout=300, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert "(1, 6, 20, 18)" in out.stdout and "(1, 2, 5, 4)" in out.stdout
-    for got, want in zip(paths["port"][3:], paths["ref"][3:]):
+    for got, want in zip(paths["port"][4:], paths["ref"][4:]):
         ref_cli.main(["--img", want, "--proc", "import_only"])
         _same_image5d(np_io.read_file(os.path.splitext(got)[0]),
                       ref_np_io.read_file(os.path.splitext(want)[0]))
-    tif, spec, base = paths["ref"][:3]
+    tif, spec, base, table = paths["ref"][:4]
     ref_cli.main(["--img", tif, "--proc", "import_only", "--set_meta",
                   "resolutions=5.0,1.5,1.5"])
+    ref_cli.main(["--df", "merge_csvs", table, table, "--prefix",
+                  table + "_merged.csv"])
+    ref_cli.main(["--img", table, "--register", "zscores"])
     ref_cli.main(["--img", spec, "--proc", "export_tif"])
     ref_cli.main(["--img", spec, "--proc", "export_raw", "--prefix",
                   spec + "_raw"])
     ref_cli.main(["--img", spec, "--proc", "export_blobs", "--prefix",
                   base])
     for name in ("stack_image5d.npy", "spec.tif", "spec.npy_raw.raw",
-                 "p_blobs.csv"):
+                 "p_blobs.csv", "vols.csv_merged.csv", "vols_zscores.csv"):
         with open(tmp_path / "port" / name, "rb") as a, \
                 open(tmp_path / "ref" / name, "rb") as b:
             assert a.read() == b.read(), name

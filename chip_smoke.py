@@ -102,7 +102,9 @@ result, on any fault. Phases:
    z 0-4 planes, each tile its own noise of the specimen's 15 counts, as
    one acquisition has), written as uncompressed
    ``tile_<t>_ch_0.tif`` files, then ``io.pipelines.run_pipeline("full",
-   ..., rescale=0.25, tile_grid=...)`` on the card: stitching (tile
+   ..., rescale=0.25, tile_grid=..., notify_url=...)`` on the card, its
+   message to a ``localhost`` webhook stand-in naming its stages:
+   stitching (tile
    reads, pairwise phase correlation checked by the overlap's
    cross-correlation, the global optimisation, fusion), transformation
    and detection of the fused volume (launches of the ``acquisition``
@@ -212,11 +214,28 @@ result, on any fault. Phases:
    ``plot_lateral_unlabeled``, ``plot_intens_nuc``,
    ``plot_cluster_blobs``, ``clrstats.plot_volcano``) are named as not
    run; the CPU tests hold them. Launches: ``stats``, 0 each;
-16. a JSON line of per-kernel results (launches summed over the paths,
+16. the review GUI and the cloud stages (:func:`gui_path`), without
+   matplotlib, tkinter or boto3: phase 4's volume loaded memmapped by
+   ``gui.visualizer.Visualization``, ROI detection at the reference's
+   default ROI size and at a (512, 512, 64) review ROI (x,y,z; launches
+   of the ``gui`` path, blobs equal to a direct ``detect_blobs`` call,
+   sensitivity and PPV against the planted nuclei printed), each ROI
+   card against CPU; ``ROIEditor`` edits saved to sqlite, read back,
+   counted and merged; the review ROI's 3D scene through
+   ``Vis3DRenderer`` at 384^2 in ``volume``, ``mip`` and ``isosurface``
+   modes (an orbit's frames/s and peak memory, a pick of the nearest
+   visible blob, a crop card against CPU within phase 11's limits); the
+   atlas editor's interpolation on phase 6's 25 um labels, card equal to
+   CPU, undo and ``save_atlas``, and ``RemapLevelThread``; a pipeline's
+   webhook message (phase 10's too) and ``--notify`` against
+   ``localhost`` stand-ins. The matplotlib canvases, the Tk app and the
+   S3 and EC2 calls are named as not run; the CPU tests hold them;
+17. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --study-tables`` runs phase 15 alone, on the
-seed-0 pair's labels at 25 um and the detect slice's volume.
+seed-0 pair's labels at 25 um and the detect slice's volume;
+``python3 chip_smoke.py --gui`` runs phase 16 alone, on the same.
 
 ``python3 chip_smoke.py --gauntlet-suite`` runs the reference's
 gauntlet suite alone instead: ``run_gauntlet_suite`` on (160, 240, 200)
@@ -494,6 +513,23 @@ STUDY_FILTER_SIZES = (1, 2, 3)
 #: ``extract_blocks``: the detect slice's first block windows, from a
 #: float32 memmap of the planes they cover
 STUDY_EXTRACT_BLOCKS = 32
+#: the review GUI (phase 16): ROIs as the controller's sliders take them
+#: (x,y,z offset, x,y,z size): the reference's default ROI size and a
+#: review-sized one, each detected on the card and on the CPU; the 3D
+#: scene's card-against-CPU crop (z,y,x, at the centre of
+#: the review ROI) and its film, at the default pose and one turned from
+#: it; the atlas editor's brush radius, the gap between its two painted
+#: planes and the shift of the second stroke (y, x); the central planes
+#: of the 25 um labels that the ontology remap covers (it loops over the
+#: labels on the host, ~0.1 s a region on the whole image)
+GUI_ROIS = (((480, 480, 124), (64, 64, 8)), ((256, 256, 96), (512, 512, 64)))
+GUI_RENDER_CROP = (32, 96, 96)
+GUI_RENDER_CROP_HW = (96, 96)
+GUI_TURN = (75.0, -20.0)
+GUI_BRUSH = 24.0
+GUI_PAINT_GAP = 12
+GUI_PAINT_SHIFT = (10, -8)
+GUI_REMAP_PLANES = 16
 
 
 def fail(msg: str) -> None:
@@ -1438,6 +1474,54 @@ def detect_blobs_crop(torch, crop, launches):
         fail("detect_blobs: the card's blobs differ from the CPU's")
 
 
+class Webhook:
+    """A webhook stand-in on ``localhost`` (a thread of this process):
+    records the JSON body of every POST and answers 200."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        self.bodies = []
+        bodies = self.bodies
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_POST(self):
+                n = int(self.headers["Content-Length"])
+                bodies.append(json.loads(self.rfile.read(n)))
+                self.send_response(200)
+                self.end_headers()
+
+            def log_message(self, *args):
+                pass
+
+        self.server = http.server.HTTPServer(("127.0.0.1", 0), Handler)
+        self.url = f"http://127.0.0.1:{self.server.server_port}/hook"
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self.server.shutdown()
+        self.server.server_close()
+        self.thread.join()
+
+    def check(self, where: str, stages) -> str:
+        """The one message received, which must name every stage."""
+        if len(self.bodies) != 1:
+            fail(f"{where}: the webhook received {len(self.bodies)} "
+                 "messages, not 1")
+        text = self.bodies[0]["text"]
+        missing = [st for st in stages if st not in text.split(": ")[-1]]
+        print(f"{where}: webhook message {text!r}", flush=True)
+        if missing:
+            fail(f"{where}: the webhook's message names no {missing}")
+        return text
+
+
 class LogRecords:
     """Collects the port's log records while open, so a phase can read
     what a task logged (the watershed's sweeps, the groupwise levels)."""
@@ -2354,13 +2438,16 @@ def acquisition_path(torch, spec, scene, centres, work, launches):
     prof.add_profiles("lightsheet")
     dev_mod.reset_launches()
     with LogRecords("magellanmapper_torch.io.pipelines") as plog, \
-            LogRecords("magellanmapper_torch.stitch.stitcher") as slog:
+            LogRecords("magellanmapper_torch.stitch.stitcher") as slog, \
+            Webhook() as hook:
         out, step = timed(torch, lambda: pipelines.run_pipeline(
             "full", os.path.join(work, "acq.tif"), prof,
-            rescale=SPEC_RESCALE, device="cuda", tile_grid={
+            rescale=SPEC_RESCALE, device="cuda", notify_url=hook.url,
+            tile_grid={
                 "dir": tile_dir, "rows": ACQ_GRID[0], "cols": ACQ_GRID[1],
                 "overlap": ACQ_OVERLAP}))
     launches["acquisition"] = dict(dev_mod.LAUNCHES)
+    hook.check("acquisition", ("stitching", "transformation", "detection"))
     print(f"acquisition: launches {launches['acquisition']}", flush=True)
     for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
         if launches["acquisition"][name] <= 0:
@@ -3796,6 +3883,393 @@ def study_tables(torch, labels, intensity, vol, work, launches):
           flush=True)
 
 
+def db_rows(blobs: np.ndarray) -> np.ndarray:
+    """What the blob table keeps of z,y,x ``blobs``: coordinates rounded,
+    one row per (x, y, z, truth, channel) (``INSERT OR REPLACE``, the
+    last row winning), as ``select_blobs_by_roi``'s first 7 columns,
+    sorted."""
+    keep = {}
+    for b in blobs:
+        z, y, x = (int(round(v)) for v in b[:3])
+        keep[(x, y, z, int(b[5]), int(b[6]))] = (
+            z, y, x, float(b[3]), int(b[4]), int(b[5]), int(b[6]))
+    return np.array(sorted(keep.values()), float).reshape(-1, 7)
+
+
+def scene_diff(card, cpu) -> dict:
+    """Frame and depth differences of two renderers' frames: the image
+    where the hits agree, the share of pixels whose hit differs and the
+    depth where both hit."""
+    out = {}
+    if card._depth is None:
+        return {"img": float(np.abs(card.frame - cpu.frame).max())}
+    hit, hit_w = np.isfinite(card._depth), np.isfinite(cpu._depth)
+    same, both = hit == hit_w, hit & hit_w
+    out["img"] = float(np.abs(card.frame[same] - cpu.frame[same]).max())
+    out["hit_mismatch"] = float((hit != hit_w).mean())
+    out["depth"] = float(np.abs(card._depth[both] - cpu._depth[both]).max()
+                         ) if both.any() else 0.0
+    return out
+
+
+def gui_path(torch, vol, centres, ccf25, work, launches):
+    """Phase 16, the review GUI and the cloud stages, all without
+    matplotlib, tkinter and boto3: the detect slice's volume saved with
+    ``np.save`` and loaded memmapped by ``gui.visualizer.Visualization``
+    (``lightsheet``); ROI detection at each of ``GUI_ROIS`` (launches of
+    the ``gui`` path; each ROI's blobs equal to a direct
+    ``detector.detect_blobs`` call; sensitivity and PPV against the
+    planted nuclei in the ROI, printed) and equal to the controller's
+    on the CPU; ``ROIEditor`` edits of the review ROI's blobs
+    saved to sqlite, read back, counted by ``verification_stats`` and
+    merged with the default ROI's database by ``merge_truth_dbs`` (every
+    read-back equal to what was written); the review ROI's 3D scene
+    through ``Visualization.open_3d_renderer`` at ``ORBIT_HW`` in
+    ``volume``, ``mip`` and ``isosurface`` modes (an orbit of
+    ``ORBIT_FRAMES`` frames, frames/s and peak memory; a click on the
+    nearest visible blob's projected centre picks it, and the confirm
+    cycle marks it), ``GUI_RENDER_CROP`` card against CPU within phase
+    11's limits; ``AtlasEditor`` on the 25 um labels (two strokes
+    ``GUI_PAINT_GAP`` planes apart, the label interpolated between them
+    on the card equal to the CPU's, undo, ``save_atlas`` read back) and
+    ``RemapLevelThread`` to level 1 of an ontology of the labels'
+    regions (equal to the regions' arithmetic); ``run_pipeline("full")``
+    on the review ROI with a webhook stand-in on ``localhost`` (the
+    message names its stages), then ``--notify`` through the CLI against
+    the same stand-in."""
+    import importlib.util
+
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.atlas import ontology
+    from magellanmapper_torch.cv import detector
+    from magellanmapper_torch.gui import (
+        atlas_editor, roi_editor, threads, vis_3d, visualizer)
+    from magellanmapper_torch.io import cli, np_io, pipelines, sitk_io, sqlite
+
+    t_phase = time.perf_counter()
+    path = os.path.join(work, "nuclei.npy")
+    np.save(path, vol)
+    t0 = time.perf_counter()
+    vis = visualizer.Visualization(device="cuda")
+    img5d = vis.load_image(path)
+    t_load = time.perf_counter() - t0
+    if not isinstance(img5d.img, np.memmap) or img5d.img.shape != vol.shape:
+        fail(f"gui: load_image gave {type(img5d.img)} {img5d.img.shape}, "
+             "not the memmapped volume")
+    vis.set_roi_profile("lightsheet")
+    print(f"gui: {path} loaded memmapped in {t_load:.3f} s", flush=True)
+
+    # ROI detection: the kernels of the gui path
+    found = []
+    torch.cuda.synchronize()
+    dev_mod.reset_launches()
+    for off, size in GUI_ROIS:
+        vis.roi_offset, vis.roi_size = off, size
+        t0 = time.perf_counter()
+        det = vis.detect_blobs()
+        torch.cuda.synchronize()
+        found.append((off, size, det, time.perf_counter() - t0))
+    launches["gui"] = dict(dev_mod.LAUNCHES)
+    print(f"gui: launches {launches['gui']}", flush=True)
+    for name in ("peak_candidates", "prune_overlap"):
+        if launches["gui"][name] <= 0:
+            fail(f"kernel {name} was not launched by the GUI's detection")
+    for off, size, det, wall in found:
+        vis.roi_offset, vis.roi_size = off, size
+        roi = vis.get_roi()
+        direct = detector.detect_blobs(roi, vis.roi_profile, (1.0, 1.0, 1.0),
+                                       device="cuda")
+        if det is None or direct is None or not np.array_equal(det, direct):
+            fail(f"gui: the ROI {off}+{size}'s blobs differ from a direct "
+                 "detect_blobs call")
+        lo = np.asarray(off[::-1])
+        inside = centres[np.all((centres >= lo) & (centres < lo + roi.shape),
+                                axis=1)] - lo
+        sens, ppv = testing.sens_ppv(det, inside, roi.shape, roi.shape,
+                                     VERIFY_TOL)
+        print(f"gui detect: ROI x,y,z {off} + {size} (z,y,x {roi.shape}): "
+              f"{len(det)} blobs for {len(inside)} planted nuclei, "
+              f"sensitivity {sens:.4f} PPV {ppv:.4f}, {wall:.3f} s "
+              f"({np.prod(roi.shape) / 1e6 / wall:.2f} Mvox/s)", flush=True)
+    # each ROI again through the controller on the CPU: the plain
+    # versions of K1 and K3 at the path's own shapes
+    cpu = visualizer.Visualization(device="cpu")
+    cpu.img5d, cpu.roi_profile = vis.img5d, vis.roi_profile
+    for off, size, det, wall in found:
+        cpu.roi_offset, cpu.roi_size = off, size
+        t0 = time.perf_counter()
+        on_cpu = cpu.detect_blobs()
+        print(f"gui detect: ROI x,y,z {off} + {size}: {len(det)} blobs on "
+              f"the card ({wall:.3f} s), {len(on_cpu)} on the CPU "
+              f"({time.perf_counter() - t0:.2f} s)", flush=True)
+        if not testing.rows_equal(det, on_cpu):
+            fail(f"gui: the ROI {off}+{size}'s blobs on the card differ "
+                 "from the CPU's")
+
+    # edits stored in sqlite, read back, counted and merged
+    t0 = time.perf_counter()
+    dbs = []
+    for (off, size, det, _), edits in zip(found, (2, 40)):
+        ed = roi_editor.ROIEditor(np.zeros(size[::-1], np.uint8), det,
+                                  offset=off[::-1])
+        centre = (size[2] // 2, size[1] // 2, size[0] // 2)
+        added = ed.add_blob(*centre, radius=4.0)
+        ed.move_blob(added, dz=1, dy=-2, dx=3)
+        ed.move_blob(0, dz=1, dy=-2, dx=3)
+        ed.delete_blob(ed.add_blob(centre[0], 3, 5))
+        for i in range(min(edits, len(ed.blobs))):
+            ed.cycle_confirmed(i)
+        for i in range(min(edits // 2, len(ed.blobs))):
+            ed.cycle_confirmed(i)
+        n1 = len(ed.blobs)
+        ed.add_blob(0, 0, 0)
+        if not ed.undo() or n1 != len(det) + 1 or len(ed.blobs) != n1:
+            fail("gui: ROIEditor's edits or undo lost a blob")
+        db_path = os.path.join(work, f"gui_{len(dbs)}.db")
+        db = sqlite.load_db(db_path)
+        written = ed.save(db, "nuclei", 0)
+        roi_id = db.get_rois()[0]["id"]
+        back = db.select_blobs_by_roi(roi_id)
+        want = db_rows(ed.blobs)
+        if written != len(ed.blobs) or not np.array_equal(
+                testing.sorted_rows(back[:, :7]), want):
+            fail(f"gui: the database read back {len(back)} rows, not the "
+                 f"{len(want)} the editor wrote")
+        conf = want[:, 4]
+        counts = (int((want[:, 5] >= 0).sum()),
+                  int(((conf == 1) & (want[:, 5] == -1)).sum()),
+                  int((conf == 0).sum()))
+        if db.verification_stats() != counts:
+            fail(f"gui: verification_stats {db.verification_stats()} "
+                 f"against {counts}")
+        print(f"gui db: ROI {off}: {written} blobs written, {len(back)} "
+              f"rows, counts {counts}, verification "
+              f"{sqlite.verification_stats(db, 'nuclei')[:2]}", flush=True)
+        db.close()
+        dbs.append((db_path, want))
+    merged = sqlite.merge_truth_dbs([p for p, _ in dbs],
+                                    os.path.join(work, "gui_merged.db"))
+    rois = merged.get_rois()
+    got = sorted(np.array2string(testing.sorted_rows(
+        merged.select_blobs_by_roi(r["id"])[:, :7])) for r in rois)
+    if got != sorted(np.array2string(w) for _, w in dbs):
+        fail("gui: merge_truth_dbs' ROIs differ from the databases merged")
+    merged.close()
+    print(f"gui db: merged {len(rois)} ROIs in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # the review ROI's 3D scene: orbit, peak memory, a pick
+    vis.roi_offset, vis.roi_size = GUI_ROIS[1][:2]
+    vis.blobs = found[1][2]
+    scene_stats = {}
+    for mode in ("volume", "mip", "isosurface"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        scene = vis.open_3d_renderer(mode, render_hw=ORBIT_HW)
+        t_open = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(ORBIT_FRAMES):
+            scene.orbit(360.0 / ORBIT_FRAMES, 0.0)
+        wall = time.perf_counter() - t0
+        frame = scene.frame
+        if frame.shape != ORBIT_HW + (3,) or not np.isfinite(frame).all() \
+                or frame.max() <= 0:
+            fail(f"gui scene {mode}: frame {frame.shape}, max {frame.max()}")
+        pts = scene.project_blobs()
+        shown = np.flatnonzero(pts[:, 2] > 0)
+        if not len(shown):
+            fail(f"gui scene {mode}: no blob is visible")
+        front = int(shown[np.argmin(pts[shown, 3])])
+        picked = scene.pick_blob(pts[front, 0], pts[front, 1])
+        # the editor shares the controller's blob array, so each mode's
+        # confirmation steps the flag on from the last
+        cycle = (-1, 0, 1)
+        want = cycle[(cycle.index(int(scene.editor.blobs[front, 4])) + 1)
+                     % 3]
+        flag = scene.confirm_selected()
+        if picked != front or flag != want \
+                or scene.editor.blobs[front, 4] != want:
+            fail(f"gui scene {mode}: the click on blob {front} picked "
+                 f"{picked}, flag {flag} (not {want})")
+        scene_stats[mode] = {
+            "open_s": t_open, "orbit_s": wall,
+            "frames_per_s": ORBIT_FRAMES / wall,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "visible_blobs": len(shown), "blobs": len(pts),
+            "iso_level": scene.iso_level}
+        del scene
+    print(f"gui scene {GUI_ROIS[1][1]} at {ORBIT_HW}, {ORBIT_FRAMES} "
+          f"frames: {json.dumps(scene_stats)}", flush=True)
+    roi = vis.get_roi()
+    lo = [(s - c) // 2 for s, c in zip(roi.shape, GUI_RENDER_CROP)]
+    crop = vis_3d.Vis3D(np.ascontiguousarray(roi[tuple(
+        slice(o, o + c) for o, c in zip(lo, GUI_RENDER_CROP))], np.float32))
+    worst = {}
+    for mode in ("volume", "mip", "isosurface"):
+        pair = [vis_3d.Vis3DRenderer(crop, mode, GUI_RENDER_CROP_HW,
+                                     device=d) for d in ("cuda", "cpu")]
+        if pair[0].iso_level != pair[1].iso_level:
+            fail(f"gui crop: Otsu's level {pair[0].iso_level} on the card, "
+                 f"{pair[1].iso_level} on the CPU")
+        for turn in ((0.0, 0.0), GUI_TURN):
+            for r in pair:
+                r.orbit(*turn)
+            for k, v in scene_diff(*pair).items():
+                worst[f"{mode}.{k}"] = max(worst.get(f"{mode}.{k}", 0.0), v)
+    print(f"gui scene crop {GUI_RENDER_CROP} at {GUI_RENDER_CROP_HW}, card "
+          f"against CPU: {json.dumps(worst)}", flush=True)
+    limits = {"img": RENDER_ATOL, "hit_mismatch": RENDER_HIT_MISMATCH,
+              "depth": RENDER_DEPTH_ATOL}
+    for key, v in worst.items():
+        if v > limits[key.rsplit(".", 1)[1]]:
+            fail(f"gui scene crop: {key} {v} on the card against the CPU")
+    del roi, crop
+
+    # the atlas editor on the 25 um labels, and the ontology remap
+    labels, intensity = ccf25
+    z0 = labels.shape[0] // 2 - GUI_PAINT_GAP // 2
+    z1 = z0 + GUI_PAINT_GAP
+    cy, cx = labels.shape[1] // 2, labels.shape[2] // 2
+    lid = int(labels[(z0 + z1) // 2, cy, cx]) or 1
+    eds = [atlas_editor.AtlasEditor(intensity, labels, device=d)
+           for d in ("cuda", "cpu")]
+    before = labels[z1].copy()
+    t_interp = []
+    for ed in eds:
+        ed.paint_label(0, z0, (cy, cx), GUI_BRUSH, lid)
+        ed.paint_label(0, z1, (cy + GUI_PAINT_SHIFT[0],
+                               cx + GUI_PAINT_SHIFT[1]), GUI_BRUSH, lid)
+        t0 = time.perf_counter()
+        if not ed.interpolate_from_bookmark(0, z0):
+            fail("gui atlas: interpolate_from_bookmark did not interpolate")
+        t_interp.append(time.perf_counter() - t0)
+    if not np.array_equal(eds[0].labels_img, eds[1].labels_img):
+        fail("gui atlas: the interpolation on the card differs from the "
+             "CPU's")
+    filled = [int((eds[0].labels_img[z] == lid).sum()
+                  - (labels[z] == lid).sum()) for z in range(z0 + 1, z1)]
+    if min(filled) <= 0:
+        fail(f"gui atlas: planes between the strokes gained {filled} voxels")
+    eds[0].undo()
+    if not np.array_equal(eds[0].labels_img[z1], before):
+        fail("gui atlas: undo did not restore the second stroke's plane")
+    t0 = time.perf_counter()
+    out = eds[0].save_atlas(os.path.join(work, "annotationEdit.mhd"),
+                            spacing=(25.0, 25.0, 25.0))
+    t_save = time.perf_counter() - t0
+    if not np.array_equal(sitk_io.read_med_img(out).img,
+                          eds[0].labels_img):
+        fail("gui atlas: save_atlas did not read back")
+    del eds
+    ids = np.unique(np.abs(labels))
+    ids = ids[ids > 0]
+    tree = {ontology.ABA_ID: 997, ontology.ABA_NAME: "root",
+            ontology.ABA_LEVEL: 0, ontology.ABA_CHILDREN: [
+                {ontology.ABA_ID: int(g), ontology.ABA_NAME: f"region {g}",
+                 ontology.ABA_LEVEL: 1, ontology.ABA_CHILDREN: [
+                     {ontology.ABA_ID: int(i), ontology.ABA_NAME: f"cell {i}",
+                      ontology.ABA_LEVEL: 2, ontology.ABA_CHILDREN: []}
+                     for i in ids if i // 1000 == g]}
+                for g in np.unique(ids // 1000)]}
+    ref = ontology.LabelsRef()
+    ref.loaded_ref = tree
+    ref.create_ref_lookup()
+    mid = labels.shape[0] // 2
+    slab = labels[mid - GUI_REMAP_PLANES // 2:mid + GUI_REMAP_PLANES // 2]
+    t0 = time.perf_counter()
+    remapped = threads.RemapLevelThread(slab, ref, 1).start().result()
+    t_remap = time.perf_counter() - t0
+    if not np.array_equal(remapped, np.sign(slab) * (np.abs(slab) // 1000)):
+        fail("gui atlas: RemapLevelThread's level-1 labels are wrong")
+    print(f"gui atlas {labels.shape}: label {lid} painted on planes {z0} and "
+          f"{z1} (radius {GUI_BRUSH}), interpolated between them on the card "
+          f"in {t_interp[0]:.3f} s (CPU {t_interp[1]:.3f} s), equal; "
+          f"voxels gained a plane {filled}; undo restored plane {z1}; "
+          f"save_atlas {t_save:.2f} s; RemapLevelThread over "
+          f"{slab.shape} ({len(ids)} IDs) in {t_remap:.2f} s", flush=True)
+
+    # the webhook stages: run_pipeline on the review ROI and --notify
+    roi_path = os.path.join(work, "review_roi.npy")
+    vis.roi_offset, vis.roi_size = GUI_ROIS[1][:2]
+    np_io.write_npy(roi_path, np.ascontiguousarray(vis.get_roi())[None])
+    note = os.path.join(work, "gui.log")
+    with open(note, "w") as f:
+        f.write("".join(f"gui step {i}\n" for i in range(30)))
+    with Webhook() as hook:
+        t0 = time.perf_counter()
+        outs = pipelines.run_pipeline("full", roi_path, vis.roi_profile,
+                                      rescale=0.5, notify_url=hook.url,
+                                      device="cuda")
+        t_pipe = time.perf_counter() - t0
+        hook.check("gui pipeline", ("transformation", "detection"))
+        resp = cli.main(["--notify", hook.url, "phase 16 done", note])
+    body = hook.bodies[-1]
+    if resp.status != 200 or len(hook.bodies) != 2 \
+            or body["text"] != "phase 16 done" \
+            or not body["attachments"][0]["text"].startswith("gui step 10"):
+        fail(f"gui --notify: {resp.status}, bodies {hook.bodies}")
+    print(f"gui webhook: run_pipeline stages {sorted(outs)} in "
+          f"{t_pipe:.2f} s; --notify posted to the same stand-in",
+          flush=True)
+
+    absent = [m for m in ("matplotlib", "tkinter", "boto3")
+              if importlib.util.find_spec(m) is None]
+    print("gui: not run here by design: the matplotlib canvases "
+          "(gui.mpl_canvas, vis_3d.Vis3DCanvas, roi_review, "
+          "plot_surface_3d and the 2D figures), the Tk app (gui.app) and "
+          "the S3 and EC2 calls (cloud.aws); the CPU tests hold them "
+          f"against the reference (absent on this machine: {absent})",
+          flush=True)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "matplotlib", "tkinter", "boto3"))
+    print(f"gui: phase 16 wall {time.perf_counter() - t_phase:.1f} s; "
+          f"loaded of matplotlib, tkinter and boto3: {loaded}", flush=True)
+
+
+def phase_alone(run) -> None:
+    """One phase alone (``--study-tables``, ``--gui``), on the seed-0
+    pair's labels at 25 um and the detect slice's volume:
+    ``run(torch, ccf25, vol, centres, work, launches)``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "magellanmapper_torch")):
+        fail(f"run from a checkout of the repository ({ROOT} has no "
+             "magellanmapper_torch package)")
+    sys.path.insert(0, ROOT)
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.atlas import gauntlet
+    from magellanmapper_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; nvidia-smi: {smi}", flush=True)
+    _build.library()
+    print(f"build: {_build.build_seconds:.1f} s", flush=True)
+    pair = gauntlet.build_pair(REG_SHAPE, seed=SEED, device="cuda")
+    ccf25 = ccf25_labels(torch, pair)
+    del pair
+    vol, centres = testing.make_nuclei_volume(SLICE_SHAPE, SEED)
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        run(torch, ccf25, vol, centres, tmp, {})
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "magellanmapper_tpu"))
+    if loaded:
+        fail(f"jax or the reference package was imported: {loaded[:10]}")
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
 def suite_main() -> None:
     """``--gauntlet-suite``: the reference's suite on the card alone."""
     import torch
@@ -3814,38 +4288,6 @@ def suite_main() -> None:
     print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
           f"CUDA {torch.version.cuda}", flush=True)
     gauntlet_suite(SUITE_SEEDS, SUITE_TRUNCATED)
-    print(smi, flush=True)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind,
-        "count": torch.cuda.device_count()}}), flush=True)
-
-
-def study_main() -> None:
-    """``--study-tables``: phase 15 alone, on the labels of the seed-0
-    pair at 25 um and the detect slice's volume."""
-    import torch
-
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs a card")
-    sys.path.insert(0, ROOT)
-    from magellanmapper_torch import testing
-    from magellanmapper_torch.atlas import gauntlet
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
-    kind = torch.cuda.get_device_name(0)
-    print(f"device: {kind}; nvidia-smi: {smi}", flush=True)
-    pair = gauntlet.build_pair(REG_SHAPE, seed=SEED, device="cuda")
-    labels, intensity = ccf25_labels(torch, pair)
-    del pair
-    vol, _ = testing.make_nuclei_volume(SLICE_SHAPE, SEED)
-    work = os.path.join(ROOT, "build", "smoke")
-    os.makedirs(work, exist_ok=True)
-    launches = {}
-    with tempfile.TemporaryDirectory(dir=work) as tmp:
-        study_tables(torch, labels, intensity, vol, tmp, launches)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -4075,6 +4517,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         study_tables(torch, *ccf25, vol, tmp, launches)
+    # 16. the review GUI and the cloud stages: ROI detection, edits in
+    # sqlite, the 3D scene, the atlas editor, the webhook
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        gui_path(torch, vol, centres, ccf25, tmp, launches)
     del vol, ccf25
 
     for name in results:
@@ -4108,12 +4555,18 @@ if __name__ == "__main__":
                         help="run the reference's gauntlet suite instead")
     parser.add_argument("--study-tables", action="store_true",
                         help="run phase 15, the study tables, alone")
+    parser.add_argument("--gui", action="store_true",
+                        help="run phase 16, the review GUI, alone")
     args = parser.parse_args()
     if args.k4_times:
         k4_times(args.root)
     elif args.gauntlet_suite:
         suite_main()
     elif args.study_tables:
-        study_main()
+        phase_alone(lambda torch, ccf25, vol, _, work, launches:
+                    study_tables(torch, *ccf25, vol, work, launches))
+    elif args.gui:
+        phase_alone(lambda torch, ccf25, vol, centres, work, launches:
+                    gui_path(torch, vol, centres, ccf25, work, launches))
     else:
         main()

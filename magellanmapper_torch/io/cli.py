@@ -142,9 +142,13 @@ DEBUG, and the display and compatibility flags (``--meta``,
 ``--load``, ``--theme``, ``--show``, ``--alphas``, ``--vmin``, ``--vmax``,
 ``--rgb``) are kept in :class:`RunConfig` as the reference keeps them.
 ``--truth_db`` goes with ``--grid_search``, the detect tasks or
-``export_rois``, ``--save_subimg`` with the detect tasks. ``--mesh``,
-``--notify`` and ``--ec2_*`` are rejected naming the ROADMAP item that
-ports them (:data:`NOT_PORTED`), and any other flag or task with a
+``export_rois``, ``--save_subimg`` with the detect tasks. ``--notify
+URL [message [attachment]]`` posts a webhook message
+(:func:`process_notify`) and ``--ec2_start|--ec2_list|--ec2_terminate``
+start, list or terminate EC2 instances through boto3
+(:func:`process_aws`), in the reference's order of tasks
+(:func:`process_tasks`). ``--mesh`` is rejected naming the ROADMAP item
+that ports it (:data:`NOT_PORTED`), and any other flag or task with a
 message that names it.
 
 ``--device`` picks where the device step runs: ``cuda`` (the default)
@@ -225,10 +229,6 @@ SUPPORTED = ("--proc " + "/".join(TASKS) + ", --plot_2d, --df, "
 #: item that ports them
 NOT_PORTED = {
     "mesh": "item 10 (parallel/ and the sharded variants)",
-    "notify": "item 12 (cloud stages)",
-    "ec2_start": "item 12 (cloud stages)",
-    "ec2_list": "item 12 (cloud stages)",
-    "ec2_terminate": "item 12 (cloud stages)",
 }
 
 
@@ -281,6 +281,12 @@ class RunConfig:
     vmin: Optional[List[float]] = None
     vmax: Optional[List[float]] = None
     rgb: bool = False
+    ec2_start: Optional[List[object]] = None
+    ec2_list: Optional[List[object]] = None
+    ec2_terminate: Optional[List[str]] = None
+    notify_url: Optional[str] = None
+    notify_msg: Optional[str] = None
+    notify_attach: Optional[str] = None
     device: str = "cuda"
 
 
@@ -294,6 +300,23 @@ def args_to_dict(args: Optional[Sequence[str]]) -> Dict[str, str]:
         else:
             out[arg] = "1"
     return out
+
+
+def args_with_dict(args: Sequence[str]) -> list:
+    """Positional values of a mixed argument list (numbers parsed where
+    they parse), then one dict of its ``key=value`` entries
+    (comma-separated values become lists)."""
+    parsed: list = []
+    args_dict: Dict[str, object] = {}
+    for arg in args:
+        parts = arg.split("=")
+        if len(parts) == 1:
+            parsed.append(libmag.get_int(arg))
+        else:
+            vals = [libmag.get_int(v) for v in parts[1].split(",")]
+            args_dict[parts[0]] = vals if len(vals) > 1 else vals[0]
+    parsed.append(args_dict)
+    return parsed
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -361,6 +384,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--savefig", help="figure file format")
     p.add_argument("--groups", nargs="*", help="group names")
     p.add_argument("-v", "--verbose", nargs="*", help="verbose logging")
+    p.add_argument(
+        "--ec2_start", nargs="*",
+        help="AWS EC2 instance start: tag_name, ami_id, instance_type, "
+             "subnet_id, sec_group, key_name, [count[, snapshot_ids...]]")
+    p.add_argument("--ec2_list", nargs="*", help="AWS EC2 instance list")
+    p.add_argument("--ec2_terminate", nargs="*",
+                   help="AWS EC2 instance IDs to terminate")
+    p.add_argument("--notify", nargs="*",
+                   help="notification: URL [message [attachment-file]]")
     for name in NOT_PORTED:
         p.add_argument(f"--{name}", nargs="*",
                        help=f"not ported yet: ROADMAP {NOT_PORTED[name]}")
@@ -441,6 +473,18 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
     rc.vmin = [float(v) for v in args.vmin] if args.vmin else None
     rc.vmax = [float(v) for v in args.vmax] if args.vmax else None
     rc.rgb = bool(args.rgb)
+    if args.ec2_start is not None:
+        rc.ec2_start = args_with_dict(args.ec2_start)
+    if args.ec2_list is not None:
+        rc.ec2_list = args_with_dict(args.ec2_list)
+    if args.ec2_terminate:
+        rc.ec2_terminate = args.ec2_terminate
+    if args.notify:
+        rc.notify_url = args.notify[0]
+        if len(args.notify) > 1:
+            rc.notify_msg = args.notify[1]
+        if len(args.notify) > 2:
+            rc.notify_attach = args.notify[2]
     meta = args_to_dict(args.set_meta)
     if "resolutions" in meta:
         rc.resolutions = [float(v) for v in meta["resolutions"].split(",")]
@@ -466,6 +510,10 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
         rc.proc_args = args_to_dict(args.proc[1:])
     if args.truth_db:
         rc.truth_db = args.truth_db[-1]
+    if args.register is None and cloud_task(rc):
+        # the webhook or EC2 task runs instead of any image task, which
+        # therefore needs no checks
+        return rc
     if args.register:
         task = f"--register {args.register}"
         rc.register_type = RegisterTypes.__members__.get(
@@ -509,6 +557,56 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
             RegisterTypes.EXPORT_REGIONS:
         raise SystemExit(f"{task} needs --img")
     return rc
+
+
+def cloud_task(rc: RunConfig) -> bool:
+    """Whether a task other than ``--register`` is ``--notify`` or
+    ``--ec2_*``, in the reference's order: ``--notify`` before every
+    other task, ``--ec2_*`` after ``--plot_2d``, ``--df`` and
+    ``--grid_search``."""
+    if rc.notify_url:
+        return True
+    return bool((rc.ec2_start or rc.ec2_list or rc.ec2_terminate)
+                and not rc.plot_2d_task and not rc.df_task
+                and not rc.grid_search)
+
+
+def process_notify(rc: RunConfig):
+    """``--notify``: post the message with the attachment's last lines;
+    returns the webhook's response."""
+    from magellanmapper_torch.cloud import notify
+    return notify.post(rc.notify_url, rc.notify_msg or "", rc.notify_attach)
+
+
+def process_aws(rc: RunConfig):
+    """``--ec2_start``, ``--ec2_list`` and ``--ec2_terminate`` through
+    boto3: ``--ec2_start`` takes tag_name, ami_id, instance_type,
+    subnet_id, sec_group, key_name and count positionally, or ``ami_id=``,
+    ``instance_type=`` and ``key_name=``; returns the started IDs, the
+    listed instances or the terminated IDs."""
+    from magellanmapper_torch.cloud import aws
+    out = None
+    if rc.ec2_start:
+        pos = [a for a in rc.ec2_start if not isinstance(a, dict)]
+        kwargs = {}
+        for a in rc.ec2_start:
+            if isinstance(a, dict):
+                kwargs.update(a)
+        count = int(pos[6]) if len(pos) > 6 else 1
+        out = aws.start_instances(
+            image_id=pos[1] if len(pos) > 1 else kwargs.pop("ami_id"),
+            instance_type=(pos[2] if len(pos) > 2
+                           else kwargs.pop("instance_type")),
+            count=count,
+            key_name=pos[5] if len(pos) > 5 else kwargs.pop(
+                "key_name", None))
+    if rc.ec2_list:
+        pos = [a for a in rc.ec2_list if not isinstance(a, dict)]
+        out = aws.show_instances(pos[0] if pos else "running")
+    if rc.ec2_terminate:
+        aws.terminate_instances(rc.ec2_terminate)
+        out = rc.ec2_terminate
+    return out
 
 
 def plot_2d_type(name: str):
@@ -1143,11 +1241,23 @@ def main(argv: Optional[Sequence[str]] = None
     table, the registration's result, the transformed image's path, the
     preprocessed image, the heat map(s), the regions' table, the
     clustered blobs, the imported or loaded image, an export's path, the
-    blobs' or ROIs' table, the extracted plane, the planes' paths or the
-    plot's figure."""
+    blobs' or ROIs' table, the extracted plane, the planes' paths, the
+    plot's figure, the webhook's response or the EC2 task's result."""
     logging.basicConfig(
         level=logging.INFO, format="%(levelname)s:%(name)s: %(message)s")
-    rc = process_cli_args(argv)
+    return process_tasks(process_cli_args(argv))
+
+
+def process_tasks(rc: RunConfig):
+    """Run the parsed task, in the reference's order: ``--register``,
+    ``--notify``, ``--plot_2d``, ``--df``, ``--grid_search``, ``--ec2_*``,
+    then ``--proc``; returns what :func:`main` returns."""
+    if rc.register_type is None and rc.notify_url:
+        _logger.info("--notify on the host")
+        return process_notify(rc)
+    if rc.register_type is None and cloud_task(rc):
+        _logger.info("--ec2_* on the host")
+        return process_aws(rc)
     if rc.register_type in STATS_TASKS:
         _logger.info("--register %s on the host",
                      rc.register_type.name.lower())

@@ -1,11 +1,12 @@
 """End-to-end pipeline runner from raw tiles to blobs.
 
 Port of ``magellanmapper_tpu/io/pipelines.py`` (the reference's
-``bin/pipelines.sh``: stitch -> import -> transpose/rescale -> detect)
-with its artifact-level resume: a stage whose output already exists is
-skipped. Stitching, transformation and detection run on ``device``. The
-cloud stages (S3 download and upload, notification) are not ported and
-raise by name.
+``bin/pipelines.sh``: download -> stitch -> import -> transpose/rescale
+-> detect -> compress and upload -> notify) with its artifact-level
+resume: a stage whose output already exists is skipped. Stitching,
+transformation and detection run on ``device``; the S3 stages go through
+:mod:`magellanmapper_torch.cloud.aws` (boto3) and the message through
+:func:`magellanmapper_torch.cloud.notify.notify`.
 """
 
 from __future__ import annotations
@@ -19,8 +20,9 @@ import numpy as np
 
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.atlas import transformer
+from magellanmapper_torch.cloud import aws, notify
 from magellanmapper_torch.cv import stack_detect
-from magellanmapper_torch.io import importer, np_io, tiff
+from magellanmapper_torch.io import importer, np_io, subproc_io, tiff
 from magellanmapper_torch.settings.roi_prof import ROIProfile
 from magellanmapper_torch.stitch import acquisition, stitcher
 from magellanmapper_torch.utils import libmag
@@ -49,17 +51,15 @@ def run_pipeline(
     stitches the directory's TIFF tiles (sorted by name; mesoSPIM RAW
     tiles converted first) into ``<img_path base>_fused``, which the
     later stages then read, whether this run or an earlier one stitched
-    it. Returns a dict of stage -> output path for the stages that ran.
+    it. With ``s3_bucket``, a missing image is first downloaded from the
+    bucket by its base name, and a ``full`` run then compresses each
+    output file and uploads it (``upload_<stage>``); with ``notify_url``,
+    a webhook message names the stages that ran. Returns a dict of stage
+    -> output path for the stages that ran.
     """
     if pipeline not in PIPELINES:
         raise ValueError(
             f"unknown pipeline {pipeline}; options: {PIPELINES}")
-    if s3_bucket or notify_url:
-        raise NotImplementedError(
-            "run_pipeline: the cloud stages (s3_bucket download and "
-            "upload, notify_url) are not ported to magellanmapper_torch "
-            "(ROADMAP queue 1, item 12); run them with "
-            "magellanmapper_tpu.io.pipelines")
     dev = device_mod.resolve(device)
     if roi_profile is None:
         roi_profile = ROIProfile()
@@ -73,6 +73,11 @@ def run_pipeline(
         now = time.perf_counter()
         _logger.info("pipeline stage %s: %.4f s", stage, now - t_stage)
         t_stage = now
+
+    if pipeline in ("download", "full") and s3_bucket:
+        if not os.path.exists(img_path):
+            done("download", aws.download_s3(
+                s3_bucket, os.path.basename(img_path), img_path))
 
     if pipeline in ("stitching", "full") and tile_grid:
         fused_path = os.path.splitext(img_path)[0] + "_fused.npy"
@@ -126,4 +131,16 @@ def run_pipeline(
             done("detection", blobs_path)
             _logger.info("detection: %d blobs in %.1fs", len(blobs),
                          timing.get("Total_stack", 0))
+
+    if s3_bucket and pipeline == "full":
+        for stage, path in list(outputs.items()):
+            if os.path.isfile(path):
+                arc = subproc_io.compress_file(path)
+                outputs[f"upload_{stage}"] = aws.upload_s3(arc, s3_bucket)
+
+    if notify_url:
+        notify.notify(
+            notify_url,
+            f"pipeline {pipeline} done for {img_path}: "
+            + ", ".join(outputs))
     return outputs

@@ -1,11 +1,11 @@
 """Blob/ROI/truth database (sqlite3) in the reference's schema.
 
-Copy of what the port uses from ``magellanmapper_tpu/io/sqlite.py``: the
-same tables (``about``/``experiments``/``rois``/``blobs``/``blob_matches``,
-database version 4), so databases interchange with the reference, and the
-``ClrDB`` calls that write a truth ROI, list the ROIs, read confirmed
-blobs or an ROI's blobs, and write and read blob matches between
-channels.
+Copy of ``magellanmapper_tpu/io/sqlite.py``: the same tables
+(``about``/``experiments``/``rois``/``blobs``/``blob_matches``, database
+version 4), so databases interchange with the reference; the ``ClrDB``
+wrapper (ROIs, blobs, blob matches, verification counts, the version
+and its upgrade); the module-level ``(conn, cur)`` calls of the
+reference's API; and truth-database loading and merging.
 
 Blob rows store x,y,z in database column order, but the API speaks z,y,x
 blob arrays.
@@ -208,6 +208,96 @@ class ClrDB:
             "z", "y", "x", "radius", "confirmed", "truth", "channel")]
             for r in rows], dtype=float).reshape(-1, 7)
 
+    def verification_stats(self) -> Tuple[int, int, int]:
+        """``(pos, true_pos, false_pos)``: blobs with a truth flag, blobs
+        confirmed without one, and blobs marked incorrect."""
+        self.cur.execute(
+            "SELECT COUNT(*) AS n FROM blobs WHERE truth >= 0")
+        pos = self.cur.fetchone()["n"]
+        self.cur.execute(
+            "SELECT COUNT(*) AS n FROM blobs WHERE confirmed = 1 AND "
+            "truth = -1")
+        true_pos = self.cur.fetchone()["n"]
+        self.cur.execute(
+            "SELECT COUNT(*) AS n FROM blobs WHERE confirmed = 0")
+        false_pos = self.cur.fetchone()["n"]
+        return pos, true_pos, false_pos
+
+    def select_about(self) -> list:
+        self.cur.execute("SELECT * FROM about")
+        return self.cur.fetchall()
+
+    def db_version(self) -> int:
+        """The newest version in ``about``; 0 for a database without
+        that table."""
+        try:
+            rows = self.select_about()
+            return int(rows[-1]["version"]) if rows else 0
+        except sqlite3.OperationalError:
+            return 0
+
+    def upgrade_db(self) -> int:
+        """Bring an older database to the current schema: the ``about``
+        table (version 2), the blobs' channel column (3) and the
+        ``blob_matches`` table (4). Returns the version reached."""
+        ver = self.db_version()
+        if ver >= DB_VERSION:
+            return ver
+        if ver < 2:
+            try:
+                self.cur.execute(
+                    "CREATE TABLE about "
+                    "(version INTEGER PRIMARY KEY, date DATE)")
+            except sqlite3.OperationalError:
+                pass
+        if ver < 3:
+            cols = [r["name"] for r in self.cur.execute(
+                "PRAGMA table_info(blobs)")]
+            if "channel" not in cols:
+                self.cur.execute(
+                    "ALTER TABLE blobs ADD COLUMN channel INTEGER "
+                    "DEFAULT 0")
+        if ver < 4:
+            self.cur.execute(
+                "CREATE TABLE IF NOT EXISTS blob_matches "
+                "(id INTEGER PRIMARY KEY AUTOINCREMENT, roi_id INTEGER, "
+                "blob1 INTEGER, blob2 INTEGER, dist REAL)")
+        self.cur.execute(
+            "INSERT INTO about (version, date) VALUES (?, ?)",
+            (DB_VERSION, datetime.datetime.now().isoformat()))
+        self.conn.commit()
+        return DB_VERSION
+
+    def select_rois(self, exp_id: Optional[int] = None) -> list:
+        return self.get_rois(exp_id)
+
+    def select_roi(self, roi_id: int):
+        """One ROI's row by its ID."""
+        self.cur.execute("SELECT * FROM rois WHERE id = ?", (roi_id,))
+        return self.cur.fetchone()
+
+    def update_rois(self, offset, size) -> int:
+        """Shift every ROI's offset by ``-offset`` and grow its size by
+        ``size`` (both x,y,z); returns the ROIs updated."""
+        self.cur.execute("SELECT * FROM rois")
+        rows = self.cur.fetchall()
+        for row in rows:
+            self.cur.execute(
+                "UPDATE rois SET offset_x = ?, offset_y = ?, offset_z = ?, "
+                "size_x = ?, size_y = ?, size_z = ? WHERE id = ?",
+                (row["offset_x"] - offset[0], row["offset_y"] - offset[1],
+                 row["offset_z"] - offset[2], row["size_x"] + size[0],
+                 row["size_y"] + size[1], row["size_z"] + size[2],
+                 row["id"]))
+        self.conn.commit()
+        return len(rows)
+
+    def get_roi_offset(self, roi) -> tuple:
+        return get_roi_offset(roi)
+
+    def get_roi_size(self, roi) -> tuple:
+        return get_roi_size(roi)
+
 
 def load_db(path: str) -> ClrDB:
     """Load or create a database at ``path``."""
@@ -219,3 +309,148 @@ def load_truth_db(path: str) -> ClrDB:
     if not path.endswith(".db"):
         path = f"{path}.db"
     return load_db(path)
+
+
+
+def merge_truth_dbs(paths: Sequence[str], out_path: str) -> ClrDB:
+    """Merge truth databases into one at ``out_path``: each source's
+    experiments and ROIs by name and position, with their blobs."""
+    out = load_db(out_path)
+    for path in paths:
+        src = load_db(path)
+        src.cur.execute(
+            "SELECT e.name, r.series, r.offset_x, r.offset_y, r.offset_z, "
+            "r.size_x, r.size_y, r.size_z, r.id AS roi_id "
+            "FROM rois r JOIN experiments e ON r.experiment_id = e.id")
+        for roi in src.cur.fetchall():
+            exp_id = out.select_or_insert_experiment(roi["name"])
+            roi_id, _ = out.select_or_insert_roi(
+                exp_id, roi["series"],
+                (roi["offset_x"], roi["offset_y"], roi["offset_z"]),
+                (roi["size_x"], roi["size_y"], roi["size_z"]))
+            blobs = src.select_blobs_by_roi(roi["roi_id"])
+            if len(blobs):
+                out.insert_blobs(roi_id, blobs)
+        src.close()
+    return out
+
+
+def get_exp_name(path: str) -> str:
+    """Experiment name of an image path: its base name without the
+    extension and the sub-image suffix."""
+    from magellanmapper_torch.io import importer
+    base = importer.deconstruct_img_name(path)[0]
+    return os.path.splitext(os.path.basename(base))[0] if base else base
+
+
+def match_elements(src: str, delim: str, repeat: str) -> str:
+    """``repeat`` once per ``delim``-separated element of ``src``."""
+    return delim.join([repeat] * len(src.split(delim)))
+
+
+# -- module-level (conn, cur) calls, the reference's API ---------------------
+
+def _db_for(conn, cur) -> ClrDB:
+    db = ClrDB()
+    db.conn = conn
+    db.cur = cur
+    return db
+
+
+def insert_about(conn, cur, version: int, date) -> None:
+    cur.execute("INSERT INTO about (version, date) VALUES (?, ?)",
+                (version, date))
+    conn.commit()
+
+
+def select_about(conn, cur) -> list:
+    return _db_for(conn, cur).select_about()
+
+
+def upgrade_db(conn, cur) -> int:
+    """Upgrade an older database in place (:meth:`ClrDB.upgrade_db`)."""
+    return _db_for(conn, cur).upgrade_db()
+
+
+def insert_experiment(conn, cur, name: str, date=None) -> int:
+    cur.execute("INSERT INTO experiments (name, date) VALUES (?, ?)",
+                (name, date or datetime.datetime.now().isoformat()))
+    conn.commit()
+    return cur.lastrowid
+
+
+def insert_roi(conn, cur, exp_id: int, series: int, offset, size):
+    """Insert an ROI's row, or find it (offset and size in x,y,z)."""
+    return _db_for(conn, cur).select_or_insert_roi(
+        exp_id, series, offset, size)
+
+
+select_or_insert_roi = insert_roi
+
+
+def insert_blobs(conn, cur, roi_id: int, blobs) -> int:
+    return _db_for(conn, cur).insert_blobs(roi_id, np.asarray(blobs))
+
+
+def delete_blobs(conn, cur, roi_id: int, blobs) -> int:
+    """Delete the ROI's blobs at the given z,y,x coordinates; returns the
+    rows deleted."""
+    deleted = 0
+    for blob in blobs:
+        cur.execute(
+            "DELETE FROM blobs WHERE roi_id = ? AND z = ? AND y = ? "
+            "AND x = ?",
+            (roi_id, int(round(blob[0])), int(round(blob[1])),
+             int(round(blob[2]))))
+        deleted += cur.rowcount
+    conn.commit()
+    return deleted
+
+
+def select_blobs_confirmed(cur, confirmed: int) -> np.ndarray:
+    return _db_for(None, cur).select_blobs_confirmed(confirmed)
+
+
+def verification_stats(db: ClrDB, exp_name: str, treat_maybes: int = 0):
+    """Sensitivity, PPV and message of an experiment's verified blobs
+    (``verifier.meas_detection_accuracy``); Nones when it has none."""
+    from magellanmapper_torch.cv import verifier
+    exp_id = db.select_or_insert_experiment(exp_name)
+    parts = [db.select_blobs_by_roi(roi["id"])
+             for roi in db.get_rois(exp_id)]
+    parts = [p for p in parts if len(p)]
+    if not parts:
+        return None, None, None
+    return verifier.meas_detection_accuracy(
+        np.vstack(parts), verified=True, treat_maybes=treat_maybes)
+
+
+def select_rois(cur, exp_id: Optional[int] = None) -> list:
+    return _db_for(None, cur).get_rois(exp_id)
+
+
+def select_roi(cur, roi_id: int):
+    return _db_for(None, cur).select_roi(roi_id)
+
+
+def update_rois(conn, cur, offset, size) -> int:
+    return _db_for(conn, cur).update_rois(offset, size)
+
+
+def get_roi_offset(roi) -> Tuple[int, int, int]:
+    """x,y,z offset of an ROI's row."""
+    return (roi["offset_x"], roi["offset_y"], roi["offset_z"])
+
+
+def get_roi_size(roi) -> Tuple[int, int, int]:
+    """x,y,z size of an ROI's row."""
+    return (roi["size_x"], roi["size_y"], roi["size_z"])
+
+
+def clean_up_blobs(db: ClrDB) -> int:
+    """Delete the blobs whose ROI no longer exists; returns the rows
+    deleted."""
+    db.cur.execute(
+        "DELETE FROM blobs WHERE roi_id NOT IN (SELECT id FROM rois)")
+    db.conn.commit()
+    return db.cur.rowcount

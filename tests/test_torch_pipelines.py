@@ -4,6 +4,7 @@ import, stitching of a small tile set and the full run from tiles to
 blobs, each stage's output held to the reference's on the same input."""
 
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -187,12 +188,21 @@ def test_resumed_full_run_reads_the_fused_image_pin(tmp_path, tile_set):
 
 
 @pytest.mark.parametrize("kwargs,named", [
-    ({"s3_bucket": "bucket"}, "s3_bucket"),
-    ({"notify_url": "http://localhost:1"}, "notify_url")])
-def test_cloud_stages_raise_by_name(tmp_path, kwargs, named):
-    with pytest.raises(NotImplementedError, match=named):
-        pipelines.run_pipeline("full", str(tmp_path / "x.npy"),
-                               device="cpu", **kwargs)
+    ({"s3_bucket": "bucket"}, "boto3"),
+    ({"notify_url": "http://localhost:1"}, "x")])
+def test_cloud_stages_raise_by_name(tmp_path, monkeypatch, kwargs, named):
+    """The cloud stages run as the reference's: without boto3 the S3
+    download raises the reference's ``ImportError`` naming it; with a
+    webhook, a missing image raises ``FileNotFoundError`` naming it
+    before any message is sent."""
+    monkeypatch.setitem(sys.modules, "boto3", None)
+    errs = []
+    for mod, extra in ((pipelines, {"device": "cpu"}), (ref_pipelines, {})):
+        with pytest.raises((ImportError, FileNotFoundError)) as err:
+            mod.run_pipeline("full", str(tmp_path / "x.npy"), **kwargs,
+                             **extra)
+        errs.append((type(err.value), str(err.value)))
+    assert errs[0] == errs[1] and named in errs[0][1]
 
 
 def test_unknown_pipeline_raises_as_the_reference(tmp_path):

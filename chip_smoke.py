@@ -230,12 +230,33 @@ result, on any fault. Phases:
    webhook message (phase 10's too) and ``--notify`` against
    ``localhost`` stand-ins. The matplotlib canvases, the Tk app and the
    S3 and EC2 calls are named as not run; the CPU tests hold them;
-17. a JSON line of per-kernel results (launches summed over the paths,
+17. the sharded paths (:func:`sharded_path`): (a) ``--proc detect --mesh
+   1,1`` through the CLI, a world of one over NCCL, on a 150-plane crop
+   of the slice (its shard's LoG cube under K1's 2^31 voxels, printed);
+   then one world of 2 ranks over gloo sharing the card
+   (``parallel.launch.spawn``, :func:`sharded_rank`): (b) the crop with
+   ``--mesh 1,2``, equal to (a); (c) the whole slice, its wall, Mvox/s,
+   peak MiB per rank, gated at the detect bars; (e) the reg level on
+   the gauntlet pair's coarsest level (loss and gradients), groupwise
+   over 2 brains (its loss gradient at the unsharded runs' parameters,
+   its mean after 1 and 32 steps), ``vol_stats`` at 25 um,
+   ``transpose_img``, ``resize_sharded``, the grid ROI's sweep (K2), a
+   classifier step (loss, reduced gradients, weights) and both gather
+   renderers at 512^2, each against its unsharded call on the card; each
+   rank's launches of (b), (c) and (e) apart; (k) the slice again, every
+   launch of K1, K3 and K4 held bit for bit against its plain version on
+   the same card tensors (each rank's LoG cube, 65,536-row buffer and
+   tile matrix); (d) a (64, 256, 256) crop, card equal to CPU; a budget
+   of ``SHARD_BUDGET_S``. The detect steps raise the shard capacity
+   (``SHARD_PROFILE``);
+18. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --study-tables`` runs phase 15 alone, on the
 seed-0 pair's labels at 25 um and the detect slice's volume;
-``python3 chip_smoke.py --gui`` runs phase 16 alone, on the same.
+``python3 chip_smoke.py --gui`` runs phase 16 alone, on the same;
+``python3 chip_smoke.py --sharded`` runs phase 17 alone, on its own
+fixtures.
 
 ``python3 chip_smoke.py --gauntlet-suite`` runs the reference's
 gauntlet suite alone instead: ``run_gauntlet_suite`` on (160, 240, 200)
@@ -251,6 +272,9 @@ seeded detect block: its (252, 15625) denoise tiles and the block as one
 ``--root`` names the checkout whose ``magellanmapper_torch`` is timed
 (default: this one), so an older commit unpacked with ``git archive`` can
 be timed beside this one on the same card.
+``python3 chip_smoke.py --groupwise-times [--root DIR]`` likewise prints
+the steps per second of each affine level of ``register_groupwise`` on
+phase 8's four brains (:func:`groupwise_times`).
 """
 
 from __future__ import annotations
@@ -436,6 +460,9 @@ DECONV_ROI = (64, 256, 256)
 DECONV_ITERS = 30
 DECONV_CROP = (32, 64, 64)
 DECONV_RTOL = 1e-4
+#: ``--groupwise-times``: steps at the coarsest affine level (phase 8's
+#: ``groupwise`` profile)
+GROUP_TIMES_ITERS = 1024
 #: ``--k4-times``: one detect block of the lightsheet profile, its denoise
 #: tiles and its clip percentiles (clip_vmin, clip_vmax)
 K4_BLOCK = (156, 128, 128)
@@ -530,6 +557,48 @@ GUI_BRUSH = 24.0
 GUI_PAINT_GAP = 12
 GUI_PAINT_SHIFT = (10, -8)
 GUI_REMAP_PLANES = 16
+#: the sharded paths (phase 17): (a) ``--proc detect --mesh 1,1`` over
+#: NCCL on a z crop of the slice whose one shard's LoG cube stays under
+#: K1's 2^31 voxels (150 planes, a whole number of 25-voxel denoise
+#: tiles, plus 12-plane halos: 10 x 174 x 1024 x 1024); (b) the same crop
+#: at a world of 2 over gloo on the one card; (c) the whole slice at a
+#: world of 2 (each rank's cube 10 x 174 x 1024 x 1024); (d) a crop card
+#: against CPU at a world of 2; (e) every other variant at a world of 2
+#: against its unsharded call. A shard keeps ``max_blobs_per_block``
+#: peaks (halo peaks too) before pruning, as the reference's does, and
+#: ``lightsheet``'s 4,096 holds a quarter of a 128-plane shard's ~15,600
+#: nuclei: the detect steps run with the capacity raised to
+#: ``SHARD_CAPACITY`` (``SHARD_PROFILE``, a profile file for the CLI)
+SHARD_CROP_Z = 150
+SHARD_CAPACITY = 1 << 16
+SHARD_PROFILE = {"max_blobs_per_block": SHARD_CAPACITY}
+SHARD_CPU_CROP = CROP
+#: (e): the reg level's limits (the reference's sharded-gradient test),
+#: also for the groupwise loss gradient at the same parameters; groupwise
+#: means after 1 and 32 steps; resize and renders; the classifier's loss,
+#: its reduced gradients, its weights against a fresh Adam's first step
+#: of them (``lr * g / (|g| + eps)``) and against the unsharded step's
+#: where the gradient is far above eps (near eps that step turns a
+#: gradient difference of 1e-11 into 1e-6)
+SHARD_REG_RTOL, SHARD_REG_ATOL = 2e-3, 2e-6
+SHARD_GROUP_RTOL, SHARD_GROUP_ATOL = 1e-3, 1e-4
+SHARD_GROUP_STEPS = (1, 32)
+SHARD_IMG_ATOL = 1e-6
+SHARD_LOSS_ATOL = 1e-5
+SHARD_CLF_GRAD_RTOL, SHARD_CLF_GRAD_ATOL = 1e-5, 1e-7
+SHARD_CLF_LR, SHARD_CLF_EPS = 1e-3, 1e-8
+SHARD_CLF_STEP_ATOL = 1e-7
+SHARD_CLF_FAR_FROM_EPS, SHARD_CLF_PARAM_ATOL = 1e-6, 1e-6
+#: (k): the slice's detection again on both ranks, each launch of K1, K3
+#: and K4 held against its plain version on the same card tensors, K1's
+#: on z slabs of this many planes (one more each side)
+SHARD_K1_SLAB = 16
+SHARD_RENDER_HW = (512, 512)
+SHARD_RENDER_STEPS = 128
+SHARD_PATCHES = 512
+SHARD_SWEEP = (0.05, 0.1, 0.15, 0.2)
+#: phase 17's time budget (s), from before (a) to after (e)'s checks
+SHARD_BUDGET_S = 90.0
 
 
 def fail(msg: str) -> None:
@@ -769,6 +838,38 @@ def k4_times(root: str) -> None:
         print(json.dumps({"root": root, "name": name,
                           **time_k4(torch, k4, t, K4_Q, reps=100)}),
               flush=True)
+
+
+def groupwise_times(root: str) -> None:
+    """``--groupwise-times``: ``register_groupwise`` of the checkout at
+    ``root`` on phase 8's four (160, 240, 200) brains, its affine levels
+    only (``GROUP_TIMES_ITERS`` steps at the coarsest, three levels), once
+    to warm up and once timed; one JSON line of each level's steps per
+    second (the engine's log), labelled with ``root``."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    try:
+        from magellanmapper_torch import testing
+        from magellanmapper_torch.atlas import gauntlet, reg_engine
+    except ImportError as err:
+        fail(f"{root} holds no magellanmapper_torch package: {err}")
+    if not reg_engine.__file__.startswith(root + os.sep):
+        fail(f"imported {reg_engine.__file__}, not the one under {root}")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip(), flush=True)
+    pair = gauntlet.build_pair(REG_SHAPE, seed=SEED, device="cuda")
+    imgs = testing.make_group(pair, GROUP_SEEDS, device="cuda")["imgs"]
+    reg_engine.register_groupwise(imgs, max_iter=32, num_resolutions=3)
+    with LogRecords("magellanmapper_torch.atlas.reg_engine") as logs:
+        reg_engine.register_groupwise(imgs, max_iter=GROUP_TIMES_ITERS,
+                                      num_resolutions=3)
+    for row in logs.args("groupwise levels")[0][0]:
+        print(json.dumps({"root": root, **row}), flush=True)
 
 
 def k1_cases(torch, cube, ragged, thr, dev):
@@ -4228,6 +4329,614 @@ def gui_path(torch, vol, centres, ccf25, work, launches):
           f"loaded of matplotlib, tkinter and boto3: {loaded}", flush=True)
 
 
+def _shard_profile(work):
+    """``lightsheet`` with the shard capacity, as a profile and as the
+    CLI's ``--roi_profile`` value (a profile file beside it)."""
+    from magellanmapper_torch.cv import stack_detect as sd
+
+    path = os.path.join(work, "shard_capacity.yml")
+    with open(path, "w") as f:
+        f.write(f"max_blobs_per_block: {SHARD_CAPACITY}\n")
+    prof = sd.roi_profile("lightsheet")
+    prof.update(SHARD_PROFILE)
+    return prof, f"lightsheet,{path}"
+
+
+def coarse_pair(pair):
+    """The gauntlet pair's coarsest pyramid level (of 4) and the next,
+    numpy on the host: phase 17's registration inputs."""
+    import torch
+    from magellanmapper_torch.atlas import reg_engine
+
+    out = {}
+    for name in ("fixed", "moving"):
+        pyr = reg_engine._pyramid(torch.from_numpy(
+            np.asarray(pair[name], np.float32)).cuda(), 4)
+        out[name] = pyr[0].cpu().numpy()
+        out[name + "_1"] = pyr[1].cpu().numpy()
+    return out
+
+
+#: the affine parameters at which phase 17 evaluates the level
+SHARD_REG_PARAMS = {"W": np.eye(3, dtype=np.float32) * 0.01,
+                    "t": np.asarray([0.4, -0.2, 0.6], np.float32)}
+
+
+def k1_plain_by_slabs(torch, k1, cube, thr, planes):
+    """K1's plain version over ``cube`` as z slabs of ``planes`` planes,
+    each with one plane more on either side (the 3^4 test's reach), its
+    peaks mapped back to the cube's flat indices: the whole cube's
+    answer in the memory of a slab."""
+    s, z, y, x = cube.shape
+    plane = y * x
+    vals, idxs = [], []
+    for z0 in range(0, z, planes):
+        z1 = min(z0 + planes, z)
+        lo, hi = max(z0 - 1, 0), min(z1 + 1, z)
+        v, i = k1.peak_candidates_plain(cube[:, lo:hi].contiguous(), thr)
+        si, rest = i // ((hi - lo) * plane), i % ((hi - lo) * plane)
+        zg = rest // plane + lo
+        keep = (zg >= z0) & (zg < z1)
+        vals.append(v[keep])
+        idxs.append(((si * z + zg) * plane + rest % plane)[keep])
+    return torch.cat(vals), torch.cat(idxs)
+
+
+def checked_kernels(torch, checks: dict):
+    """Wrap the three kernel wrappers that the sharded detect step calls
+    (K1 and K3 through ``ops.peaks``, K4 through ``ops.preproc``) so that
+    each launch is held against its plain version on the same card
+    tensors: ``checks[name]`` gets one row per call, its shape, size,
+    max_abs_err (K3: mismatches) and whether the two agree bit for bit.
+    Returns a function that puts the wrappers back."""
+    from magellanmapper_torch.kernels import peak_candidates as k1
+    from magellanmapper_torch.kernels import prune_overlap as k3
+    from magellanmapper_torch.kernels import tile_percentiles as k4
+    from magellanmapper_torch.ops import peaks, preproc
+
+    orig = (peaks.peak_candidates, peaks.prune_overlapping_blobs,
+            preproc.tile_percentiles)
+
+    def add(name, shape, n, err, equal):
+        checks.setdefault(name, []).append(dict(
+            shape=list(shape), n=int(n), max_abs_err=float(err),
+            equal=bool(equal)))
+
+    def k1_checked(cube, thr):
+        vals, idx = orig[0](cube, thr)
+        pv, pi = k1_plain_by_slabs(torch, k1, cube, thr, SHARD_K1_SLAB)
+        a, b = torch.argsort(idx), torch.argsort(pi)
+        equal = len(idx) == len(pi) and torch.equal(idx[a], pi[b]) \
+            and same_bits(torch, vals[a], pv[b])
+        err = float((vals[a] - pv[b]).abs().max()) if (
+            len(idx) == len(pi) and len(idx)) else (
+            0.0 if len(idx) == len(pi) else float("inf"))
+        add("peak_candidates", cube.shape, len(idx), err, equal)
+        return vals, idx
+
+    def k3_checked(coords, sigmas, valid, overlap_thresh, ndim=3):
+        out = orig[1](coords, sigmas, valid, overlap_thresh, ndim)
+        want = k3.prune_overlap_plain(coords, sigmas, valid, overlap_thresh,
+                                      ndim)
+        bad = int((out != want).sum())
+        add("prune_overlap", coords.shape, int(valid.sum()), bad, bad == 0)
+        return out
+
+    def k4_checked(tiles, q_lo, q_hi):
+        out = orig[2](tiles, q_lo, q_hi)
+        want = k4.tile_percentiles_plain(tiles, q_lo, q_hi)
+        add("tile_percentiles", tiles.shape, tiles.numel(),
+            (out - want).abs().max(), same_bits(torch, out, want))
+        return out
+
+    peaks.peak_candidates = k1_checked
+    peaks.prune_overlapping_blobs = k3_checked
+    preproc.tile_percentiles = k4_checked
+
+    def restore():
+        (peaks.peak_candidates, peaks.prune_overlapping_blobs,
+         preproc.tile_percentiles) = orig
+    return restore
+
+
+def groupwise_diffs(e: dict, brains, group_base: dict, group_params: dict,
+                    device="cuda") -> dict:
+    """Phase 17 (e)'s groupwise checks of a world's results ``e``: the
+    loss gradient at the unsharded runs' parameters (``group_params``)
+    within the reg level's limits, then the runs' means (``group_base``)
+    within the groupwise limits; fails past them. Also reads how far
+    32 + 16 Adam steps carry a one-ulp change of one brain (not gated).
+    Returns the largest differences by name."""
+    from magellanmapper_torch.atlas import reg_engine
+    from magellanmapper_torch.parallel import cases
+
+    diffs = {}
+    for steps in SHARD_GROUP_STEPS:
+        want = cases.group_grads(brains, group_params[steps], device=device)
+        for k, g in want.items():
+            got = e[f"group_grads{steps}"][k]
+            diffs[f"group_grad_{k}_{steps}_steps"] = float(
+                np.abs(got - g).max())
+            if not np.allclose(got, g, rtol=SHARD_REG_RTOL,
+                               atol=SHARD_REG_ATOL):
+                fail(f"sharded (e): groupwise gradient {k} at the "
+                     f"{steps}-step parameters off: {got} against {g}")
+        mean, per_img = group_base[steps]
+        got_mean, got_params = e[f"group{steps}"]
+        diffs[f"group_mean_{steps}_steps"] = float(
+            np.abs(got_mean - mean).max())
+        diffs[f"group_t_{steps}_steps"] = max(
+            float(np.abs(a["t"] - b["t"]).max())
+            for a, b in zip(got_params, per_img))
+        if not np.allclose(got_mean, mean, rtol=SHARD_GROUP_RTOL,
+                           atol=SHARD_GROUP_ATOL):
+            fail(f"sharded (e): the groupwise mean after {steps} steps "
+                 f"differs by {diffs[f'group_mean_{steps}_steps']}")
+    steps = SHARD_GROUP_STEPS[-1]
+    nudged, _ = reg_engine.register_groupwise(
+        [brains[0], brains[1] * np.float32(1 + 2 ** -23)], max_iter=steps,
+        num_resolutions=2, device=device)
+    diffs[f"group_mean_{steps}_steps_one_ulp_input"] = float(
+        np.abs(nudged - group_base[steps][0]).max())
+    return diffs
+
+
+def classifier_diffs(got: tuple, tree: dict, patches, labels,
+                     device="cuda") -> dict:
+    """Phase 17 (e)'s classifier checks of a world's ``(loss, weights,
+    reduced gradients)`` from the weights ``tree``: the gradients against
+    the whole batch's, the weights against a fresh Adam's first step of
+    them and against the unsharded one-epoch train's where the gradient is
+    far above eps, the loss against that train's; fails past the limits.
+    Returns the largest differences by name."""
+    from magellanmapper_torch.cv import classifier
+
+    loss, new, grads = got
+    clf = classifier.BlobClassifier(params=tree, device=device)
+    want_grads = classifier.params_to_reference(
+        clf.batch_grads(patches, labels)[1])
+    want_loss = clf.train(patches, labels, epochs=1,
+                          batch_size=len(patches))["loss"]
+    diffs = {"classifier_loss": abs(loss - want_loss),
+             "classifier_grad": 0.0, "classifier_weights": 0.0}
+    for layer in sorted(tree["params"]):
+        for key in ("bias", "kernel"):
+            def leaf(t):
+                return np.asarray(t["params"][layer][key])
+            g, g_want, w = leaf(grads), leaf(want_grads), leaf(new)
+            diffs["classifier_grad"] = max(diffs["classifier_grad"], float(
+                np.abs(g - g_want).max()))
+            if not np.allclose(g, g_want, rtol=SHARD_CLF_GRAD_RTOL,
+                               atol=SHARD_CLF_GRAD_ATOL):
+                fail(f"sharded (e): classifier gradient {layer}.{key} off")
+            step = leaf(tree) - SHARD_CLF_LR * g / (np.abs(g)
+                                                    + SHARD_CLF_EPS)
+            if not np.allclose(w, step, rtol=0, atol=SHARD_CLF_STEP_ATOL):
+                fail(f"sharded (e): classifier weights {layer}.{key} are "
+                     f"not Adam's first step of the reduced gradient")
+            far = np.abs(g_want) > SHARD_CLF_FAR_FROM_EPS
+            if far.any():
+                diffs["classifier_weights"] = max(
+                    diffs["classifier_weights"],
+                    float(np.abs(w[far] - leaf(clf.params)[far]).max()))
+            if not np.allclose(w[far], leaf(clf.params)[far], rtol=0,
+                               atol=SHARD_CLF_PARAM_ATOL):
+                fail(f"sharded (e): classifier weights {layer}.{key} "
+                     f"differ from the unsharded step's")
+    if diffs["classifier_loss"] > SHARD_LOSS_ATOL:
+        fail(f"sharded (e): classifier loss off by "
+             f"{diffs['classifier_loss']}")
+    return diffs
+
+
+def sharded_rank(inp: dict) -> dict:
+    """Phase 17's steps (b), (c) and (e) on one rank of a gloo world
+    sharing the card, the launch counters set to 0 before them and read
+    after each; then, not counted, (k), the slice with every kernel
+    launch held against its plain version, and (d), card against CPU."""
+    import torch
+    import torch.distributed as dist
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch.atlas import transformer
+    from magellanmapper_torch.cv import detector
+    from magellanmapper_torch.io import cli
+    from magellanmapper_torch.ops import render3d, resize
+    from magellanmapper_torch.parallel import cases, halo
+    from magellanmapper_torch.parallel import mesh as mesh_mod
+    from magellanmapper_torch.atlas import reg_engine
+    from magellanmapper_torch.stats import vols
+
+    rank = dist.get_rank()
+    out = {"rank": rank}
+    mesh_sp = mesh_mod.make_mesh(2)
+    mesh_dp = mesh_mod.make_mesh(2, dp=2, sp=1)
+    prof = inp["profile"]
+    dev_mod.reset_launches()
+    mark = dict(dev_mod.LAUNCHES)
+
+    def step_launches():
+        """This rank's launches since the last call (or the reset)."""
+        delta = {k: v - mark[k] for k, v in dev_mod.LAUNCHES.items()}
+        mark.update(dev_mod.LAUNCHES)
+        return delta
+
+    # (b) the crop through the CLI at a world of 2
+    t0 = time.perf_counter()
+    out["b"] = cli.main(["--img", inp["crop_path"], "--proc", "detect",
+                         "--roi_profile", inp["profile_arg"], "--mesh",
+                         "1,2", "--device", "cuda"]).blobs
+    out["b_s"] = time.perf_counter() - t0
+    out["b_launches"] = step_launches()
+
+    # (c) the whole slice
+    torch.cuda.reset_peak_memory_stats()
+    vol = np.load(inp["slice_path"], mmap_mode="r")
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["c"] = halo.detect_blobs_sharded(
+        np.asarray(vol), prof, (1.0, 1.0, 1.0), mesh=mesh_sp,
+        preprocess=True)
+    torch.cuda.synchronize()
+    dist.barrier()
+    out["c_s"] = time.perf_counter() - t0
+    out["c_launches"] = step_launches()
+    out["c_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # (e) every other variant at a world of 2
+    e = {}
+    timing = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        e[name] = fn()
+        torch.cuda.synchronize()
+        timing[name] = time.perf_counter() - t
+
+    reg = inp["reg"]
+    timed("reg_loss", lambda: cases.level_loss(
+        reg["fixed"], reg["moving"], SHARD_REG_PARAMS, "affine",
+        "AdvancedMattesMutualInformation", (("W", 0.01), ("t", 1.0)),
+        (1, 1, 1), mesh_sp))
+    timed("reg_grads", lambda: cases.mattes_mi_grads(
+        reg["fixed"], reg["moving"], SHARD_REG_PARAMS, mesh_sp))
+    timed("reg_level", lambda: {k: v.cpu().numpy() for k, v in
+                                reg_engine._optimize_level_sharded(
+        mesh_sp, torch.from_numpy(reg["fixed"]).cuda(),
+        torch.from_numpy(reg["moving"]).cuda(),
+        {k: torch.from_numpy(v).cuda() for k, v in
+         SHARD_REG_PARAMS.items()}, None, "affine",
+        "AdvancedMattesMutualInformation", 32, None,
+        (("W", 0.01), ("t", 1.0)))[0].items()})
+    brains = [reg["fixed_1"], reg["moving_1"]]
+    for steps in SHARD_GROUP_STEPS:
+        timed(f"group{steps}", lambda: reg_engine.register_groupwise(
+            brains, max_iter=steps, num_resolutions=2, mesh=mesh_dp))
+        timed(f"group_grads{steps}", lambda: cases.group_grads(
+            brains, inp["group_params"][steps], mesh=mesh_dp))
+    labels = np.load(inp["labels_path"])
+    intensity = np.load(inp["intensity_path"])
+    timed("vols", lambda: vols.measure_labels_metrics(
+        intensity, labels, mesh=mesh_sp))
+    timed("vols_sums", lambda: cases.segment_sums(labels, intensity,
+                                                  mesh_sp))
+    timed("transpose", lambda: transformer.transpose_img(
+        inp["transpose_path"], rescale=0.5, mesh=mesh_sp))
+    timed("resize", lambda: resize.resize_sharded(
+        intensity, tuple(s // 2 for s in intensity.shape),
+        mesh_sp).cpu().numpy())
+    grid = np.load(inp["grid_path"])
+    timed("sweep", lambda: detector.blob_log_multi_sharded(
+        grid, inp["grid_sigmas"], SHARD_SWEEP, 0.5, inp["grid_cap"],
+        mesh_dp))
+    timed("classifier", lambda: cases.classifier_step(
+        inp["clf_tree"], inp["patches"], inp["patch_labels"], mesh_dp))
+    rvol = inp["render_vol"]
+    timed("render_volume", lambda: render3d.render_volume_sharded(
+        rvol, mesh_dp, 30.0, 20.0, out_hw=SHARD_RENDER_HW,
+        n_steps=SHARD_RENDER_STEPS, opacity=0.05).cpu().numpy())
+    timed("render_isosurface", lambda: [
+        t.cpu().numpy() for t in render3d.render_isosurface_sharded(
+            rvol, 0.3, mesh_dp, 30.0, 20.0, out_hw=SHARD_RENDER_HW,
+            n_steps=SHARD_RENDER_STEPS)])
+    out["e"], out["e_s"] = e, timing
+    out["e_launches"] = step_launches()
+    out["launches"] = dict(dev_mod.LAUNCHES)
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+
+    # (k) the slice again, each kernel launch held against its plain
+    # version on the same card tensors (not counted)
+    checks = {}
+    restore = checked_kernels(torch, checks)
+    try:
+        out["k"] = halo.detect_blobs_sharded(
+            np.asarray(vol), prof, (1.0, 1.0, 1.0), mesh=mesh_sp,
+            preprocess=True)
+    finally:
+        restore()
+    out["k_checks"] = checks
+
+    # (d) a crop at a world of 2, on the card and on the CPU (not counted)
+    crop = np.ascontiguousarray(vol[:SHARD_CPU_CROP[0], :SHARD_CPU_CROP[1],
+                                    :SHARD_CPU_CROP[2]])
+    out["d"] = {dev: halo.detect_blobs_sharded(
+        crop, prof, (1.0, 1.0, 1.0), mesh=mesh_sp, preprocess=True,
+        device=dev) for dev in ("cuda", "cpu")}
+    return out
+
+
+def sharded_path(torch, vol, centres, grid_roi, grid_sigmas, reg, ccf25,
+                 work, launches):
+    """Phase 17, the sharded paths: (a) ``--proc detect --mesh 1,1``
+    through the CLI, a world of one over NCCL, on a z crop of the slice;
+    (b)-(e) in one world of 2 ranks over gloo sharing the card
+    (:func:`sharded_rank`): (b) the crop again, equal to (a); (c) the
+    whole slice, gated at the detect bars; (d) a crop card against CPU,
+    equal; (e) the reg level, groupwise, ``vol_stats`` at 25 um,
+    ``transpose_img``, the grid sweep (K2), a classifier step and both
+    renderers at 512^2, each against its unsharded call on the card; (k)
+    the slice's K1, K3 and K4 launches against their plain versions.
+    ``launches["sharded"]`` sums the ranks' counts of (b), (c) and (e),
+    ``launches["sharded_cli"]`` holds (a)'s."""
+    import torch.distributed as dist
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch.atlas import metrics, reg_engine, transform
+    from magellanmapper_torch.atlas import transformer
+    from magellanmapper_torch.cv import classifier, detector
+    from magellanmapper_torch.io import cli, np_io
+    from magellanmapper_torch.ops import render3d, resize
+    from magellanmapper_torch.parallel import cases, halo, launch
+    from magellanmapper_torch.stats import vols
+    from magellanmapper_torch import testing
+
+    t_phase = time.perf_counter()
+    prof, prof_arg = _shard_profile(work)
+    sigmas = [float(s) for s in detector.sigma_list(
+        prof["min_sigma_factor"], prof["max_sigma_factor"],
+        prof["num_sigma"])]
+    halo_w = halo.log_support(max(sigmas))
+    crop_path = os.path.join(work, "shard_crop.npy")
+    np.save(crop_path, np.ascontiguousarray(vol[:SHARD_CROP_Z]))
+    cube = len(sigmas) * (-(-SHARD_CROP_Z // 25) * 25 + 2 * halo_w) \
+        * vol.shape[1] * vol.shape[2]
+    print(f"sharded (a): crop {(SHARD_CROP_Z,) + vol.shape[1:]}, one "
+          f"shard's LoG cube {cube} voxels (K1 takes < {2 ** 31})",
+          flush=True)
+    if cube >= 2 ** 31:
+        fail(f"sharded: the crop's cube of {cube} voxels passes K1's limit")
+
+    # (a) a world of one over NCCL, in this process
+    dev_mod.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        blobs_a = cli.main(["--img", crop_path, "--proc", "detect",
+                            "--roi_profile", prof_arg, "--mesh", "1,1",
+                            "--device", "cuda"]).blobs
+        backend_a = dist.get_backend()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    t_a = time.perf_counter() - t0
+    launches["sharded_cli"] = dict(dev_mod.LAUNCHES)
+    if backend_a != "nccl":
+        fail(f"sharded (a): the world of one ran over {backend_a}")
+    print(f"sharded (a): --mesh 1,1 over {backend_a}: {len(blobs_a)} "
+          f"blobs in {t_a:.2f} s; launches {launches['sharded_cli']}",
+          flush=True)
+
+    # inputs of the world: files for the large arrays
+    slice_path = os.path.join(work, "shard_slice.npy")
+    np.save(slice_path, vol)
+    labels, intensity = ccf25
+    paths = {}
+    for name, arr in (("labels", labels), ("intensity", intensity),
+                      ("grid", grid_roi)):
+        paths[name] = os.path.join(work, f"shard_{name}.npy")
+        np.save(paths[name], arr)
+    small = np.ascontiguousarray(vol[:CROP[0], :CROP[1], :CROP[2]],
+                                 np.float32)
+    # in [0, 1], so the images' limits are absolute
+    render_vol = (small / max(float(small.max()), 1.0)).astype(np.float32)
+    transpose_src = {}
+    for name in ("sharded", "plain"):
+        transpose_src[name] = os.path.join(work, f"shard_tp_{name}.npy")
+        np_io.write_npy(transpose_src[name], render_vol[None],
+                        resolutions=[[1.0, 1.0, 1.0]])
+    rng = np.random.default_rng(SEED)
+    patches = rng.random((SHARD_PATCHES, classifier.PATCH_SIZE,
+                          classifier.PATCH_SIZE), dtype=np.float32)
+    patch_labels = (rng.random(SHARD_PATCHES) > 0.5).astype(np.float32)
+    grid_cap = max(4096, min(1 << 17, grid_roi.size // 1024))
+    # the unsharded groupwise runs, whose parameters the ranks also take
+    # the loss gradient at
+    brains = [reg["fixed_1"], reg["moving_1"]]
+    group_base = {steps: reg_engine.register_groupwise(
+        brains, max_iter=steps, num_resolutions=2)
+        for steps in SHARD_GROUP_STEPS}
+    group_params = {steps: {n: np.stack([p[n] for p in per_img])
+                            for n in ("W", "t")}
+                    for steps, (_, per_img) in group_base.items()}
+    clf_tree = classifier.BlobClassifier(seed=0).params
+    inp = dict(profile=prof, profile_arg=prof_arg, crop_path=crop_path,
+               slice_path=slice_path, reg=reg, labels_path=paths["labels"],
+               intensity_path=paths["intensity"], grid_path=paths["grid"],
+               grid_sigmas=tuple(grid_sigmas), grid_cap=grid_cap,
+               transpose_path=transpose_src["sharded"], patches=patches,
+               patch_labels=patch_labels, render_vol=render_vol,
+               group_params=group_params, clf_tree=clf_tree)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = launch.spawn(sharded_rank, 2, backend="gloo", device="cuda",
+                         timeout_s=240, args=(inp,))
+    t_world = time.perf_counter() - t0
+    launches["sharded"] = {k: sum(r["launches"][k] for r in ranks)
+                           for k in dev_mod.LAUNCHES}
+    for r in ranks:
+        print(f"sharded rank {r['rank']}: launches {r['launches']}: (b) "
+              f"{r['b_launches']}, (c) {r['c_launches']}, (e) "
+              f"{r['e_launches']}; peak {r['peak_mib']:.1f} MiB (the "
+              f"slice's {r['c_peak_mib']:.1f} MiB)", flush=True)
+    for name in ("peak_candidates", "extract_candidates", "prune_overlap",
+                 "tile_percentiles"):
+        if any(r["launches"][name] <= 0 for r in ranks):
+            fail(f"sharded: {name} was not launched on every rank")
+    r0 = ranks[0]
+
+    # (b) equal to (a)
+    if not testing.rows_equal(r0["b"], blobs_a) or not testing.rows_equal(
+            ranks[1]["b"], blobs_a):
+        n_b = 0 if r0["b"] is None else len(r0["b"])
+        fail(f"sharded (b): the crop's {n_b} blobs at a world of 2 differ "
+             f"from (a)'s {len(blobs_a)}")
+    print(f"sharded (b): --mesh 1,2 over gloo, {len(r0['b'])} blobs equal "
+          f"to (a)'s, {r0['b_s']:.2f} s", flush=True)
+
+    # (c) the whole slice at the detect bars
+    det = r0["c"]
+    if det is None or not np.isfinite(det).all() or det.shape[1] != 10:
+        fail("sharded (c): no finite blob rows")
+    if not np.array_equal(ranks[1]["c"], det):
+        fail("sharded (c): the ranks returned different blobs")
+    sens, ppv = testing.sens_ppv(det, centres, SLICE_SHAPE, VERIFY_TILE,
+                                 VERIFY_TOL)
+    wall = max(r["c_s"] for r in ranks)
+    stats_c = {"blobs": len(det), "nuclei": len(centres),
+               "sensitivity": round(sens, 4), "ppv": round(ppv, 4),
+               "wall_s": round(wall, 3),
+               "mvox_s": round(np.prod(SLICE_SHAPE) / 1e6 / wall, 2),
+               "peak_mib_per_rank": [round(r["c_peak_mib"], 1)
+                                     for r in ranks],
+               "launches_per_rank": [r["c_launches"] for r in ranks]}
+    print(f"sharded (c): slice {SLICE_SHAPE} at a world of 2 over gloo: "
+          f"{json.dumps(stats_c)}", flush=True)
+    if not (sens > 0.85 and ppv > 0.7):
+        fail(f"sharded (c): below the detect bars: sens {sens} ppv {ppv}")
+
+    # (k) the slice's kernel launches against their plain versions
+    for r in ranks:
+        if not np.array_equal(r["k"], det):
+            fail(f"sharded (k): rank {r['rank']}'s checked run found "
+                 f"other blobs than (c)")
+        for name in ("peak_candidates", "prune_overlap",
+                     "tile_percentiles"):
+            rows = r["k_checks"].get(name, [])
+            print(f"sharded (k) rank {r['rank']}: {name} against its plain "
+                  f"version: {json.dumps(rows)}", flush=True)
+            if not rows or not all(row["equal"] for row in rows):
+                fail(f"sharded (k): {name} on rank {r['rank']} differs "
+                     f"from its plain version (or never ran)")
+
+    # (d) card against CPU
+    d_card, d_cpu = r0["d"]["cuda"], r0["d"]["cpu"]
+    if not testing.rows_equal(d_card, d_cpu):
+        fail("sharded (d): the crop's blobs on the card differ from the "
+             "CPU's")
+    print(f"sharded (d): crop {SHARD_CPU_CROP}, {len(d_card)} blobs, card "
+          f"equal to CPU", flush=True)
+
+    # (e) each variant against its unsharded call on the card
+    e, diffs = r0["e"], {}
+    dev = torch.device("cuda")
+    fixed = torch.from_numpy(reg["fixed"]).to(dev)
+    moving = torch.from_numpy(reg["moving"]).to(dev)
+    params = {k: torch.from_numpy(v).to(dev) for k, v in
+              SHARD_REG_PARAMS.items()}
+    lrs = (("W", 0.01), ("t", 1.0))
+    _, base_loss = reg_engine._optimize_level(
+        fixed, moving, params, None, "affine",
+        "AdvancedMattesMutualInformation", 0, None, lrs)
+    p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    base_grads = torch.autograd.grad(metrics.metric_loss(
+        "AdvancedMattesMutualInformation", fixed,
+        transform.resample(moving, p, "affine", fixed.shape, order=1)),
+        list(p.values()))
+    diffs["reg_loss"] = abs(e["reg_loss"] - float(base_loss))
+    for k, g in zip(p, base_grads):
+        g = g.cpu().numpy()
+        if not np.allclose(e["reg_grads"][k], g, rtol=SHARD_REG_RTOL,
+                           atol=SHARD_REG_ATOL):
+            fail(f"sharded (e): reg gradient {k} off: {e['reg_grads'][k]} "
+                 f"against {g}")
+        diffs[f"reg_grad_{k}"] = float(np.abs(e["reg_grads"][k] - g).max())
+    if diffs["reg_loss"] > SHARD_REG_ATOL + SHARD_REG_RTOL * abs(
+            float(base_loss)):
+        fail(f"sharded (e): reg loss {e['reg_loss']} against {base_loss}")
+    level, _ = reg_engine._optimize_level(
+        fixed, moving, params, None, "affine",
+        "AdvancedMattesMutualInformation", 32, None, lrs)
+    diffs["reg_level_32_steps"] = max(
+        float(np.abs(e["reg_level"][k] - v.cpu().numpy()).max())
+        for k, v in level.items())
+    diffs.update(groupwise_diffs(e, brains, group_base, group_params))
+    # the per-label sums: counts exact, float64 moments within 1e-12
+    # relative; the table's columns made from them likewise, but for the
+    # variances (s2 / N - mean^2 cancels, so their relative difference
+    # grows as the variance falls below the second moment): printed
+    for i, (a, b) in enumerate(zip(e["vols_sums"], cases.segment_sums(
+            labels, intensity))):
+        if not (np.array_equal(a, b) if i == 0 else
+                np.allclose(a, b, rtol=1e-12, atol=0)):
+            fail(f"sharded (e): vol_stats sum {i} differs")
+    table = vols.measure_labels_metrics(intensity, labels)
+    cancel = ("VarIntensity", "VarNuclei", "CoefVarIntens", "CoefVarNuc")
+    for col in table.columns:
+        a = e["vols"][col].to_numpy(float)
+        b = table[col].to_numpy(float)
+        exact = col in ("Region", "VolPx", "Volume", "Nuclei")
+        if col in cancel:
+            both = np.isfinite(a) & np.isfinite(b) & (b != 0)
+            diffs[f"vols_{col}_rel"] = float(np.max(
+                np.abs(a[both] - b[both]) / np.abs(b[both]), initial=0))
+        elif not (np.array_equal(a, b, equal_nan=True) if exact else
+                  np.allclose(a, b, rtol=1e-12, atol=0, equal_nan=True)):
+            fail(f"sharded (e): vol_stats column {col} differs")
+    plain_tp = transformer.transpose_img(transpose_src["plain"],
+                                         rescale=0.5)
+    a = np.load(np_io.make_filenames(e["transpose"])[0])
+    b = np.load(np_io.make_filenames(plain_tp)[0])
+    diffs["transpose"] = float(np.abs(a - b).max())
+    want = resize.resize(torch.from_numpy(intensity).to(dev), tuple(
+        s // 2 for s in intensity.shape)).cpu().numpy()
+    diffs["resize"] = float(np.abs(e["resize"] - want).max())
+    rows, valid = detector.blob_log_multi(
+        torch.from_numpy(grid_roi).to(dev), grid_sigmas, SHARD_SWEEP, 0.5,
+        grid_cap)
+    if not (np.array_equal(e["sweep"][1], valid.cpu().numpy())
+            and np.array_equal(e["sweep"][0], rows.cpu().numpy())):
+        fail("sharded (e): the sweep's rows differ")
+    diffs.update(classifier_diffs(e["classifier"], clf_tree, patches,
+                                  patch_labels))
+    frame = render3d.render_volume(
+        render_vol, 30.0, 20.0, out_hw=SHARD_RENDER_HW,
+        n_steps=SHARD_RENDER_STEPS, opacity=0.05).cpu().numpy()
+    diffs["render_volume"] = float(np.abs(e["render_volume"] - frame).max())
+    rgb, depth = (t.cpu().numpy() for t in render3d.render_isosurface(
+        render_vol, 0.3, 30.0, 20.0, out_hw=SHARD_RENDER_HW,
+        n_steps=SHARD_RENDER_STEPS))
+    hit = np.isfinite(depth)
+    if not np.array_equal(np.isfinite(e["render_isosurface"][1]), hit):
+        fail("sharded (e): the isosurface's hits differ")
+    diffs["render_isosurface"] = max(
+        float(np.abs(e["render_isosurface"][0] - rgb).max()),
+        float(np.abs(e["render_isosurface"][1][hit] - depth[hit]).max())
+        if hit.any() else 0.0)
+    for name in ("transpose", "resize", "render_volume",
+                 "render_isosurface"):
+        if diffs[name] > SHARD_IMG_ATOL:
+            fail(f"sharded (e): {name} differs by {diffs[name]}")
+    print(f"sharded (e): against the unsharded calls on the card "
+          f"{json.dumps(diffs)}; seconds at a world of 2 "
+          f"{json.dumps({k: round(v, 3) for k, v in r0['e_s'].items()})}",
+          flush=True)
+    wall_phase = time.perf_counter() - t_phase
+    print(f"sharded: phase 17 wall {wall_phase:.1f} s (the world's "
+          f"{t_world:.1f} s, spawn and CUDA set-up included)", flush=True)
+    if wall_phase > SHARD_BUDGET_S:
+        fail(f"sharded: phase 17 took {wall_phase:.1f} s, past its "
+             f"{SHARD_BUDGET_S} s budget")
+
+
 def phase_alone(run) -> None:
     """One phase alone (``--study-tables``, ``--gui``), on the seed-0
     pair's labels at 25 um and the detect slice's volume:
@@ -4260,6 +4969,57 @@ def phase_alone(run) -> None:
     os.makedirs(work, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         run(torch, ccf25, vol, centres, tmp, {})
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "magellanmapper_tpu"))
+    if loaded:
+        fail(f"jax or the reference package was imported: {loaded[:10]}")
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def sharded_main() -> None:
+    """``--sharded``: phase 17 alone, on its own fixtures (the detect
+    slice, the grid ROI, the seed-0 pair's coarsest levels and 25 um
+    labels), then the kernels' launches by sharded path."""
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "magellanmapper_torch")):
+        fail(f"run from a checkout of the repository ({ROOT} has no "
+             "magellanmapper_torch package)")
+    sys.path.insert(0, ROOT)
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.atlas import gauntlet
+    from magellanmapper_torch.cv import detector
+    from magellanmapper_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
+          f"CUDA {torch.version.cuda}", flush=True)
+    _build.library()
+    print(f"build: {_build.build_seconds:.1f} s", flush=True)
+    pair = gauntlet.build_pair(REG_SHAPE, seed=SEED, device="cuda")
+    ccf25 = ccf25_labels(torch, pair)
+    reg = coarse_pair(pair)
+    del pair
+    vol, centres = testing.make_nuclei_volume(SLICE_SHAPE, SEED)
+    grid_roi, _ = testing.make_grid_roi(GRID_SHAPE, SEED)
+    grid_sigmas = tuple(float(s) for s in detector.sigma_list(3, 4, 10))
+    torch.cuda.empty_cache()
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    launches = {}
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        sharded_path(torch, vol, centres, grid_roi, grid_sigmas, reg, ccf25,
+                     tmp, launches)
+    print(f"sharded launches by path: {json.dumps(launches)}", flush=True)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "magellanmapper_tpu"))
     if loaded:
@@ -4459,6 +5219,7 @@ def main() -> None:
     gauntlet_suite((SEED,), None)
     register_crop()
     register_crop(truncated=True)
+    reg_coarse = coarse_pair(pair)
 
     # 7. detect_blobs, card against CPU
     detect_blobs_crop(torch, det_crop, launches)
@@ -4502,7 +5263,7 @@ def main() -> None:
     # random walker and the watersheds, the atlas-register tasks
     phase12(torch, vol, centres, fp32, grid_roi, grid_centres, grid_df,
             labels, work, launches)
-    del grid_roi, labels
+    del labels
 
     # 13. vendor import: the slice as CZI, LIF and IMS files through
     # --proc import_only, then --proc detect on the CZI's import
@@ -4522,7 +5283,13 @@ def main() -> None:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         gui_path(torch, vol, centres, ccf25, tmp, launches)
-    del vol, ccf25
+    # 17. the sharded paths: --mesh 1,1 over NCCL, then one world of two
+    # ranks over gloo sharing the card
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        sharded_path(torch, vol, centres, grid_roi, grid_sigmas, reg_coarse,
+                     ccf25, tmp, launches)
+    del vol, ccf25, grid_roi
 
     for name in results:
         n = sum(path[name] for path in launches.values())
@@ -4549,17 +5316,24 @@ if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--k4-times", action="store_true",
                         help="time K4 alone instead of the smoke run")
+    parser.add_argument("--groupwise-times", action="store_true",
+                        help="time the groupwise levels alone instead")
     parser.add_argument("--root", default=ROOT,
-                        help="checkout whose K4 --k4-times times")
+                        help="checkout that --k4-times or "
+                             "--groupwise-times times")
     parser.add_argument("--gauntlet-suite", action="store_true",
                         help="run the reference's gauntlet suite instead")
     parser.add_argument("--study-tables", action="store_true",
                         help="run phase 15, the study tables, alone")
     parser.add_argument("--gui", action="store_true",
                         help="run phase 16, the review GUI, alone")
+    parser.add_argument("--sharded", action="store_true",
+                        help="run phase 17, the sharded paths, alone")
     args = parser.parse_args()
     if args.k4_times:
         k4_times(args.root)
+    elif args.groupwise_times:
+        groupwise_times(args.root)
     elif args.gauntlet_suite:
         suite_main()
     elif args.study_tables:
@@ -4568,5 +5342,7 @@ if __name__ == "__main__":
     elif args.gui:
         phase_alone(lambda torch, ccf25, vol, centres, work, launches:
                     gui_path(torch, vol, centres, ccf25, work, launches))
+    elif args.sharded:
+        sharded_main()
     else:
         main()

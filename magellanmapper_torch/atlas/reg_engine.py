@@ -25,7 +25,12 @@ K images' warps taken as one gather. ``register_duo(checkpoint_dir=...)``
 saves each completed stage (:mod:`magellanmapper_torch.utils.checkpoint`)
 and restores it on a rerun instead of optimising it again.
 
-Not ported yet: the mesh-sharded level (``mesh``; ROADMAP queue item 10).
+With ``mesh``, a level runs over the ranks of a mesh
+(:func:`_optimize_level_sharded`): the metric samples are dealt over every
+mesh axis, each rank gathers its samples' warp from the whole moving
+volume and sums its partial Parzen joint histogram, and one ``all_reduce``
+adds the partials; every rank takes the same Adam step. Groupwise
+registration deals the subjects over the mesh's first axis.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch.nn.functional as F
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.atlas import metrics, transform
 from magellanmapper_torch.ops import filters
+from magellanmapper_torch.parallel import comm, mesh as mesh_mod
 from magellanmapper_torch.utils import checkpoint
 
 _logger = logging.getLogger(__name__)
@@ -59,12 +65,6 @@ _MAX_METRIC_SAMPLES = 1 << 14
 
 #: optax.adam's defaults
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8
-
-
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to magellanmapper_torch yet (ROADMAP queue "
-        f"item {item}); use magellanmapper_tpu")
 
 
 def _tensor(x, dev) -> torch.Tensor:
@@ -133,14 +133,15 @@ def _metric_stride(
 
 
 def _adam_level_loop(loss_fn, params, iters: int, lrs, stride, jitter,
-                     decay: bool = True):
+                     decay: bool = True, grad_reduce=None):
     """``iters`` Adam steps (``optax.adam(1.0)``, its moments and bias
     correction in its order of operations) with per-leaf learning rates
     and, with ``decay``, the within-level decay to ``_LR_DECAY_FLOOR``;
     with ``jitter``, each step draws a new offset into the strided sample
-    grid from a CPU generator seeded 0. Returns the parameters and the
-    loss on the unjittered grid (a tensor: nothing here waits for the
-    card)."""
+    grid from a CPU generator seeded 0. ``grad_reduce`` maps the list of
+    gradients before the step (the sharded levels' reduction over ranks).
+    Returns the parameters and the loss on the unjittered grid (a tensor:
+    nothing here waits for the card)."""
     lr_map = dict(lrs)
     p = {k: v.detach().clone().requires_grad_(True)
          for k, v in params.items()}
@@ -156,6 +157,8 @@ def _adam_level_loop(loss_fn, params, iters: int, lrs, stride, jitter,
                            for s in stride)
         loss = loss_fn(p, offset)
         grads = torch.autograd.grad(loss, list(p.values()))
+        if grad_reduce is not None:
+            grads = grad_reduce(grads)
         count = i + 1
         bc1 = float(f32(1) - f32(_B1) ** f32(count))
         bc2 = float(f32(1) - f32(_B2) ** f32(count))
@@ -233,6 +236,170 @@ def _level_loss_fn(
         return loss
 
     return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# The level over the ranks of a mesh (``reg_engine.py:210-410``).
+#
+# Every rank holds the whole fixed and moving volumes and the same
+# parameters. The metric samples, padded to a multiple of the rank count
+# and masked by ``valid``, are dealt over every mesh axis: each rank warps
+# its share. Mattes MI sums each rank's partial Parzen joint histogram
+# over the ranks; its intensity ranges come from a differentiable gather
+# of each rank's extremes, so the gradient flows through the moving range
+# as in the single-device metric. NCC and MSE gather the samples and run
+# on all of them. The collectives' backward sums the upstream gradients
+# over the ranks (``parallel.comm``), so a loss computed alike on every
+# rank differentiates ``ranks`` times the loss, summed over the ranks'
+# shares: the parameter gradients are all-reduced and divided by the rank
+# count once, and every rank takes the same Adam step.
+
+
+def _pad_to(x: torch.Tensor, n: int, axis: int = 0) -> torch.Tensor:
+    """``x`` zero-padded at the end of ``axis`` to length ``n``."""
+    pad = [0, 0] * x.dim()
+    pad[2 * (x.dim() - 1 - axis) + 1] = n - x.shape[axis]
+    return F.pad(x, pad)
+
+
+def _local_share(mesh, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """This rank's contiguous share of ``x`` along ``axis`` (whose length
+    is a multiple of the mesh's rank count), ranks in row-major order."""
+    per = x.shape[axis] // mesh_mod.axis_size(mesh, mesh_mod.AXES)
+    return x.narrow(axis, mesh_mod.axis_index(mesh, mesh_mod.AXES) * per,
+                    per)
+
+
+def _sharded_gather(mesh, moving: torch.Tensor, coords: torch.Tensor,
+                    order: int = 1) -> torch.Tensor:
+    """The warp of this rank's share of the samples: ``moving`` (whole on
+    every rank) at its share of ``coords (3, N)``."""
+    return transform.sample_volume(moving, _local_share(mesh, coords, 1),
+                                   order=order)
+
+
+def _sharded_mattes_mi(mesh, f, m, wf_weight, lo_f, hi_f, lo_m, hi_m,
+                       nbins: int = 32) -> torch.Tensor:
+    """Mattes MI of this rank's samples ``f``/``m`` (weights
+    ``wf_weight``) with the Parzen joint histogram summed over the ranks
+    (:func:`metrics.mattes_mi` up to the order of summation)."""
+    fb = (f - lo_f) / torch.clamp_min(hi_f - lo_f, 1e-8) * (nbins - 1)
+    mb = (m - lo_m) / torch.clamp_min(hi_m - lo_m, 1e-8) * (nbins - 1)
+    wf = metrics._parzen_weights(fb, nbins) * wf_weight[:, None]
+    wm = metrics._parzen_weights(mb, nbins)
+    joint = comm.all_reduce_grad(wf.T @ wm, mesh)
+    joint = joint / torch.clamp_min(joint.sum(), 1e-8)
+    pf = joint.sum(dim=1, keepdim=True)
+    pm = joint.sum(dim=0, keepdim=True)
+    ratio = joint / torch.clamp_min(pf * pm, 1e-12)
+    return torch.sum(joint * torch.log(torch.clamp_min(ratio, 1e-12)))
+
+
+def _sharded_metric_loss(mesh, metric: str, f, m, valid, mask):
+    """Minimizable loss of this rank's share of the flat samples.
+
+    ``valid`` masks padding rows; ``mask`` carries the metric mask
+    (fixed-mask samples and moving-mask rejection). As in the
+    single-device metric, the MI intensity ranges ignore the metric mask
+    but never see padding."""
+    w_metric = valid if mask is None else valid * mask
+    if metric in ("AdvancedMattesMutualInformation", "mi"):
+        inf = float("inf")
+        keep = valid > 0
+        ext = torch.stack([
+            torch.amin(torch.where(keep, f, inf)),
+            -torch.amax(torch.where(keep, f, -inf)),
+            torch.amin(torch.where(keep, m, inf)),
+            -torch.amax(torch.where(keep, m, -inf))])
+        lo = torch.amin(comm.all_gather_grad(ext[None], mesh), dim=0)
+        return -_sharded_mattes_mi(
+            mesh, f, m, w_metric, lo[0], -lo[1], lo[2], -lo[3])
+    f_all = comm.all_gather(f, mesh)
+    m_all = comm.all_gather_grad(m, mesh)
+    w_all = comm.all_gather(w_metric, mesh)
+    if metric in ("AdvancedNormalizedCorrelation", "ncc"):
+        return -metrics.ncc(f_all, m_all, mask=w_all)
+    if metric in ("mse", "AdvancedMeanSquares"):
+        return torch.sum(w_all * (f_all - m_all) ** 2) / torch.clamp_min(
+            w_all.sum(), 1.0)
+    raise ValueError(f"unknown metric: {metric}")
+
+
+def _sharded_level_loss_fn(
+        mesh, fixed: torch.Tensor, moving: torch.Tensor,
+        pre_affine: Optional[Dict], kind: str, metric: str,
+        spacing: Optional[Tuple[float, ...]],
+        stride: Tuple[int, int, int] = (1, 1, 1),
+        fixed_mask: Optional[torch.Tensor] = None,
+        fix_pts: Optional[torch.Tensor] = None,
+        mov_pts: Optional[torch.Tensor] = None,
+        pt_weight: float = 0.0,
+        moving_mask: Optional[torch.Tensor] = None):
+    """:func:`_level_loss_fn` with the samples dealt over the ranks."""
+    n_ranks = mesh_mod.axis_size(mesh, mesh_mod.AXES)
+
+    def loss_fn(p, offset=None):
+        coords = transform.transform_coords(
+            p, kind, fixed.shape, spacing, pre_affine, stride, offset)
+        fixed_s = transform.strided_sample(fixed, stride, offset)
+        n = fixed_s.numel()
+        n_pad = -(-n // n_ranks) * n_ranks
+
+        def share(x):
+            return _local_share(mesh, _pad_to(x.reshape(-1), n_pad))
+
+        f = share(fixed_s)
+        c = _pad_to(coords.reshape(3, -1), n_pad, axis=1)
+        valid = share(torch.ones(n, device=fixed.device))
+        mask = None
+        if fixed_mask is not None:
+            mask = share(transform.strided_sample(fixed_mask, stride,
+                                                  offset))
+        m = _sharded_gather(mesh, moving, c)
+        if moving_mask is not None:
+            with torch.no_grad():
+                mm = (_sharded_gather(mesh, moving_mask, c) > 0.5).to(
+                    torch.float32)
+            mask = mm if mask is None else mask * mm
+        loss = _sharded_metric_loss(mesh, metric, f, m, valid, mask)
+        if fix_pts is not None and mov_pts is not None:
+            mapped = transform.transform_points(
+                fix_pts, p, kind, fixed.shape, spacing, pre_affine)
+            dist = torch.sqrt(torch.sum((mapped - mov_pts) ** 2, dim=1)
+                              + 1e-12)
+            loss = loss + pt_weight * torch.mean(dist)
+        return loss
+
+    return loss_fn
+
+
+def _mean_grads(mesh):
+    """The gradient reduction of a level whose parameters every rank
+    holds alike: the ranks' gradients summed, over the rank count."""
+    n_ranks = mesh_mod.axis_size(mesh, mesh_mod.AXES)
+    return lambda grads: [comm.all_reduce(g, mesh) / n_ranks
+                          for g in grads]
+
+
+def _optimize_level_sharded(
+        mesh, fixed: torch.Tensor, moving: torch.Tensor, params: Dict,
+        pre_affine: Optional[Dict], kind: str, metric: str, iters: int,
+        spacing: Optional[Tuple[float, ...]],
+        lrs: Tuple[Tuple[str, float], ...],
+        stride: Tuple[int, int, int] = (1, 1, 1),
+        fixed_mask: Optional[torch.Tensor] = None,
+        fix_pts: Optional[torch.Tensor] = None,
+        mov_pts: Optional[torch.Tensor] = None,
+        pt_weight: float = 0.0, jitter: bool = True,
+        moving_mask: Optional[torch.Tensor] = None):
+    """:func:`_optimize_level` over the ranks of ``mesh``: the same Adam
+    and decay loop, the samples dealt over every mesh axis, the
+    gradients averaged over the ranks, so every rank takes the same
+    step."""
+    return _adam_level_loop(_sharded_level_loss_fn(
+        mesh, fixed, moving, pre_affine, kind, metric, spacing, stride,
+        fixed_mask, fix_pts, mov_pts, pt_weight, moving_mask),
+        params, iters, lrs, stride, jitter, grad_reduce=_mean_grads(mesh))
 
 
 def _parse_grid_schedule(sched, levels_cap: int):
@@ -315,11 +482,10 @@ def register_stage(
     B-spline warp, ``fixed_mask``/``moving_mask`` restrict the metric's
     samples, ``fix_pts``/``mov_pts`` ``(N, 3)`` add the corresponding-
     points term on a ``point_based`` stage. ``clock`` records each level's
-    steps and time. Returns ``(params, final_loss)``, the parameters as
-    tensors on ``device``.
+    steps and time. With ``mesh`` every level runs over its ranks
+    (:func:`_optimize_level_sharded`). Returns ``(params, final_loss)``,
+    the parameters as tensors on ``device``.
     """
-    if mesh is not None:
-        _not_ported("the mesh-sharded registration level", "10")
     dev = device_mod.resolve(device)
     kind = kind or stage.get("map_name")
     if kind is None:
@@ -437,9 +603,15 @@ def register_stage(
                 mov_pts=mov_pts / level_factor,
                 pt_weight=float(pt_weight))
         start = clock.mark() if clock is not None else None
-        params, loss = _optimize_level(
-            f_l, m_l, params, pre_l, kind, metric, iters, sp, lrs,
-            stride, fixed_mask=mask_l, moving_mask=mov_mask_l, **pts_args)
+        level_args = (f_l, m_l, params, pre_l, kind, metric, iters, sp, lrs,
+                      stride)
+        level_kw = dict(fixed_mask=mask_l, moving_mask=mov_mask_l,
+                        **pts_args)
+        if mesh is not None:
+            params, loss = _optimize_level_sharded(
+                mesh, *level_args, **level_kw)
+        else:
+            params, loss = _optimize_level(*level_args, **level_kw)
         if clock is not None:
             clock.add(start, dict(kind=kind, level=lvl,
                                   shape=list(f_l.shape), stride=list(stride),
@@ -544,9 +716,9 @@ def register_duo(
     whose metrics hold ``dsc_fixed_moved`` (and ``dsc_stage_<kind>`` after
     each optimised stage with ``record_stage_dsc``). With
     ``checkpoint_dir`` each completed stage is saved there, and a stage
-    already saved is restored instead of optimised."""
-    if mesh is not None:
-        _not_ported("the mesh-sharded registration level", "10")
+    already saved is restored instead of optimised (only rank 0 of a
+    ``mesh`` writes). With ``mesh`` every stage's levels run over its
+    ranks."""
     dev = device_mod.resolve(device)
     ckpt = (checkpoint.RegistrationCheckpoint(checkpoint_dir)
             if checkpoint_dir else None)
@@ -565,8 +737,8 @@ def register_duo(
     bspline_spacing = None
     for kind, stage in stages_cfg:
         common = dict(fixed_mask=fixed_mask, moving_mask=moving_mask,
-                      iters_scale=iters_scale, kind=kind, device=dev,
-                      clock=clock)
+                      iters_scale=iters_scale, kind=kind, mesh=mesh,
+                      device=dev, clock=clock)
         if stage.get("point_based") and fix_pts is not None \
                 and mov_pts is not None:
             common.update(fix_pts=fix_pts, mov_pts=mov_pts)
@@ -596,7 +768,7 @@ def register_duo(
             continue
         _logger.info("stage %s done, loss %.5f", kind, loss)
         if ckpt:
-            ckpt.save_stage(kind, params)
+            comm.on_writer(mesh, lambda: ckpt.save_stage(kind, params))
         if record_stage_dsc:
             partial = RegResult(list(done), fixed_t.shape, bspline_spacing,
                                 dev)
@@ -620,22 +792,38 @@ _GROUP_LRS_BSPLINE = (("W", 0.003), ("grid", 0.5), ("t", 0.3))
 
 
 def _group_loss_fn(vols: torch.Tensor, stride: Tuple[int, int, int],
-                   spacing: Optional[Tuple[float, ...]] = None):
+                   spacing: Optional[Tuple[float, ...]] = None,
+                   mesh=None, k: Optional[int] = None):
     """The groupwise loss of parameters ``p`` (``W (K, 3, 3)``, ``t (K,
     3)`` and optionally ``grid``): the mean over the ``stride``-th voxels
-    of the group's population variance, plus the anchors that keep the
-    transforms near identity, ``1e-4 mean(t^2) + 1e-2 mean(W^2)`` (``+
-    1e-3 mean(grid^2)``) (``reg_engine.py:745-792``). The K warps are one
-    gather."""
+    of the group's population variance (the mean image, then the mean
+    squared deviation from it, ``jnp.var``'s two passes), plus the anchors
+    that keep the transforms near identity, ``1e-4 mean(t^2) + 1e-2
+    mean(W^2)`` (``+ 1e-3 mean(grid^2)``) (``reg_engine.py:745-792``).
+    The K warps are one gather. With ``mesh``, ``vols`` and ``p`` are
+    this rank's share of the group's ``k`` subjects, dealt over the
+    mesh's first axis, and every sum over subjects is summed over that
+    axis's ranks too."""
     shape = tuple(vols.shape[1:])
+    if mesh is None:
+        k = vols.shape[0]
+
+        def total(x):
+            return x
+    else:
+        def total(x):
+            return comm.all_reduce_grad(x, mesh, mesh_mod.AXES[0])
 
     def loss_fn(p, offset=None):
-        coords = transform.group_coords(p, shape, spacing, stride)
-        moved = transform.sample_volume(vols, coords)
-        var = torch.var(moved, dim=0, correction=0)
-        reg = torch.mean(p["t"] ** 2) * 1e-4 + torch.mean(p["W"] ** 2) * 1e-2
-        if "grid" in p:
-            reg = reg + torch.mean(p["grid"] ** 2) * 1e-3
+        moved = transform.sample_volume(
+            vols, transform.group_coords(p, shape, spacing, stride))
+        mean = total(moved.sum(dim=0)) / k
+        var = total(((moved - mean) ** 2).sum(dim=0)) / k
+        leaves = [n for n in ("t", "W", "grid") if n in p]
+        sums = total(torch.stack([torch.sum(p[n] ** 2) for n in leaves]))
+        weights = {"t": 1e-4, "W": 1e-2, "grid": 1e-3}
+        reg = sum(sums[i] / (k * p[n][0].numel()) * weights[n]
+                  for i, n in enumerate(leaves))
         return torch.mean(var) + reg
 
     return loss_fn
@@ -645,13 +833,21 @@ def _optimize_group_level(
         vols: torch.Tensor, params_stack: Dict, iters: int,
         lrs: Tuple[Tuple[str, float], ...],
         stride: Tuple[int, int, int] = (1, 1, 1),
-        spacing: Optional[Tuple[float, ...]] = None):
+        spacing: Optional[Tuple[float, ...]] = None, mesh=None,
+        k: Optional[int] = None):
     """``iters`` Adam steps of the joint groupwise level, without decay or
     jitter (``reg_engine.py:745-792``); returns the parameters and the
-    final loss (a tensor)."""
-    return _adam_level_loop(_group_loss_fn(vols, stride, spacing),
-                            params_stack, iters, lrs, stride, jitter=False,
-                            decay=False)
+    final loss (a tensor). With ``mesh``, ``vols`` and ``params_stack``
+    are this rank's share of the ``k`` subjects, dealt over the mesh's
+    first axis; each rank's gradients, the axis's rank count times its
+    subjects' own, are divided by that count."""
+    reduce = None
+    if mesh is not None:
+        n = mesh_mod.axis_size(mesh, mesh_mod.AXES[0])
+        reduce = lambda grads: [g / n for g in grads]  # noqa: E731
+    return _adam_level_loop(
+        _group_loss_fn(vols, stride, spacing, mesh, k), params_stack, iters,
+        lrs, stride, jitter=False, decay=False, grad_reduce=reduce)
 
 
 def _group_pyramid(vols: torch.Tensor, levels: int) -> List[torch.Tensor]:
@@ -691,16 +887,26 @@ def register_groupwise(
     multiplier of ``grid_spacing_schedule``, re-sampled between levels)
     then refine jointly at full resolution, composed with the affines.
     Images are cut to their common shape. Each level's steps and seconds
-    are logged. Returns ``(mean_image, per_image_params)``, numpy."""
-    if mesh is not None:
-        _not_ported("the subject-sharded groupwise registration", "10")
+    are logged. With ``mesh``, the subjects are dealt over the mesh's
+    first axis in contiguous shares (``reg_engine.py:831-842``): each rank
+    warps and optimises its own, the mean and the variance across
+    subjects are sums over the ranks, and the parameters are gathered at
+    the end. Returns ``(mean_image, per_image_params)``, numpy, the same
+    on every rank."""
     dev = device_mod.resolve(device)
     target = tuple(int(s) for s in np.asarray(
         [im.shape for im in imgs]).min(axis=0))
-    vols = torch.stack([_tensor(np.asarray(
-        im[:target[0], :target[1], :target[2]], np.float32), dev)
-        for im in imgs])
     k = len(imgs)
+    mine = range(k)
+    if mesh is not None:
+        axis = mesh_mod.AXES[0]
+        mine = range(*mesh_mod.shard_bounds(
+            k, mesh_mod.axis_size(mesh, axis),
+            mesh_mod.axis_index(mesh, axis)))
+    vols = torch.stack([_tensor(np.asarray(
+        imgs[i][:target[0], :target[1], :target[2]], np.float32), dev)
+        for i in mine])
+    k_local = len(mine)
     levels = max(1, min(num_resolutions, int(np.floor(
         np.log2(max(min(target) / 8, 1)))) + 1))
     pyr = _group_pyramid(vols, levels)
@@ -709,13 +915,13 @@ def register_groupwise(
     def run(v, params, iters, lrs, stride, spacing=None, kind="affine"):
         start = clock.mark()
         params, loss = _optimize_group_level(v, params, iters, lrs, stride,
-                                             spacing)
+                                             spacing, mesh=mesh, k=k)
         clock.add(start, dict(kind=kind, shape=list(v.shape[1:]),
                               stride=list(stride), iters=iters))
         return params, loss
 
-    params = {"W": torch.zeros((k, 3, 3), device=dev),
-              "t": torch.zeros((k, 3), device=dev)}
+    params = {"W": torch.zeros((k_local, 3, 3), device=dev),
+              "t": torch.zeros((k_local, 3), device=dev)}
     loss = None
     for lvl, v_l in enumerate(pyr):
         iters = max(1, max_iter // (2 ** lvl))
@@ -734,7 +940,8 @@ def register_groupwise(
             spacing = tuple(float(grid_space_voxels) * m for m in mult)
             gshape = transform.bspline_grid_shape(target, spacing)
             if "grid" not in params:
-                params["grid"] = torch.zeros((k, 3) + gshape, device=dev)
+                params["grid"] = torch.zeros((k_local, 3) + gshape,
+                                             device=dev)
             elif tuple(params["grid"].shape[2:]) != gshape:
                 params["grid"] = transform.resample_grid(
                     params["grid"], prev_spacing, gshape, spacing)
@@ -747,12 +954,16 @@ def register_groupwise(
     with torch.no_grad():
         moved = transform.sample_volume(
             vols, transform.group_coords(params, target, spacing))
-    mean = moved.mean(dim=0).cpu().numpy()
     host = {n: v.cpu().numpy() for n, v in params.items()}
     per_img = []
-    for i in range(k):
+    for i in range(k_local):
         row = {n: v[i] for n, v in host.items()}
         if "grid" in row:
             row["spacing"] = spacing
         per_img.append(row)
-    return mean, per_img
+    if mesh is None:
+        return moved.mean(dim=0).cpu().numpy(), per_img
+    mean = comm.all_reduce(moved.sum(dim=0), mesh, axis) / k
+    per_img = [row for rows in comm.all_gather_object(per_img, mesh, axis)
+               for row in rows]
+    return mean.cpu().numpy(), per_img

@@ -37,6 +37,7 @@ from magellanmapper_torch.atlas import atlas_refiner, ontology, reg_engine
 from magellanmapper_torch.atlas import metrics as reg_metrics
 from magellanmapper_torch.cv import cv_nd
 from magellanmapper_torch.io import np_io, sitk_io
+from magellanmapper_torch.parallel import comm
 
 _logger = logging.getLogger(__name__)
 
@@ -143,6 +144,8 @@ def register(
         checkpoint_dir: directory of stage checkpoints, so a stopped
             registration resumes at its last completed stage (the
             fallback metric's retry under ``fallback`` inside it).
+        mesh: a rank mesh (``parallel.mesh.make_mesh``) over which every
+            registration level runs; only rank 0 writes files.
 
     Returns:
         dict with ``moved_atlas``, ``moved_labels``, ``transform``
@@ -252,7 +255,7 @@ def register(
         "transform": result,
         "metrics": metrics,
     }
-    if write_imgs:
+    def write():
         base = prefix or fixed_path
         spacing = tuple(resolutions) if resolutions is not None else (
             1.0, 1.0, 1.0)
@@ -266,7 +269,10 @@ def register(
         csv_path = sitk_io.reg_out_path(base, "stats") + ".csv"
         pd.DataFrame([metrics]).to_csv(csv_path, index=False)
         paths["stats"] = csv_path
-        out["paths"] = paths
+        return paths
+
+    if write_imgs:
+        out["paths"] = comm.on_writer(mesh, write)
     _logger.info("Single registration done in %.1fs, DSC %.3f", elapsed, dsc)
     return out
 
@@ -306,9 +312,6 @@ def register_group(
     Returns the final mean image and the per-image parameters (joint) or
     :class:`reg_engine.RegResult` objects (rounds).
     """
-    if mesh is not None:
-        reg_engine._not_ported("the subject-sharded groupwise registration",
-                               "10")
     dev = device_mod.resolve(device)
     if joint:
         bs = profile["reg_bspline"] or {}
@@ -317,7 +320,7 @@ def register_group(
             bspline_iter=int((bs.get("max_iter") or 0) * iters_scale),
             grid_space_voxels=float(bs.get("grid_space_voxels") or 130),
             grid_spacing_schedule=bs.get("grid_spacing_schedule"),
-            device=dev)
+            mesh=mesh, device=dev)
     target = np.asarray([im.shape for im in imgs]).min(axis=0)
     vols = [np.asarray(im[:target[0], :target[1], :target[2]], np.float32)
             for im in imgs]

@@ -177,16 +177,56 @@ def _center(shape: Tuple[int, ...], device: torch.device) -> torch.Tensor:
                          device=device) - 1) / 2
 
 
+class _GroupAffine(torch.autograd.Function):
+    """A batch of affines (``W (K, 3, 3)``, ``t (K, 3)``) applied to
+    centred coordinates ``flat``, ``(3, N)`` shared or ``(K, 3, N)``, plus
+    ``center``, one image at a time as a single affine is applied, and
+    each image's parameter gradients reduced on a copy of its own rows.
+    Each image's warp and gradient thus round alike whatever the batch,
+    so ranks that hold some of a group's images round as one process
+    holding all of them (a batched product sums each image's gradient in
+    another order for another batch size)."""
+
+    @staticmethod
+    def forward(ctx, w, t, flat, center):
+        eye = torch.eye(3, device=w.device)
+        a = eye + w
+        out = torch.stack([
+            (eye + w[i]) @ (flat if flat.dim() == 2 else flat[i])
+            + (center + t[i])[:, None] for i in range(w.shape[0])])
+        ctx.save_for_backward(a, flat)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, flat = ctx.saved_tensors
+        grad_w, grad_t = [], []
+        for i in range(grad.shape[0]):
+            g = grad[i].clone()
+            grad_w.append(g @ (flat if flat.dim() == 2 else flat[i]).T)
+            grad_t.append(g.sum(dim=1))
+        grad_flat = None
+        if ctx.needs_input_grad[2]:
+            grad_flat = a.transpose(1, 2) @ grad
+            if flat.dim() == 2:
+                grad_flat = grad_flat.sum(dim=0)
+        return torch.stack(grad_w), torch.stack(grad_t), grad_flat, None
+
+
 def _apply_affine(params: Params, coords: torch.Tensor,
                   shape) -> torch.Tensor:
     """The affine ``params`` applied to ``coords (3, ...)``; a batch of
     affines (``W (K, 3, 3)``, ``t (K, 3)``) maps ``coords`` (shared) or
-    ``(K, 3, ...)`` to ``(K, 3, ...)``."""
+    ``(K, 3, ...)`` to ``(K, 3, ...)`` (:class:`_GroupAffine`)."""
     center = _center(tuple(shape), coords.device)
-    a = torch.eye(3, device=coords.device) + params["W"]
     lead = coords.shape[:-len(shape) - 1]
     flat = coords.reshape(lead + (3, -1)) - center[:, None]
-    out = a @ flat + (center + params["t"])[..., None]
+    w, t = params["W"], params["t"]
+    if w.dim() == 3:
+        out = _GroupAffine.apply(w, t, flat, center)
+    else:
+        out = (torch.eye(3, device=coords.device) + w) @ flat \
+            + (center + t)[..., None]
     return out.reshape(out.shape[:-2] + coords.shape[-len(shape) - 1:])
 
 

@@ -19,8 +19,9 @@ resized there with ``ops.resize``; the result comes back to a host
 intermediate. Pass 2 streams column blocks of that intermediate through
 the device. So the device holds a chunk at a time, never the volume.
 
-``mesh=`` (the reference's sharded resize) raises until ROADMAP queue
-item 10.
+With ``mesh=``, each time point's volume goes to the device whole and is
+resized by :func:`ops.resize.resize_sharded` over the ranks of the mesh,
+as the reference's sharded path does; rank 0 writes the output.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from magellanmapper_torch.cv import cv_nd
 from magellanmapper_torch.io import np_io
 from magellanmapper_torch.ops import preproc
 from magellanmapper_torch.ops import resize as resize_ops
+from magellanmapper_torch.parallel import comm
 from magellanmapper_torch.utils import libmag
 
 _logger = logging.getLogger(__name__)
@@ -99,12 +101,10 @@ def transpose_img(
     source memmap through the resize on ``device`` into a memmapped
     float32 output (reference ``transformer.transpose_img``).
 
-    Returns the output image path base.
+    With ``mesh``, each time point is resized by
+    :func:`ops.resize.resize_sharded` over the mesh's ranks, and only rank
+    0 writes the output. Returns the output image path base.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "transpose_img(mesh=...): the sharded resize is not ported "
-            "yet (ROADMAP queue item 10)")
     dev = device_mod.resolve(device)
     img5d = np_io.read_file(img_path)
     vol = img5d.img
@@ -134,13 +134,40 @@ def transpose_img(
     path_img, path_meta = np_io.make_filenames(out_path)
     chan = tuple(vol.shape[4:])
     full_shape = tuple(int(v) for v in (t,) + out_shape + chan)
-    out = np.lib.format.open_memmap(
-        path_img, mode="w+", dtype=np.float32, shape=full_shape)
-
     # source axis that becomes the output's z, and the permutation of a
     # source slab (t dropped) into output order, channels kept last
     z_src = perm[0]
     slab_perm = perm + tuple(range(3, 3 + len(chan)))
+
+    def save_meta(out):
+        out.flush()
+        near_min, near_max = np_io.calc_intensity_bounds(out)
+        np_io.save_image_info(
+            path_meta, [os.path.basename(out_path)], [full_shape],
+            [list(res_out)], near_min=near_min, near_max=near_max,
+            scaling=np.divide(out_shape, shape_tp).tolist(), plane=plane)
+        _logger.info("Transposed %s -> %s %s on %s", img_path, out_path,
+                     full_shape, dev)
+        return out_path
+
+    if mesh is not None:
+        moved = [np.transpose(vol[ti], slab_perm) for ti in range(t)]
+        if out_shape != shape_tp:
+            moved = [resize_ops.resize_sharded(
+                np.asarray(m, np.float32), out_shape, mesh,
+                device=dev).cpu().numpy() for m in moved]
+
+        def write():
+            out = np.lib.format.open_memmap(
+                path_img, mode="w+", dtype=np.float32, shape=full_shape)
+            for ti, m in enumerate(moved):
+                out[ti] = m
+            return save_meta(out)
+
+        return comm.on_writer(mesh, write)
+
+    out = np.lib.format.open_memmap(
+        path_img, mode="w+", dtype=np.float32, shape=full_shape)
     slab_max = list(vol.shape[1:])
     slab_max[z_src] = min(chunk_z, shape_tp[0])
     stage = None
@@ -172,16 +199,7 @@ def transpose_img(
                 np.ascontiguousarray(inter[:, y0:y1])).to(dev)
             out[ti, :, y0:y1] = resize_ops.resize(
                 cols, (out_shape[0], y1 - y0, out_shape[2])).cpu().numpy()
-    out.flush()
-
-    near_min, near_max = np_io.calc_intensity_bounds(out)
-    np_io.save_image_info(
-        path_meta, [os.path.basename(out_path)], [full_shape],
-        [list(res_out)], near_min=near_min, near_max=near_max,
-        scaling=np.divide(out_shape, shape_tp).tolist(), plane=plane)
-    _logger.info("Transposed %s -> %s %s on %s", img_path, out_path,
-                 full_shape, dev)
-    return out_path
+    return save_meta(out)
 
 
 def preprocess_img(

@@ -6,7 +6,8 @@ pruning ratios) are copied, and :func:`blob_log` runs the LoG
 pyramid (fp32 GEMMs), peak finding (kernel K1) and sphere-overlap
 pruning (kernel K3) on the device of its input. :func:`blob_log_multi`
 runs a threshold sweep on one pyramid through the unfused peak route
-(kernel K2), then K3 per threshold. :func:`detect_blobs` is the
+(kernel K2), then K3 per threshold; :func:`blob_log_multi_sharded` deals
+the sweep's thresholds over the ranks of a mesh. :func:`detect_blobs` is the
 reference's single-block entry: isotropic resample, unmixing and
 preprocessing around :func:`blob_log`. A profile's ``log_dtype:
 bfloat16`` (:func:`is_fast`) runs the LoG's band products as TF32 on the
@@ -24,6 +25,7 @@ import torch
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.ops import filters, peaks, preproc, resize
+from magellanmapper_torch.parallel import comm, mesh as mesh_mod
 
 #: overlap factor for block halos (reference ``detector.py:41``).
 OVERLAP_FACTOR = 5
@@ -124,6 +126,40 @@ def blob_log_multi(
         rows.append(torch.cat([coords, sig[:, None]], dim=1))
         valids.append(valid)
     return torch.stack(rows), torch.stack(valids)
+
+
+def blob_log_multi_sharded(
+        roi, sigmas: Sequence[float], thresholds, overlap: float,
+        capacity: int, mesh, fast: bool = False,
+        axis_name: Optional[str] = None, device="cuda"
+) -> Tuple[np.ndarray, np.ndarray]:
+    """:func:`blob_log_multi` with the thresholds dealt over a mesh axis
+    (``detector.py:134-171``): every rank builds the same LoG pyramid of
+    ``roi`` on ``device``, harvests its contiguous share of the threshold
+    list (K2, then K3 per threshold) and the shares are gathered, so that
+    every rank returns every row. The list is padded to a multiple of the
+    axis size (``axis_name``, default the mesh's first) by repeating its
+    last value; only the real rows return, as host arrays ``(K, capacity,
+    4)`` and ``(K, capacity)``."""
+    axis = axis_name or mesh_mod.AXES[0]
+    n = mesh_mod.axis_size(mesh, axis)
+    thr = [float(t) for t in np.asarray(thresholds, np.float32)]
+    k_real = len(thr)
+    if not k_real:
+        raise ValueError("no thresholds")
+    thr += [thr[-1]] * ((-k_real) % n)
+    per = len(thr) // n
+    i0 = mesh_mod.axis_index(mesh, axis) * per
+    if torch.is_tensor(roi):
+        roi_t = roi.to(device_mod.resolve(device))
+    else:
+        roi_t = torch.from_numpy(np.array(roi, np.float32)).to(
+            device_mod.resolve(device))
+    rows, valids = blob_log_multi(
+        roi_t, sigmas, thr[i0:i0 + per], overlap, capacity, fast=fast)
+    both = torch.cat([rows, valids[..., None].to(rows.dtype)], dim=-1)
+    both = comm.all_gather(both, mesh, axis).cpu().numpy()[:k_real]
+    return both[..., :4], both[..., 4] > 0
 
 
 def detect_blobs(

@@ -392,7 +392,6 @@ def detect_blobs_blocks(
         for c in channels}
 
     coords_list = list(np.ndindex(*grid_shape))
-    last_coord = np.asarray(grid_shape) - 1
     seg_rois = np.full(grid_shape, None, dtype=object)
     totals = {"Gather_host": 0.0, "Pull_wait": 0.0, "Stage_h2d": 0.0,
               "h2d_bytes": 0}
@@ -473,23 +472,7 @@ def detect_blobs_blocks(
                 del slab
 
         def store_block(coord, wstart, raw):
-            """Format device rows, shift to absolute, keep in-block blobs."""
-            raw[:, 3] *= math.sqrt(3)
-            segs = blobs_mod.Blobs(raw).format_blobs(chl)
-            blobs_mod.Blobs.shift_blob_rel_coords(segs, wstart)
-            blobs_mod.Blobs.shift_blob_abs_coords(segs, wstart)
-            sl = blocks.sub_roi_slices[coord]
-            lo = np.asarray([s.start for s in sl])
-            hi = np.asarray([s.stop for s in sl])
-            if blocks.exclude_border is not None:
-                # drop border-zone blobs except at stack outer faces
-                exc = np.stack([blocks.exclude_border] * 2)
-                exc[0, np.equal(coord, 0)] = 0
-                exc[1, np.equal(coord, last_coord)] = 0
-                lo = lo + exc[0]
-                hi = hi - exc[1]
-            keep = np.all((segs[:, :3] >= lo) & (segs[:, :3] < hi), axis=1)
-            segs = segs[keep]
+            segs = block_blobs(raw, coord, wstart, blocks, chl)
             prev = seg_rois[coord]
             seg_rois[coord] = (
                 segs if prev is None else np.vstack([prev, segs]))
@@ -517,6 +500,30 @@ def detect_blobs_blocks(
     timing = {"Detection": time_detect, "Pruning": time_prune,
               "Total_stack": time_detect + time_prune, **totals}
     return blobs_all, timing
+
+
+def block_blobs(raw: np.ndarray, coord, wstart, blocks: Blocks,
+                channel) -> np.ndarray:
+    """One block's device rows as blobs of ``channel``: radii from
+    sigmas, shifted to absolute coordinates, only those inside the
+    block's sub-ROI kept (less its border zone, except at the stack's
+    outer faces)."""
+    raw[:, 3] *= math.sqrt(3)
+    segs = blobs_mod.Blobs(raw).format_blobs(channel)
+    blobs_mod.Blobs.shift_blob_rel_coords(segs, wstart)
+    blobs_mod.Blobs.shift_blob_abs_coords(segs, wstart)
+    sl = blocks.sub_roi_slices[coord]
+    lo = np.asarray([s.start for s in sl])
+    hi = np.asarray([s.stop for s in sl])
+    if blocks.exclude_border is not None:
+        last_coord = np.asarray(blocks.sub_roi_slices.shape) - 1
+        exc = np.stack([blocks.exclude_border] * 2)
+        exc[0, np.equal(coord, 0)] = 0
+        exc[1, np.equal(coord, last_coord)] = 0
+        lo = lo + exc[0]
+        hi = hi - exc[1]
+    keep = np.all((segs[:, :3] >= lo) & (segs[:, :3] < hi), axis=1)
+    return segs[keep]
 
 
 def prune_blobs(

@@ -147,9 +147,14 @@ URL [message [attachment]]`` posts a webhook message
 (:func:`process_notify`) and ``--ec2_start|--ec2_list|--ec2_terminate``
 start, list or terminate EC2 instances through boto3
 (:func:`process_aws`), in the reference's order of tasks
-(:func:`process_tasks`). ``--mesh`` is rejected naming the ROADMAP item
-that ports it (:data:`NOT_PORTED`), and any other flag or task with a
-message that names it.
+(:func:`process_tasks`). ``--mesh dp,sp[,spy]`` runs ``--proc detect``
+(halo-exchange detection, ``parallel.halo``), ``--proc transform``,
+``--register single|register_rev|group|vol_stats`` over the ranks of a
+mesh whose size is the world's: a world of one starts itself, a larger
+one comes from ``torchrun --standalone --nproc-per-node N -m
+magellanmapper_torch.io.cli ... --mesh 1,N`` (or
+``parallel.launch.spawn``); only rank 0 writes files. Any other flag or
+task is rejected with a message that names it.
 
 ``--device`` picks where the device step runs: ``cuda`` (the default)
 fails without a card, and the CPU, which runs the kernels' plain
@@ -162,11 +167,13 @@ import argparse
 import dataclasses
 import logging
 import os
+import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import pandas as pd
+import torch.distributed as dist
 
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.atlas import (
@@ -179,6 +186,8 @@ from magellanmapper_torch.cv import (
 from magellanmapper_torch.io import (
     df_io, export_regions, export_rois, export_stack, importer, naming,
     np_io, sitk_io, sqlite, tiff)
+from magellanmapper_torch.parallel import comm, halo
+from magellanmapper_torch.parallel import mesh as mesh_mod
 from magellanmapper_torch.plot import plot_support
 from magellanmapper_torch.settings.atlas_prof import AtlasProfile
 from magellanmapper_torch.settings.config import RegisterTypes
@@ -226,10 +235,8 @@ PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 SUPPORTED = ("--proc " + "/".join(TASKS) + ", --plot_2d, --df, "
              "--grid_search and every --register task")
 #: flags of the reference that the port rejects by name, with the ROADMAP
-#: item that ports them
-NOT_PORTED = {
-    "mesh": "item 10 (parallel/ and the sharded variants)",
-}
+#: item that ports them (none is left)
+NOT_PORTED: Dict[str, str] = {}
 
 
 @dataclass
@@ -272,6 +279,8 @@ class RunConfig:
     prefix_out: Optional[str] = None
     suffix: Optional[str] = None
     verbose: bool = False
+    #: the rank mesh (dp, sp[, spy]) of ``--mesh``
+    mesh: Optional[List[int]] = None
     meta_paths: Optional[List[str]] = None
     load_data: Dict[str, str] = field(default_factory=dict)
     cpus: Optional[int] = None
@@ -393,6 +402,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="AWS EC2 instance IDs to terminate")
     p.add_argument("--notify", nargs="*",
                    help="notification: URL [message [attachment-file]]")
+    p.add_argument(
+        "--mesh", help="dp,sp[,spy] rank mesh for sharded whole-volume "
+                       "detection, transform, registration and vol_stats")
     for name in NOT_PORTED:
         p.add_argument(f"--{name}", nargs="*",
                        help=f"not ported yet: ROADMAP {NOT_PORTED[name]}")
@@ -431,6 +443,14 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
                 f"magellanmapper_torch does not take --{name} yet: ROADMAP "
                 f"{item} (use magellanmapper_tpu.io.cli)")
     rc = RunConfig(device=args.device)
+    if args.mesh:
+        dims = str(args.mesh).split(",")
+        if not 2 <= len(dims) <= 3 or not all(
+                d.isdigit() and int(d) > 0 for d in dims):
+            raise SystemExit(
+                f"--mesh takes dp,sp[,spy] (positive integers), not "
+                f"{args.mesh}")
+        rc.mesh = [int(v) for v in dims]
     if args.img:
         rc.filenames = list(args.img)
     rc.channel = args.channel
@@ -675,32 +695,64 @@ def detect(rc: RunConfig, device, coloc: bool = False) -> blobs_mod.Blobs:
     img5d = load_image(rc)
     vol = img5d.img[0] if img5d.img.ndim >= 4 else img5d.img
     res = _resolutions(img5d)
-    blobs, timing = stack_detect.detect_blobs_stack(
-        vol, rc.roi_profiles or rc.roi_profile, res, channels=rc.channel,
-        device=device)
+    profiles = rc.roi_profiles or rc.roi_profile
+    mesh = rank_mesh(rc)
+    if mesh is not None:
+        t0 = time.time()
+        blobs = blobs_mod.Blobs(halo.detect_blobs_sharded_stack(
+            np.asarray(vol), profiles, res, mesh=mesh, channels=rc.channel,
+            preprocess=True, device=device))
+        blobs.resolutions = np.atleast_2d(np.asarray(res, float))
+        elapsed = time.time() - t0
+        timing = {"Detection": elapsed, "Pruning": 0.0,
+                  "Total_stack": elapsed}
+    else:
+        blobs, timing = stack_detect.detect_blobs_stack(
+            vol, profiles, res, channels=rc.channel, device=device)
     if coloc and blobs.blobs is not None and vol.ndim > 3:
         blobs.colocalizations = colocalizer.colocalize_blobs(
             vol, blobs.blobs, device=device)
     base = rc.prefix or rc.filenames[0]
     blobs.basename = os.path.basename(base)
-    if rc.truth_db:
-        verify_truth(rc, blobs.blobs, res, base)
-    if rc.save_subimg and img5d.subimg_offset is not None:
-        sub_name = naming.make_subimage_name(
-            base, img5d.subimg_offset, img5d.subimg_size)
-        np.save(libmag.combine_paths(sub_name, "subimg.npy"),
-                np.asarray(img5d.img[0]))
     blobs.path = libmag.combine_paths(base, "blobs.npz")
-    blobs.save_archive()
-    pd.DataFrame([{k: v for k, v in timing.items()
-                   if isinstance(v, (int, float))}]).to_csv(
-        libmag.combine_paths(base, "stack_detection_times.csv"),
-        index=False)
+
+    def write():
+        if rc.truth_db:
+            verify_truth(rc, blobs.blobs, res, base)
+        if rc.save_subimg and img5d.subimg_offset is not None:
+            sub_name = naming.make_subimage_name(
+                base, img5d.subimg_offset, img5d.subimg_size)
+            np.save(libmag.combine_paths(sub_name, "subimg.npy"),
+                    np.asarray(img5d.img[0]))
+        blobs.save_archive()
+        pd.DataFrame([{k: v for k, v in timing.items()
+                       if isinstance(v, (int, float))}]).to_csv(
+            libmag.combine_paths(base, "stack_detection_times.csv"),
+            index=False)
+
+    comm.on_writer(mesh, write)
     _logger.info(
         "Detected %d blobs on %s in %.2fs (detection %.2fs, pruning %.2fs)",
         len(blobs), device, timing.get("Total_stack", 0),
         timing.get("Detection", 0), timing.get("Pruning", 0))
     return blobs
+
+
+def rank_mesh(rc: RunConfig):
+    """The rank mesh of ``--mesh dp,sp[,spy]`` (None without the flag).
+    A mesh of one rank starts its own world; a larger one needs a world
+    of its size (``torchrun`` or ``parallel.launch.spawn``)."""
+    if not rc.mesh:
+        return None
+    dp, sp, spy = (list(rc.mesh) + [1] * (3 - len(rc.mesh)))[:3]
+    n = dp * sp * spy
+    if n == 1 or "WORLD_SIZE" in os.environ:
+        mesh_mod.init_world(device=rc.device)
+    if dist.is_initialized() and dist.get_world_size() != n:
+        raise SystemExit(
+            f"--mesh {','.join(map(str, rc.mesh))} needs {n} ranks, but "
+            f"the world has {dist.get_world_size()}")
+    return mesh_mod.make_mesh(n, dp=dp, sp=sp, spy=spy, device=rc.device)
 
 
 def _resolutions(img5d: np_io.Image5d):
@@ -791,6 +843,7 @@ def process_register(rc: RunConfig, device):
     if task is RegisterTypes.GROUP:
         imgs = [np.asarray(np_io.read_file(f).img[0]) for f in rc.filenames]
         return register_mod.register_group(imgs, rc.atlas_profile,
+                                           mesh=rank_mesh(rc),
                                            device=device)
     if task in (RegisterTypes.IMPORT_ATLAS, RegisterTypes.NEW_ATLAS):
         prefix = rc.prefix
@@ -828,11 +881,11 @@ def process_register(rc: RunConfig, device):
         return register_mod.register(
             rc.filenames[0], rc.filenames[1], rc.atlas_profile,
             prefix=rc.prefix, reg_suffixes=rc.reg_suffixes or None,
-            device=device)
+            mesh=rank_mesh(rc), device=device)
     if task is RegisterTypes.REGISTER_REV:
         return register_mod.register_rev(
             rc.filenames[0], rc.filenames[1], rc.atlas_profile,
-            prefix=rc.prefix, device=device)
+            prefix=rc.prefix, mesh=rank_mesh(rc), device=device)
     if task is RegisterTypes.VOL_STATS:
         return vol_stats(rc, device)
     if task is RegisterTypes.CLUSTER_BLOBS:
@@ -1140,10 +1193,12 @@ def vol_stats(rc: RunConfig, device) -> pd.DataFrame:
     ref_path = rc.labels.get("path_ref")
     if ref_path:
         ref = ontology.LabelsRef(str(ref_path)).load()
+    mesh = rank_mesh(rc)
     df = vols.measure_labels_metrics(
-        atlas, labels, heat_map=heat, labels_ref=ref, device=device)
+        atlas, labels, heat_map=heat, labels_ref=ref, mesh=mesh,
+        device=device)
     out_csv = (rc.prefix or os.path.splitext(path)[0]) + "_vols.csv"
-    df.to_csv(out_csv, index=False)
+    comm.on_writer(mesh, lambda: df.to_csv(out_csv, index=False))
     return df
 
 
@@ -1220,7 +1275,8 @@ def process_file(rc: RunConfig, device):
         rescale = rc.transform.get("rescale")
         return transformer.transpose_img(
             path, plane=rc.plane,
-            rescale=float(rescale) if rescale else None, device=device)
+            rescale=float(rescale) if rescale else None,
+            mesh=rank_mesh(rc), device=device)
     if rc.proc == "preprocess":
         img5d = load_image(rc)
         return transformer.preprocess_img(

@@ -51,29 +51,41 @@ def sphere_overlap_fraction(
     return torch.where(d >= rsum, 0.0, frac)
 
 
+#: rows that the plain version pairs against all valid rows at a time
+PLAIN_ROWS = 4096
+
+
 def prune_overlap_plain(
         coords: torch.Tensor, sigmas: torch.Tensor, valid: torch.Tensor,
         overlap_thresh: float, ndim: int = 3) -> torch.Tensor:
     """Plain PyTorch version: the broadcast of every pair of valid rows
     (invalid rows neither lose nor win, so they are left out first; the
-    rows keep their order, which the tie rule reads)."""
+    rows keep their order, which the tie rule reads), ``PLAIN_ROWS`` rows
+    against all at a time, so a shard's buffer of tens of thousands of
+    rows fits in memory."""
     valid = valid.to(torch.bool)
     rows = torch.nonzero(valid).squeeze(1)
     pos = coords[rows].to(torch.float32)
     r = sigmas[rows].to(torch.float32) * _sqrt_ndim(ndim)
-    diffs = [pos[:, None, ax] - pos[None, :, ax]
-             for ax in range(pos.shape[1])]
-    d2 = diffs[0] * diffs[0]
-    for diff in diffs[1:]:
-        d2 = d2 + diff * diff
-    frac = sphere_overlap_fraction(torch.sqrt(d2), r[:, None], r[None, :])
     idx = torch.arange(len(rows), device=pos.device)
-    overlapping = (idx[:, None] != idx) & (frac > overlap_thresh)
-    loses = overlapping & (
-        (r[None, :] > r[:, None])
-        | ((r[None, :] == r[:, None]) & (idx[:, None] < idx[None, :])))
+    kept = []
+    for lo in range(0, len(rows), PLAIN_ROWS):
+        blk = slice(lo, lo + PLAIN_ROWS)
+        diffs = [pos[blk, None, ax] - pos[None, :, ax]
+                 for ax in range(pos.shape[1])]
+        d2 = diffs[0] * diffs[0]
+        for diff in diffs[1:]:
+            d2 = d2 + diff * diff
+        frac = sphere_overlap_fraction(torch.sqrt(d2), r[blk, None],
+                                       r[None, :])
+        overlapping = (idx[blk, None] != idx) & (frac > overlap_thresh)
+        loses = overlapping & (
+            (r[None, :] > r[blk, None])
+            | ((r[None, :] == r[blk, None]) & (idx[blk, None] < idx[None, :])))
+        kept.append(~torch.any(loses, dim=1))
     out = torch.zeros_like(valid)
-    out[rows] = ~torch.any(loses, dim=1)
+    if kept:
+        out[rows] = torch.cat(kept)
     return out
 
 

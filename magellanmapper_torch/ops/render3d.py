@@ -33,7 +33,8 @@ and the card and the CPU, orbit with the same bits, and
 Every renderer takes a numpy array or a tensor and ``device`` (``"cuda"``
 by default; raises without a card); it returns tensors on that device.
 The film-sharded renderers (``render_volume_sharded``,
-``render_isosurface_sharded``) are not ported yet (ROADMAP queue item 10).
+``render_isosurface_sharded``) deal the film's rows over the ranks of a
+mesh.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ import numpy as np
 import torch
 
 from magellanmapper_torch import device as device_mod
+from magellanmapper_torch.parallel import comm, mesh as mesh_mod
 
 _F32 = np.float32
 #: sample points a gather chunk holds (steps x film pixels)
@@ -232,9 +234,20 @@ def render_volume(
     """
     dev = device_mod.resolve(device)
     vol = _volume(vol, dev)
-    view = camera_basis(azim_deg, elev_deg, fused=True)[0]
     origins, dirs, radius = _ray_grid(vol.shape, azim_deg, elev_deg, out_hw,
                                       zoom, perspective, dev)
+    return _composite_volume(
+        vol, origins, dirs, radius, azim_deg, elev_deg, vmin, vmax,
+        n_steps, opacity, gamma, color, bg, shaded, light_dir)
+
+
+def _composite_volume(vol, origins, dirs, radius, azim_deg, elev_deg,
+                      vmin, vmax, n_steps, opacity, gamma, color, bg,
+                      shaded, light_dir) -> torch.Tensor:
+    """:func:`render_volume`'s front-to-back compositing of the rays of
+    ``origins``/``dirs`` (any rows of the film)."""
+    dev = vol.device
+    view = camera_basis(azim_deg, elev_deg, fused=True)[0]
     dt = _F32(_F32(2) * radius / _F32(n_steps))
     col = torch.tensor(color, dtype=torch.float32, device=dev)
     bgc = torch.tensor(bg, dtype=torch.float32, device=dev)
@@ -243,7 +256,7 @@ def render_volume(
     if shaded:
         ldir = torch.from_numpy(_unit(
             -view if light_dir is None else light_dir)).to(dev)
-    h, w = out_hw
+    h, w = origins.shape[:2]
     acc = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
     trans = torch.ones((h, w), dtype=torch.float32, device=dev)
     for k0, k1 in _chunks(n_steps, h * w):
@@ -281,12 +294,23 @@ def render_isosurface(
     """
     dev = device_mod.resolve(device)
     vol = _volume(vol, dev)
-    view = camera_basis(azim_deg, elev_deg, fused=True)[0]
     origins, dirs, radius = _ray_grid(vol.shape, azim_deg, elev_deg, out_hw,
                                       zoom, perspective, dev)
+    return _march_isosurface(vol, level, origins, dirs, radius, azim_deg,
+                             elev_deg, n_steps, color, bg, light_dir,
+                             specular, shininess)
+
+
+def _march_isosurface(vol, level, origins, dirs, radius, azim_deg,
+                      elev_deg, n_steps, color, bg, light_dir, specular,
+                      shininess) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`render_isosurface`'s march and shading of the rays of
+    ``origins``/``dirs`` (any rows of the film)."""
+    dev = vol.device
+    view = camera_basis(azim_deg, elev_deg, fused=True)[0]
     dt = _F32(_F32(2) * radius / _F32(n_steps))
     lvl = float(_F32(level))
-    h, w = out_hw
+    h, w = origins.shape[:2]
     t_hit = torch.full((h, w), float("inf"), device=dev)
     s_prev = torch.zeros((h, w), dtype=torch.float32, device=dev)
     hit = torch.zeros((h, w), dtype=torch.bool, device=dev)
@@ -330,21 +354,78 @@ def _blinn_phong(n: torch.Tensor, view: np.ndarray, ldir: np.ndarray,
         + (specular * spec)[..., None]
 
 
-def render_volume_sharded(*args, **kwargs):
-    """Film-sharded :func:`render_volume`: not ported yet."""
-    raise NotImplementedError(
-        "render_volume_sharded: film-sharded rendering over a device mesh "
-        "is not ported yet (ROADMAP queue item 10)")
+def _film_rows(mesh, axis_name, out_hw) -> Tuple[str, int, int]:
+    """The film-row range ``[r0, r1)`` of this rank along ``axis_name``
+    (default the mesh's first axis), whose size must divide the film's
+    height."""
+    axis = axis_name or mesh_mod.AXES[0]
+    n = mesh_mod.axis_size(mesh, axis)
+    if out_hw[0] % n:
+        raise ValueError(
+            f"film height {out_hw[0]} not divisible by mesh axis "
+            f"{axis!r} of size {n}")
+    rows = out_hw[0] // n
+    r0 = mesh_mod.axis_index(mesh, axis) * rows
+    return axis, r0, r0 + rows
 
 
-def render_isosurface_sharded(*args, **kwargs):
-    """Film-sharded :func:`render_isosurface`: not ported yet."""
-    raise NotImplementedError(
-        "render_isosurface_sharded: film-sharded rendering over a device "
-        "mesh is not ported yet (ROADMAP queue item 10)")
+def _ray_rows(vol, azim_deg, elev_deg, out_hw, zoom, perspective, r0, r1):
+    """This rank's rows of the film's rays (a shared view direction is
+    kept whole)."""
+    origins, dirs, radius = _ray_grid(vol.shape, azim_deg, elev_deg, out_hw,
+                                      zoom, perspective, vol.device)
+    if perspective:
+        dirs = dirs[r0:r1]
+    return origins[r0:r1], dirs, radius
 
 
-# -- shear-warp ---------------------------------------------------------------
+def render_volume_sharded(
+        vol, mesh, azim_deg, elev_deg, vmin=0.0, vmax=1.0,
+        out_hw: Tuple[int, int] = (512, 512), n_steps: int = 256, zoom=1.0,
+        opacity=0.05, gamma=1.0, color=(1.0, 1.0, 1.0), bg=(0.0, 0.0, 0.0),
+        shaded: bool = False, light_dir: Optional[Sequence[float]] = None,
+        perspective: bool = False, axis_name: Optional[str] = None,
+        device="cuda") -> torch.Tensor:
+    """:func:`render_volume` with the film rows dealt over a mesh axis
+    (``render3d.py:198-262``): rays are independent, so each rank
+    composites its row block against the whole volume, and the tiles are
+    gathered, so every rank returns the whole image. ``out_hw[0]`` must
+    divide by the axis size. Equals the single-device image (the same
+    operations per ray)."""
+    dev = device_mod.resolve(device)
+    vol = _volume(vol, dev)
+    axis, r0, r1 = _film_rows(mesh, axis_name, out_hw)
+    origins, dirs, radius = _ray_rows(vol, azim_deg, elev_deg, out_hw,
+                                      zoom, perspective, r0, r1)
+    tile = _composite_volume(
+        vol, origins, dirs, radius, azim_deg, elev_deg, vmin, vmax,
+        n_steps, opacity, gamma, color, bg, shaded, light_dir)
+    return comm.all_gather(tile, mesh, axis)
+
+
+def render_isosurface_sharded(
+        vol, level, mesh, azim_deg, elev_deg,
+        out_hw: Tuple[int, int] = (512, 512), n_steps: int = 256, zoom=1.0,
+        color=(0.8, 0.8, 0.85), bg=(0.0, 0.0, 0.0),
+        light_dir: Optional[Sequence[float]] = None, specular=0.4,
+        shininess=24.0, perspective: bool = False,
+        axis_name: Optional[str] = None, device="cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`render_isosurface` with the film rows dealt over a mesh axis
+    (``render3d.py:343-388``; see :func:`render_volume_sharded`). Returns
+    the whole ``(rgb, depth)`` pair on every rank."""
+    dev = device_mod.resolve(device)
+    vol = _volume(vol, dev)
+    axis, r0, r1 = _film_rows(mesh, axis_name, out_hw)
+    origins, dirs, radius = _ray_rows(vol, azim_deg, elev_deg, out_hw,
+                                      zoom, perspective, r0, r1)
+    rgb, depth = _march_isosurface(
+        vol, level, origins, dirs, radius, azim_deg, elev_deg, n_steps,
+        color, bg, light_dir, specular, shininess)
+    both = comm.all_gather(torch.cat([rgb, depth[..., None]], dim=-1),
+                           mesh, axis)
+    return both[..., :3].contiguous(), both[..., 3].contiguous()
+
 
 def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
     """``a * b + c`` of float32 values rounded once, as XLA contracts a

@@ -11,7 +11,8 @@ in 3D, so it is not used. Order 0 is ``"nearest"``: the source index of
 output ``i`` is ``floor((i + 0.5) * in / out)`` in float32, and the input
 dtype is kept (labels).
 
-``resize_sharded`` is not ported (ROADMAP queue item 10).
+:func:`resize_sharded` runs the same passes with the volume dealt over
+the ranks of a mesh.
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ from typing import Sequence, Union
 
 import numpy as np
 import torch
+
+from magellanmapper_torch import device as device_mod
+from magellanmapper_torch.parallel import comm, mesh as mesh_mod
 
 
 def calc_isotropic_factor(
@@ -76,6 +80,45 @@ def resize(vol: torch.Tensor, shape: Sequence[int],
             out = torch.movedim(
                 torch.tensordot(out, w, dims=([ax], [0])), -1, ax)
     return out.contiguous()
+
+
+def resize_sharded(vol, shape: Sequence[int], mesh, order: int = 1,
+                   axis_name=None, device="cuda") -> torch.Tensor:
+    """:func:`resize` with the volume dealt over the ranks of a mesh
+    (``resize.py:39-94``).
+
+    The resize is separable, so it runs as three 1D passes with one
+    reshard between them: the z and y passes run on this rank's x-slab
+    (``axis_name``'s share of x; default the largest mesh axis), one
+    all-to-all hands each rank its z-slab of every x-slab, and the x pass
+    runs on the z-slab. The z-slabs are then gathered, so every rank
+    returns the whole resized volume on ``device``. On fewer than three
+    spatial dims it is the plain :func:`resize`."""
+    dev = device_mod.resolve(device)
+    vol = (vol if torch.is_tensor(vol) else torch.from_numpy(
+        np.array(vol))).to(dev)
+    out_shape = tuple(int(s) for s in shape)
+    if len(out_shape) != 3 or vol.dim() < 3:
+        return resize(vol, shape, order=order)
+    if axis_name is None:
+        sizes = mesh_mod.shape(mesh)
+        axis_name = max(sizes, key=sizes.get)
+    n = mesh_mod.axis_size(mesh, axis_name)
+    me = mesh_mod.axis_index(mesh, axis_name)
+    x0, x1 = mesh_mod.shard_bounds(vol.shape[2], n, me)
+    local = resize(vol[:, :, x0:x1], out_shape[:2], order=order)
+    z_bounds = [mesh_mod.shard_bounds(out_shape[0], n, j) for j in range(n)]
+    parts = comm.all_to_all(
+        [local[a:b].contiguous() for a, b in z_bounds], mesh, axis_name)
+    z_slab = resize(torch.cat(parts, dim=2),
+                    (z_bounds[me][1] - z_bounds[me][0],) + out_shape[1:],
+                    order=order)
+    # gather the z-slabs, each padded to the longest
+    longest = z_bounds[0][1] - z_bounds[0][0]
+    pad = z_slab.new_zeros((longest - z_slab.shape[0],) + z_slab.shape[1:])
+    whole = comm.all_gather(torch.cat([z_slab, pad]), mesh, axis_name)
+    return torch.cat([whole[j * longest:j * longest + b - a]
+                      for j, (a, b) in enumerate(z_bounds)]).contiguous()
 
 
 def rescale(vol: torch.Tensor, factor: Union[float, Sequence[float]],

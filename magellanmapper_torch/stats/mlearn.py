@@ -27,6 +27,7 @@ from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.cv import detector, stack_detect, verifier
 from magellanmapper_torch.io import np_io, sqlite
+from magellanmapper_torch.parallel import mesh as mesh_mod
 from magellanmapper_torch.settings.grid_search_prof import GridSearchProfile
 from magellanmapper_torch.settings.roi_prof import ROIProfile
 
@@ -115,7 +116,7 @@ def grid_search(
 
 def make_fn_detect_multi(
         vol: np.ndarray, res: Sequence[float], base_profile=None,
-        device: Union[str, torch.device] = "cuda"):
+        device: Union[str, torch.device] = "cuda", mesh=None):
     """A :func:`grid_search` ``fn_detect_multi`` for a single-channel 3D
     ROI on ``device`` (the card unless ``"cpu"`` is asked for; a CUDA
     device without a card raises): all threshold values of one
@@ -128,7 +129,10 @@ def make_fn_detect_multi(
     holds as many thresholds as keep ``~num_sigma * vol.size * 5`` bytes
     each within 2 GiB, at most 8. The reference pads the last chunk to one
     compiled shape; eager PyTorch has no compile to reuse, so it is not
-    padded.
+    padded. With ``mesh``, each chunk's thresholds are dealt over the
+    mesh's first axis (:func:`cv.detector.blob_log_multi_sharded`), and a
+    chunk holds that many times as many thresholds (the per-rank budget,
+    ``mlearn.py:145-161``).
     """
     dev = device_mod.resolve(device)
     vol_t = torch.from_numpy(np.array(vol, np.float32)).to(dev)
@@ -149,14 +153,21 @@ def make_fn_detect_multi(
         cap = max(cap, min(1 << 17, max(4096, vol_t.numel() // 1024)))
         per_thr = len(sigmas) * vol_t.numel() * 5
         k_chunk = int(max(1, min(8, (2 << 30) // max(per_thr, 1))))
+        if mesh is not None:
+            k_chunk *= mesh_mod.axis_size(mesh, mesh_mod.AXES[0])
         out = []
         for c0 in range(0, len(thresholds), k_chunk):
             chunk = list(thresholds[c0:c0 + k_chunk])
-            raws, valids = detector.blob_log_multi(
-                vol_t, sigmas, chunk, float(prof["overlap"]), cap,
-                fast=detector.is_fast(prof))
-            raws = raws.cpu().numpy()
-            valids = valids.cpu().numpy()
+            if mesh is not None:
+                raws, valids = detector.blob_log_multi_sharded(
+                    vol_t, sigmas, chunk, float(prof["overlap"]), cap,
+                    mesh, fast=detector.is_fast(prof), device=dev)
+            else:
+                raws, valids = detector.blob_log_multi(
+                    vol_t, sigmas, chunk, float(prof["overlap"]), cap,
+                    fast=detector.is_fast(prof))
+                raws = raws.cpu().numpy()
+                valids = valids.cpu().numpy()
             for k in range(len(chunk)):
                 raw = raws[k][valids[k]].copy()
                 if not raw.shape[0]:

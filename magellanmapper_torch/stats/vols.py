@@ -18,8 +18,8 @@ Label overlap (DSC) and centroid distances count voxels and sum
 coordinates exactly in int64 on the device. The rest is host code,
 copied: painting a metric into labels, per-level tables, the metric enums
 and the facades.
-``mesh=`` (the reference's sharded segment sums) raises until ROADMAP
-queue item 10. Blobs with precomputed cluster IDs (column 4) give the
+With ``mesh=``, the per-label sums are dealt over the ranks of a mesh
+(:func:`_segment_stats_sharded`). Blobs with precomputed cluster IDs (column 4) give the
 cluster columns; without them every region's blobs are clustered on the
 device in one pass (``clustering.cluster_dbscan`` grouped by region: only
 blobs of one region neighbour each other, and each region numbers its
@@ -38,6 +38,7 @@ import torch
 from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.atlas import ontology
 from magellanmapper_torch.cv import cv_nd
+from magellanmapper_torch.parallel import comm, mesh as mesh_mod
 from magellanmapper_torch.stats import clustering
 from magellanmapper_torch.utils import libmag
 
@@ -107,6 +108,31 @@ def _segment_stats(codes: torch.Tensor, intensity: Optional[torch.Tensor],
         h1 = _index_sum(codes, h, num_segments)
         h2 = _index_sum(codes, h * h, num_segments)
     return counts, s1, s2, h1, h2
+
+
+def _segment_stats_sharded(codes: torch.Tensor,
+                           intensity: Optional[torch.Tensor],
+                           heat: Optional[torch.Tensor], num_segments: int,
+                           mesh):
+    """:func:`_segment_stats` with the voxels dealt over the ranks of
+    ``mesh`` (``vols.py:51-88``): each rank sums its contiguous flat
+    shard, and one ``all_reduce`` a quantity adds the partials. The voxel
+    count is padded to a multiple of the rank count with voxels of code 0
+    (background, dropped by the caller) and value 0; counts stay exact,
+    and the float64 moments differ from the unsharded sums only in their
+    order of summation."""
+    n_ranks = mesh_mod.axis_size(mesh, mesh_mod.AXES)
+    per = -(-codes.numel() // n_ranks)
+    lo = mesh_mod.axis_index(mesh, mesh_mod.AXES) * per
+
+    def shard(x):
+        part = x[lo:lo + per]
+        return torch.cat([part, part.new_zeros(per - part.numel())])
+
+    parts = _segment_stats(
+        shard(codes), None if intensity is None else shard(intensity),
+        None if heat is None else shard(heat), num_segments)
+    return tuple(comm.all_reduce(p, mesh, mesh_mod.AXES) for p in parts)
 
 
 def _float_order_key(values: torch.Tensor) -> torch.Tensor:
@@ -221,7 +247,8 @@ def measure_labels_metrics(
             (noise = -1). Without column 4 each region's blobs are
             clustered here with DBSCAN (``cluster_eps``/
             ``cluster_minpts``) on ``device``.
-        mesh: the reference's device mesh; not ported (raises).
+        mesh: a rank mesh (``parallel.mesh.make_mesh``) over which the
+            per-label sums are dealt (:func:`_segment_stats_sharded`).
         device: where the voxel passes run.
 
     Returns:
@@ -229,11 +256,6 @@ def measure_labels_metrics(
         (``VolPx``, ``Nuclei`` of an integer heat map, ``EdgeSize``) are
         exact integers, moments float64.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "measure_labels_metrics(mesh=...): the sharded segment sums "
-            "(_segment_stats_sharded) are not ported yet (ROADMAP queue "
-            "item 10)")
     dev = device_mod.resolve(device)
     labels_proc = labels_img
     if level is not None and labels_ref is not None:
@@ -261,7 +283,10 @@ def measure_labels_metrics(
         np.asarray(atlas_img, np.float32).reshape(-1), dev)
     heat = None if heat_map is None else _to_device(
         np.asarray(heat_map).reshape(-1), dev)
-    stats = _segment_stats(codes, intensity, heat, n + 1)
+    if mesh is not None:
+        stats = _segment_stats_sharded(codes, intensity, heat, n + 1, mesh)
+    else:
+        stats = _segment_stats(codes, intensity, heat, n + 1)
     counts, s1, s2, h1, h2 = (x[1:].cpu().numpy() for x in stats)
 
     vox_vol = float(np.prod(spacing)) if spacing is not None else 1.0

@@ -10,12 +10,14 @@ set cut from a volume for stitching."""
 
 from __future__ import annotations
 
+import contextlib
 import struct
 import zlib
 from typing import Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from scipy import optimize, spatial
 from scipy.spatial import distance
 
@@ -1016,3 +1018,19 @@ def write_ims(path: str, vols, sizes_zyx, libver: str = "earliest",
         for key, val in (ext or {}).items():
             w.write_attr("DataSetInfo/Image", key, str(val))
     return path
+
+
+@contextlib.contextmanager
+def world_of_one(device="cuda"):
+    """A mesh of this process alone (a process group of one, gloo on the
+    CPU, NCCL on the card), torn down on exit, so that a sharded call can
+    run in the caller's process."""
+    from magellanmapper_torch.parallel import mesh as mesh_mod
+
+    if dist.is_initialized():
+        raise RuntimeError("a process group is already initialised")
+    try:
+        yield mesh_mod.make_mesh(1, device=device)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

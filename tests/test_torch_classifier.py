@@ -185,9 +185,21 @@ def test_classifier_checkpoint_round_trip(tmp_path):
 
 
 def test_train_step_sharded_raises_by_name():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        classifier.BlobClassifier(device="cpu").train_step_sharded(
-            None, *make_patch_data(8))
+    """The data-parallel step (ROADMAP item 10, now ported), in a world
+    of one: the reference's step on a one-device mesh, loss within 1e-5,
+    and the weights moved."""
+    x, y = make_patch_data(8)
+    ref = ref_clf.BlobClassifier(seed=0)
+    tree = jax.tree.map(np.asarray, ref.params)
+    want = ref.train_step_sharded(
+        jax.sharding.Mesh(np.asarray(jax.devices()[:1]), ("dp",)), x, y)
+    port = classifier.BlobClassifier(params=tree, device="cpu")
+    with testing.world_of_one("cpu") as mesh:
+        got = port.train_step_sharded(mesh, x, y)
+    assert got == pytest.approx(want, abs=1e-5)
+    moved = jax.tree.map(lambda a, b: float(np.abs(a - b).max()),
+                         port.params, tree)
+    assert max(jax.tree.leaves(moved)) > 0
 
 
 def _blob_volume(seed=1):

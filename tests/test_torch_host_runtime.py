@@ -618,21 +618,20 @@ def test_version_prints_the_port_and_exits(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--mesh", "1,1"], "item 10"), (["--notify", "http://x"], None),
+    (["--mesh", "1,1"], "mesh"), (["--notify", "http://x"], None),
     (["--ec2_start", "a"], None), (["--ec2_list"], None),
     (["--ec2_terminate", "i-1"], None)])
 def test_only_the_cloud_and_mesh_flags_are_rejected(flag, item):
-    """Only ``--mesh`` is rejected, naming its ROADMAP item; the cloud
-    flags are taken with the reference's values."""
+    """No flag is rejected any more: ``--mesh`` (ROADMAP item 10, now
+    ported) and the cloud flags are taken with the reference's values."""
     argv = ["--img", "v.npy", "--proc", "detect"] + flag
-    if item is None:
-        got = cli.process_cli_args(argv)
-        want = ref_cli.process_cli_args(argv)
-        for name in ("ec2_start", "ec2_list", "ec2_terminate", "notify_url"):
-            assert getattr(got, name) == getattr(want, name), name
-        assert cli.cloud_task(got)
+    got = cli.process_cli_args(argv)
+    want = ref_cli.process_cli_args(argv)
+    if item is not None:
+        assert got.mesh == want.mesh == [1, 1]
+        assert not cli.cloud_task(got)
         return
-    with pytest.raises(SystemExit) as err:
-        cli.process_cli_args(argv)
-    assert flag[0] in str(err.value) and item in str(err.value)
+    for name in ("ec2_start", "ec2_list", "ec2_terminate", "notify_url"):
+        assert getattr(got, name) == getattr(want, name), name
+    assert cli.cloud_task(got)
 

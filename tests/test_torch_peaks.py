@@ -10,7 +10,7 @@ import torch
 
 from magellanmapper_tpu.ops import pallas_kernels
 from magellanmapper_tpu.ops import peaks as ref_peaks
-from magellanmapper_torch.kernels import peak_candidates
+from magellanmapper_torch.kernels import peak_candidates, prune_overlap
 from magellanmapper_torch.ops import peaks
 
 torch.set_num_threads(1)
@@ -174,6 +174,23 @@ def test_prune_dense_field_matches_reference():
     np.testing.assert_array_equal(port, ref)
     np.testing.assert_array_equal(port, pallas)
     assert port.sum() < valid.sum() // 2
+
+
+@pytest.mark.parametrize("rows", [1, 97, 1024])
+def test_prune_plain_in_chunks_matches_reference(rows, monkeypatch):
+    """K3's plain version pairing ``rows`` rows against all at a time
+    gives the reference's mask on the dense field, exactly."""
+    monkeypatch.setattr(prune_overlap, "PLAIN_ROWS", rows)
+    rng = np.random.default_rng(0)
+    k = 1024
+    coords = rng.uniform(0, 40, (k, 3)).astype(np.float32)
+    sigmas = rng.uniform(1.5, 4.0, k).astype(np.float32)
+    valid = rng.random(k) < 0.95
+    ref, _, _ = _prune_all(coords, sigmas, valid)
+    got = prune_overlap.prune_overlap_plain(
+        torch.from_numpy(coords), torch.from_numpy(sigmas),
+        torch.from_numpy(valid), 0.5).numpy()
+    np.testing.assert_array_equal(got, ref)
 
 
 @pytest.mark.parametrize("case", ["separated", "pair", "equal_radius"])

@@ -23,6 +23,7 @@ import torch
 from magellanmapper_tpu.atlas import gauntlet as ref_gauntlet
 from magellanmapper_tpu.atlas import reg_engine as ref
 from magellanmapper_tpu.settings import atlas_prof as ref_prof
+from magellanmapper_torch import testing
 from magellanmapper_torch.atlas import reg_engine
 from magellanmapper_torch.settings import atlas_prof
 
@@ -319,17 +320,36 @@ def test_jittered_levels_repeat_on_the_cpu(pair):
 
 
 def test_later_slices_raise_and_name_their_roadmap_item(pair):
+    """The mesh-sharded level (ROADMAP item 10, now ported): in a world of
+    one, ``register_stage``, ``register_duo`` and ``register_groupwise``
+    with ``mesh=`` give the unsharded results bit for bit (one rank sums
+    nothing across ranks and divides its gradients by one)."""
+    stage = atlas_prof.make_reg_param_map("affine", 6, num_resolutions=2)
     prof = atlas_prof.AtlasProfile()
-    with pytest.raises(NotImplementedError, match="queue item 10"):
-        reg_engine.register_duo(pair["fixed"], pair["moving"], prof,
-                                mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 10"):
-        reg_engine.register_groupwise([pair["fixed"], pair["moving"]],
-                                      mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 10"):
-        reg_engine.register_stage(pair["fixed"], pair["moving"],
-                                  prof["reg_affine"], mesh=object(),
-                                  device="cpu")
+    prof["reg_translation"] = atlas_prof.make_reg_param_map(
+        "translation", 6, num_resolutions=2)
+    prof["reg_affine"] = prof["reg_bspline"] = None
+    fixed, moving = pair["fixed"], pair["moving"]
+    base_stage, _ = reg_engine.register_stage(fixed, moving, stage,
+                                              device="cpu")
+    base_duo, _ = reg_engine.register_duo(fixed, moving, prof, device="cpu")
+    base_group = reg_engine.register_groupwise(
+        [fixed, moving], max_iter=4, num_resolutions=1, device="cpu")
+    with testing.world_of_one("cpu") as mesh:
+        got_stage, _ = reg_engine.register_stage(fixed, moving, stage,
+                                                 mesh=mesh, device="cpu")
+        got_duo, _ = reg_engine.register_duo(fixed, moving, prof, mesh=mesh,
+                                             device="cpu")
+        got_group = reg_engine.register_groupwise(
+            [fixed, moving], max_iter=4, num_resolutions=1, mesh=mesh,
+            device="cpu")
+    for k in base_stage:
+        assert torch.equal(got_stage[k], base_stage[k])
+    np.testing.assert_array_equal(got_duo, base_duo)
+    np.testing.assert_array_equal(got_group[0], base_group[0])
+    for got, want in zip(got_group[1], base_group[1]):
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
 
 
 def test_engine_asks_for_the_card(pair):

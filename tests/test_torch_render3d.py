@@ -279,8 +279,23 @@ def test_render_blobs_overlay_is_the_references(vols, az, el):
 @pytest.mark.parametrize("fn", ["render_volume_sharded",
                                 "render_isosurface_sharded"])
 def test_sharded_renderers_raise_by_name(fn):
-    with pytest.raises(NotImplementedError, match=fn):
-        getattr(render3d, fn)(np.zeros((4, 4, 4), np.float32), None, 0, 0)
+    """The film-sharded renderers (ROADMAP item 10, now ported), in a
+    world of one: the single-device frame exactly."""
+    z, y, x = np.ogrid[:10, :10, :10]
+    ball = np.exp(-((z - 4.5) ** 2 + (y - 5.0) ** 2 + (x - 4.0) ** 2)
+                  / 10.0).astype(np.float32)
+    kw = dict(out_hw=(6, 8), n_steps=16, device="cpu")
+    plain = getattr(render3d, fn.replace("_sharded", ""))
+    with testing.world_of_one("cpu") as mesh:
+        if fn == "render_volume_sharded":
+            got = [render3d.render_volume_sharded(ball, mesh, 30, 20, **kw)]
+            want = [plain(ball, 30, 20, **kw)]
+        else:
+            got = render3d.render_isosurface_sharded(ball, 0.5, mesh, 30,
+                                                     20, **kw)
+            want = plain(ball, 0.5, 30, 20, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 # -- the reference's analytic pins on the port -------------------------------------

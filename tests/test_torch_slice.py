@@ -15,6 +15,7 @@ import torch
 
 from magellanmapper_tpu.cv import blobs as blobs_mod
 from magellanmapper_tpu.cv import stack_detect as ref_sd
+from magellanmapper_tpu.io import cli as ref_cli
 from magellanmapper_tpu.io import np_io
 from magellanmapper_tpu.settings.roi_prof import ROIProfile
 from magellanmapper_torch.cv import stack_detect as sd
@@ -146,10 +147,35 @@ def test_cli_writes_the_blobs_of_a_direct_call(tmp_path, volume):
 
 @pytest.mark.parametrize("argv", [
     ["--proc", "no_such_task"], ["--register", "single"],
-    ["--proc", "detect", "--mesh", "1,1"]])
+    ["--proc", "detect", "--mesh", "1,2,1,1"]])
 def test_cli_rejects_what_is_not_ported(tmp_path, argv):
+    """Unknown tasks, a task without its inputs and a malformed ``--mesh``
+    (``dp,sp[,spy]``) stop the CLI."""
     with pytest.raises(SystemExit):
         cli.main(["--img", str(tmp_path / "x.npy")] + argv)
+
+
+def test_cli_detect_with_a_mesh_of_one_matches_the_reference(tmp_path):
+    """``--proc detect --mesh 1,1`` starts its own world of one, detects
+    with halo exchange (preprocessing in the step) and writes the
+    reference CLI's ``--mesh 1,1`` blobs."""
+    vol = make_nuclei_volume((24, 64, 64), seed=4)[0]
+    paths = [str(tmp_path / f"{n}.npy") for n in ("ref", "port")]
+    for path in paths:
+        np_io.write_npy(path, vol, resolutions=[list(RES)])
+    argv = ["--proc", "detect", "--roi_profile", "lightsheet", "--mesh",
+            "1,1"]
+    ref_cli.main(["--img", paths[0]] + argv)
+    try:
+        got = cli.main(["--img", paths[1], "--device", "cpu"] + argv)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    want = blobs_mod.Blobs().load_blobs(str(tmp_path / "ref_blobs.npz"))
+    saved = blobs_mod.Blobs().load_blobs(str(tmp_path / "port_blobs.npz"))
+    assert len(want.blobs) > 0
+    assert rows_equal(saved.blobs, want.blobs)
+    assert rows_equal(got.blobs, want.blobs)
 
 
 def test_bfloat16_log_is_not_ported(volume, port_resident):

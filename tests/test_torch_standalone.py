@@ -39,6 +39,8 @@ from magellanmapper_torch.io import (
 from magellanmapper_torch.io import pipelines, sqlite, tiff, yaml_io
 from magellanmapper_torch.gui import atlas_editor, visualizer, vis_3d, widgets
 from magellanmapper_torch.ops import render3d
+from magellanmapper_torch.parallel import distributed, dryrun, halo, launch
+from magellanmapper_torch.parallel import mesh as mesh_mod
 from magellanmapper_torch.plot import plot_3d
 from magellanmapper_torch.settings import (
     atlas_prof, grid_search_prof, roi_prof)
@@ -514,7 +516,7 @@ def test_cli_parses_as_the_reference(argv):
 
 @pytest.mark.parametrize("argv,named", [
     (["--proc", "detect", "--register", "no_such_task"], "--register"),
-    (["--proc", "detect", "--mesh", "1,1"], "--mesh"),
+    (["--proc", "detect", "--mesh", "1,2,1,1"], "--mesh"),
     (["--proc", "transform", "--save_subimg"], "--save_subimg"),
     (["--proc", "detect", "--df", "sum"], "--df"),
     (["--proc", "detect", "--plot_2d", "bar"], "--plot_2d"),
@@ -530,11 +532,12 @@ def test_cli_rejects_and_names_what_is_not_ported(argv, named):
 
 
 def test_only_mesh_is_not_ported():
-    """``--notify`` and ``--ec2_*`` are taken (their tests are in
-    ``test_torch_cloud.py``); ``--mesh`` alone waits for ROADMAP item 10."""
-    assert list(cli.NOT_PORTED) == ["mesh"]
-    for flag in ("--notify", "--ec2_start", "--ec2_list", "--ec2_terminate"):
-        assert flag[2:] not in cli.NOT_PORTED
+    """Every flag of the reference is taken: ``--notify`` and ``--ec2_*``
+    (their tests are in ``test_torch_cloud.py``) and ``--mesh`` (ROADMAP
+    item 10, ``test_torch_parallel.py``); nothing is rejected by name."""
+    assert cli.NOT_PORTED == {}
+    for flag in ("--notify", "--ec2_start", "--ec2_list", "--ec2_terminate",
+                 "--mesh"):
         assert any(flag in a.option_strings
                    for a in cli.build_parser()._actions)
 
@@ -722,6 +725,17 @@ def _entry_points(tmp_path):
         "InterpolatePlanes.interpolate": lambda: _bookmarked().interpolate(
             labels),
         "plot_surface_3d": lambda: vis_3d.plot_surface_3d(vol),
+        "make_mesh": lambda: mesh_mod.make_mesh(1),
+        "launch.spawn": lambda: launch.spawn(launch.run_cases, 2,
+                                             args=([],)),
+        "detect_blobs_sharded": lambda: halo.detect_blobs_sharded(
+            vol, prof, (1.0, 1.0, 1.0)),
+        "detect_blobs_blocks_sharded":
+            lambda: distributed.detect_blobs_blocks_sharded(
+                vol, prof, (1.0, 1.0, 1.0)),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
+        "cli.main --mesh": lambda: cli.main(
+            ["--img", img, "--proc", "detect", "--mesh", "1,1"]),
     }
 
 
@@ -759,7 +773,8 @@ def _bookmarked():
     "volumes_by_id", "cli.main labels_diff", "run_gauntlet_suite",
     "entry", "build_labels_diff_images", "Visualization", "AtlasEditor",
     "Vis3DRenderer", "Vis3DCanvas", "InterpolatePlanes.interpolate",
-    "plot_surface_3d"])
+    "plot_surface_3d", "make_mesh", "launch.spawn", "detect_blobs_sharded",
+    "detect_blobs_blocks_sharded", "dryrun_multichip", "cli.main --mesh"])
 def test_entry_points_ask_for_the_card(tmp_path, no_card, name):
     with pytest.raises(RuntimeError, match="CUDA"):
         _entry_points(tmp_path)[name]()
@@ -782,7 +797,15 @@ _GUI_CLOUD_MODULES = (
     "io/sqlite", "io/pipelines")
 
 
-@pytest.mark.parametrize("name", _HOST_RUNTIME_MODULES + _GUI_CLOUD_MODULES)
+#: the modules of ``parallel/``, which every rank of a world imports
+_PARALLEL_MODULES = (
+    "parallel/mesh", "parallel/comm", "parallel/launch",
+    "parallel/halo", "parallel/distributed", "parallel/dryrun",
+    "parallel/cases")
+
+
+@pytest.mark.parametrize(
+    "name", _HOST_RUNTIME_MODULES + _GUI_CLOUD_MODULES + _PARALLEL_MODULES)
 def test_new_modules_import_neither_jax_nor_the_reference(name):
     """Each module's import statements (module level and inside its
     functions) name no ``jax*`` and no ``magellanmapper_tpu*`` module."""
@@ -886,6 +909,66 @@ def test_both_cli_tasks_run_without_the_reference(tmp_path):
         int, out.stdout.split()[-5:])
     assert n_mods >= 30 and n_blobs > 0 and n_rows == 4 and n_paths == 4
     assert n_regions > 0
+
+
+def test_no_device_parameter_defaults_to_the_cpu():
+    """Every function and method of every port module (``parallel/``'s
+    too) whose ``device`` parameter has a default defaults to the card."""
+    import importlib
+    import inspect
+    import pkgutil
+
+    import magellanmapper_torch
+
+    found, bad = 0, []
+    for info in pkgutil.walk_packages(magellanmapper_torch.__path__,
+                                      "magellanmapper_torch."):
+        mod = importlib.import_module(info.name)
+        for name, obj in vars(mod).items():
+            if getattr(obj, "__module__", None) != mod.__name__:
+                continue
+            fns = [(name, obj)] if inspect.isfunction(obj) else [
+                (f"{name}.{n}", f) for n, f in vars(obj).items()
+                if inspect.isfunction(f)] if inspect.isclass(obj) else []
+            for qual, fn in fns:
+                param = inspect.signature(fn).parameters.get("device")
+                if param is None or param.default is param.empty:
+                    continue
+                found += 1
+                if param.default != "cuda":
+                    bad.append((info.name, qual, param.default))
+    assert found > 100 and not bad, bad
+
+
+_SHARDED_ALONE = """
+import sys
+from magellanmapper_torch.io import cli
+from magellanmapper_torch.parallel import dryrun
+import torch.distributed as dist
+line = dryrun.dryrun_multichip(2, device="cpu", timeout_s=240)
+blobs = cli.main(["--img", sys.argv[1], "--proc", "detect", "--roi_profile",
+                  "lightsheet", "--mesh", "1,1", "--device", "cpu"])
+dist.destroy_process_group()
+loaded = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "magellanmapper_tpu"))
+assert not loaded, loaded
+print(len(blobs))
+"""
+
+
+def test_sharded_paths_run_without_the_reference(tmp_path):
+    """A fresh interpreter runs the dry run of every sharded path in a
+    world of two CPU ranks (each rank a fresh interpreter of the port
+    alone) and ``--proc detect --mesh 1,1``; no ``jax*`` or
+    ``magellanmapper_tpu*`` module is loaded."""
+    img = str(tmp_path / "roi.npy")
+    np_io.write_npy(img, testing.make_nuclei_volume((24, 48, 48), seed=1)[0])
+    out = subprocess.run(
+        [sys.executable, "-c", _SHARDED_ALONE, img], capture_output=True,
+        text=True, timeout=300, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert "dryrun_multichip OK" in out.stdout
+    assert int(out.stdout.split()[-1]) > 0
 
 
 _HOST_TASKS_ALONE = """

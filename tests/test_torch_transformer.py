@@ -22,6 +22,7 @@ import torch
 from magellanmapper_tpu.atlas import transformer as ref_transformer
 from magellanmapper_tpu.cv import cv_nd as ref_cv_nd
 from magellanmapper_tpu.io import np_io as ref_np_io
+from magellanmapper_torch import testing
 from magellanmapper_torch.atlas import transformer
 from magellanmapper_torch.cv import cv_nd
 from magellanmapper_torch.io import np_io
@@ -108,11 +109,21 @@ def test_transpose_pass2_in_column_blocks(tmp_path, monkeypatch):
 
 
 def test_transpose_img_mesh_raises(tmp_path):
-    path = str(tmp_path / "v.npy")
-    np_io.write_npy(path, np.zeros((4, 4, 4), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        transformer.transpose_img(path, rescale=0.5, mesh=object(),
-                                  device="cpu")
+    """``mesh=`` (ROADMAP item 10, now ported) in a world of one: the
+    sharded resize writes the unsharded output within 1e-6."""
+    arr = np.random.default_rng(5).random((1, 12, 14, 10)).astype(
+        np.float32)
+    paths = [str(tmp_path / f"{n}.npy") for n in ("plain", "mesh")]
+    for path in paths:
+        np_io.write_npy(path, arr, resolutions=[[2.0, 1.0, 1.0]])
+    want = transformer.transpose_img(paths[0], rescale=0.5, device="cpu")
+    with testing.world_of_one("cpu") as mesh:
+        got = transformer.transpose_img(paths[1], rescale=0.5, mesh=mesh,
+                                        device="cpu")
+    a = np.load(np_io.make_filenames(want)[0])
+    b = np.load(np_io.make_filenames(got)[0])
+    assert a.shape == b.shape == (1, 6, 7, 5)
+    np.testing.assert_allclose(b, a, rtol=0, atol=1e-6)
 
 
 @pytest.mark.parametrize("tasks", [

@@ -28,6 +28,7 @@ import torch
 from magellanmapper_tpu.atlas import ontology as ref_ontology
 from magellanmapper_tpu.cv import cv_nd as ref_cv_nd
 from magellanmapper_tpu.stats import vols as ref_vols
+from magellanmapper_torch import testing
 from magellanmapper_torch.atlas import ontology
 from magellanmapper_torch.cv import cv_nd
 from magellanmapper_torch.stats import vols
@@ -291,9 +292,16 @@ def test_perimeter_and_label_edges_match_reference(largest_only):
 
 def test_unported_options_raise_by_name():
     labels = np.ones((4, 4, 4), np.int32)
-    with pytest.raises(NotImplementedError, match="_segment_stats_sharded"):
-        vols.measure_labels_metrics(None, labels, mesh=object(),
-                                    device="cpu")
+    # the sharded segment sums (ROADMAP item 10, now ported) in a world of
+    # one: the same table
+    two = labels.copy()
+    two[:2] = 2
+    atlas = np.random.default_rng(4).random(two.shape).astype(np.float32)
+    want = vols.measure_labels_metrics(atlas, two, device="cpu")
+    with testing.world_of_one("cpu") as mesh:
+        got = vols.measure_labels_metrics(atlas, two, mesh=mesh,
+                                          device="cpu")
+    pd.testing.assert_frame_equal(got, want)
     # blobs without a cluster column are clustered here, as the
     # reference clusters them (DBSCAN within each region)
     grid = np.stack(np.meshgrid(*(np.arange(3.0),) * 3, indexing="ij"),

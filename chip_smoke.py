@@ -249,7 +249,15 @@ result, on any fault. Phases:
    tile matrix); (d) a (64, 256, 256) crop, card equal to CPU; a budget
    of ``SHARD_BUDGET_S``. The detect steps raise the shard capacity
    (``SHARD_PROFILE``);
-18. a JSON line of per-kernel results (launches summed over the paths,
+18. the library entry (:func:`library_path`): phase 4's volume file
+   through the port's library as a caller of the reference's library
+   drives it: ``cli.RunConfig(filenames=[path],
+   proc=cli.ProcessTypes.DETECT)`` with
+   ``cli.setup_roi_profiles(["lightsheet"])``, ``cli.setup_image``, then
+   ``cli.process_proc_tasks`` on the card; its rows equal to phase 4's,
+   its K1, K3 and K4 launches (the ``library`` path) equal to phase 4's,
+   the detect bars, its wall within ``LIBRARY_BUDGET_S``;
+19. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --study-tables`` runs phase 15 alone, on the
@@ -599,6 +607,8 @@ SHARD_PATCHES = 512
 SHARD_SWEEP = (0.05, 0.1, 0.15, 0.2)
 #: phase 17's time budget (s), from before (a) to after (e)'s checks
 SHARD_BUDGET_S = 90.0
+#: phase 18's time budget (s): the library entry on the slice's file
+LIBRARY_BUDGET_S = 15.0
 
 
 def fail(msg: str) -> None:
@@ -4937,6 +4947,55 @@ def sharded_path(torch, vol, centres, grid_roi, grid_sigmas, reg, ccf25,
              f"{SHARD_BUDGET_S} s budget")
 
 
+def library_path(torch, path, centres, fp32, launches):
+    """Phase 18: phase 4's volume file (``path``) detected through the
+    library entry, as a caller of the reference's library builds the run
+    config; rows and K1, K3 and K4 launches (``library``) equal to phase
+    4's (``fp32``, ``launches["detect"]``), the detect bars, its wall."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.io import cli
+
+    t_phase = time.perf_counter()
+    rc = cli.RunConfig(filenames=[path], proc=cli.ProcessTypes.DETECT)
+    rc.roi_profiles = cli.setup_roi_profiles(["lightsheet"])
+    rc.roi_profile = rc.roi_profiles[0]
+    img5d = cli.setup_image(rc)
+    if rc.device != "cuda" or tuple(img5d.img.shape) != SLICE_SHAPE:
+        fail(f"library: run config on {rc.device}, image "
+             f"{img5d.img.shape}")
+    torch.cuda.synchronize()
+    dev_mod.reset_launches()
+    t0 = time.perf_counter()
+    blobs = cli.process_proc_tasks(rc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["library"] = dict(dev_mod.LAUNCHES)
+    print(f"library: launches {launches['library']}", flush=True)
+    det = blobs.blobs
+    if det is None or not np.array_equal(det, fp32["blobs"]):
+        fail(f"library: {None if det is None else det.shape} rows, not "
+             f"phase 4's {fp32['blobs'].shape}")
+    for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        n, want = launches["library"][name], launches["detect"][name]
+        if n <= 0 or n != want:
+            fail(f"library: kernel {name} launched {n} times, phase 4 "
+                 f"{want}")
+    sens, ppv = testing.sens_ppv(
+        det, centres, SLICE_SHAPE, VERIFY_TILE, VERIFY_TOL)
+    if not (sens > 0.85 and ppv > 0.7):
+        fail(f"library: detection below the bars: sens {sens} ppv {ppv}")
+    wall_phase = time.perf_counter() - t_phase
+    print(f"library: {len(det)} blobs, equal to phase 4's; sensitivity "
+          f"{sens:.4f} PPV {ppv:.4f}; process_proc_tasks {wall:.3f} s = "
+          f"{np.prod(SLICE_SHAPE) / 1e6 / wall:.2f} Mvox/s (phase 4's CLI "
+          f"{fp32['mvox']:.2f}); phase 18 wall {wall_phase:.1f} s",
+          flush=True)
+    if wall_phase > LIBRARY_BUDGET_S:
+        fail(f"library: phase 18 took {wall_phase:.1f} s, past its "
+             f"{LIBRARY_BUDGET_S} s budget")
+
+
 def phase_alone(run) -> None:
     """One phase alone (``--study-tables``, ``--gui``), on the seed-0
     pair's labels at 25 um and the detect slice's volume:
@@ -5124,24 +5183,25 @@ def main() -> None:
     launches = {}
     work = os.path.join(ROOT, "build", "smoke")
     os.makedirs(work, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=work) as tmp:
-        path = os.path.join(tmp, "nuclei.npy")
-        np.save(path, vol)  # no metadata: the CLI takes 1 um spacing
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        dev_mod.reset_launches()
-        t0 = time.perf_counter()
-        blobs = cli.main(["--img", path, "--proc", "detect",
-                          "--roi_profile", "lightsheet", "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches["detect"] = dict(dev_mod.LAUNCHES)
-        peak_mem = torch.cuda.max_memory_allocated()
-        with np.load(os.path.join(tmp, "nuclei_blobs.npz")) as archive:
-            saved = archive["segments"]
-        with open(os.path.join(
-                tmp, "nuclei_stack_detection_times.csv")) as f:
-            times = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
+    # the volume's file stays for phase 18
+    slice_work = tempfile.TemporaryDirectory(dir=work)
+    tmp = slice_work.name
+    slice_path = os.path.join(tmp, "nuclei.npy")
+    np.save(slice_path, vol)  # no metadata: the CLI takes 1 um spacing
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dev_mod.reset_launches()
+    t0 = time.perf_counter()
+    blobs = cli.main(["--img", slice_path, "--proc", "detect",
+                      "--roi_profile", "lightsheet", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["detect"] = dict(dev_mod.LAUNCHES)
+    peak_mem = torch.cuda.max_memory_allocated()
+    with np.load(os.path.join(tmp, "nuclei_blobs.npz")) as archive:
+        saved = archive["segments"]
+    with open(os.path.join(tmp, "nuclei_stack_detection_times.csv")) as f:
+        times = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
     print(f"slice: launches {launches['detect']}", flush=True)
     if dev_mod.TF32_SCOPES["band_products"]:
         fail("slice: the float32 route ran band products with TF32")
@@ -5290,6 +5350,11 @@ def main() -> None:
         sharded_path(torch, vol, centres, grid_roi, grid_sigmas, reg_coarse,
                      ccf25, tmp, launches)
     del vol, ccf25, grid_roi
+    # 18. the library entry: phase 4's file through cli.setup_image and
+    # cli.process_proc_tasks, as a caller of the reference's library
+    torch.cuda.empty_cache()
+    library_path(torch, slice_path, centres, fp32, launches)
+    slice_work.cleanup()
 
     for name in results:
         n = sum(path[name] for path in launches.values())

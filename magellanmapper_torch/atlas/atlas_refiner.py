@@ -32,6 +32,9 @@ from magellanmapper_torch.ops import resize as resize_ops
 
 _logger = logging.getLogger(__name__)
 
+#: the intensity images' DSC (``atlas.metrics``), under the reference's name
+measure_overlap = reg_metrics.measure_overlap
+
 #: smoothing metric columns (the reference's ``config.SmoothingMetrics``)
 _SMOOTHING_COLS = ("Filter_size", "Compaction", "Displacement",
                    "Smoothing_quality", "Compactness")

@@ -178,14 +178,29 @@ def apply_modality_gap(
 
 
 def build_pair(shape: Sequence[int] = (160, 240, 200), seed: int = 0,
-               region_contrast: float = 0.6, device="cuda",
+               region_contrast: float = 0.6,
+               cache_dir: Optional[str] = None, device="cuda",
                **gt_kwargs) -> Dict:
     """Full gauntlet pair: ``moving`` (clean atlas intensity), ``labels``
     (its annotation), ``fixed`` (the ground-truth warp of the atlas with
     the modality gap), ``labels_fixed_gt`` (the annotation through the
     same warp at order 0, the label-transfer oracle) and ``gt`` (the
-    transform, numpy). The two warps run on ``device``."""
+    transform, numpy). The two warps run on ``device``.
+
+    ``cache_dir`` keeps the built arrays in an uncompressed ``.npz``
+    there, in the reference's format, keyed by every argument and the
+    device's type, and reads them back instead of building them again."""
     dev = device_mod.resolve(device)
+    cache_path = None
+    if cache_dir is not None:
+        key = "_".join(
+            [str(int(s)) for s in shape]
+            + [f"s{seed}", f"rc{region_contrast}"]
+            + [f"{k}={v}" for k, v in sorted(gt_kwargs.items())]
+            + [dev.type])
+        cache_path = os.path.join(cache_dir, f"gauntlet_{key}.npz")
+        if os.path.exists(cache_path):
+            return _read_pair(cache_path)
     moving, labels = make_anatomy(
         shape, seed=seed, region_contrast=region_contrast)
     gt = make_ground_truth(shape, seed=seed + 1, device=dev, **gt_kwargs)
@@ -195,18 +210,44 @@ def build_pair(shape: Sequence[int] = (160, 240, 200), seed: int = 0,
     warped = warp.transform_img(moving, order=1)
     labels_fixed_gt = warp.transform_img(labels, order=0).astype(np.int32)
     fixed = apply_modality_gap(warped, seed=seed + 2)
+    if cache_path is not None:
+        os.makedirs(cache_dir, exist_ok=True)
+        np.savez(
+            cache_path, moving=moving, labels=labels.astype(np.int16),
+            fixed=fixed, labels_fixed_gt=labels_fixed_gt.astype(np.int16),
+            grid=gt["grid"], spacing=np.asarray(gt["spacing"], np.float64),
+            aff_W=gt["affine"]["W"], aff_t=gt["affine"]["t"],
+            disp_stats=np.asarray([gt["disp_stats"][k] for k in (
+                "mean_vox", "p95_vox", "max_vox")], np.float64))
     return {"moving": moving, "labels": labels, "fixed": fixed,
             "labels_fixed_gt": labels_fixed_gt, "gt": gt}
 
 
+def _read_pair(cache_path: str) -> Dict:
+    """A pair that :func:`build_pair` cached at ``cache_path``."""
+    with np.load(cache_path) as z:
+        gt = {"grid": z["grid"],
+              "spacing": tuple(float(v) for v in z["spacing"]),
+              "affine": {"W": z["aff_W"], "t": z["aff_t"]},
+              "disp_stats": {k: float(v) for k, v in zip(
+                  ("mean_vox", "p95_vox", "max_vox"), z["disp_stats"])}}
+        return {"moving": z["moving"],
+                "labels": z["labels"].astype(np.int32),
+                "fixed": z["fixed"],
+                "labels_fixed_gt": z["labels_fixed_gt"].astype(np.int32),
+                "gt": gt}
+
+
 def build_truncated_pair(
         shape: Sequence[int] = (160, 240, 200), seed: int = 0,
-        keep_frac: float = 0.7, device="cuda", **gt_kwargs) -> Dict:
+        keep_frac: float = 0.7, cache_dir: Optional[str] = None,
+        device="cuda", **gt_kwargs) -> Dict:
     """Partial-overlap case: the specimen's posterior ``1 - keep_frac`` of
     z zeroed (and its annotation), a ``fixed_mask`` over the kept part,
     and ``gated_labels``, the regions the truncation kept at least half
-    of."""
-    pair = build_pair(shape, seed=seed, device=device, **gt_kwargs)
+    of. ``cache_dir`` caches the full pair (:func:`build_pair`)."""
+    pair = build_pair(shape, seed=seed, cache_dir=cache_dir, device=device,
+                      **gt_kwargs)
     shape = pair["fixed"].shape
     z_cut = int(shape[0] * keep_frac)
     fixed = np.array(pair["fixed"])
@@ -352,6 +393,7 @@ def run_gauntlet_suite(
         shape: Sequence[int] = (160, 240, 200),
         seeds: Sequence[int] = (0, 10),
         truncated_seed: Optional[int] = 0,
+        cache_dir: Optional[str] = None,
         iters_scale: float = 1.0, device="cuda", **gt_kwargs) -> Dict:
     """Multi-pair gauntlet (``gauntlet.py:453-478``): one pair
     ``seed{s}`` for each seed plus the truncated-specimen partial-overlap
@@ -359,16 +401,16 @@ def run_gauntlet_suite(
     and scored by :func:`run_gauntlet`, so the gates are not tuned to one
     fixture. The suite passes only when every pair passes every gate.
     Returns ``pairs`` (each pair's scores by name), ``passes`` and
-    ``wall_s`` (the registrations' walls summed). The reference's
-    ``cache_dir`` is not taken: the port's pairs are built anew (ROADMAP
-    section 3)."""
+    ``wall_s`` (the registrations' walls summed). ``cache_dir`` caches
+    the pairs (:func:`build_pair`)."""
     builds = [(f"seed{s}", build_pair, s) for s in seeds]
     if truncated_seed is not None:
         builds.append((f"trunc{truncated_seed}", build_truncated_pair,
                        truncated_seed))
     results = {}
     for name, build, seed in builds:
-        pair = build(shape, seed=seed, device=device, **gt_kwargs)
+        pair = build(shape, seed=seed, cache_dir=cache_dir, device=device,
+                     **gt_kwargs)
         results[name] = run_gauntlet(pair, iters_scale=iters_scale,
                                      device=device)
     return {

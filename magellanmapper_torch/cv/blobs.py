@@ -62,10 +62,12 @@ class Blobs:
 
     def __init__(
             self, blobs: Optional[np.ndarray] = None,
+            blob_matches=None,
             colocalizations: Optional[np.ndarray] = None,
             path: Optional[str] = None,
             cols: Optional[Sequence[str]] = None):
         self.blobs = blobs
+        self.blob_matches = blob_matches
         self.colocalizations = colocalizations
         self.path = path
         self.ver = self.BLOBS_NP_VER
@@ -171,6 +173,15 @@ class Blobs:
         if channel is not None:
             self.set_blob_channel(self.blobs, channel)
         return self.blobs
+
+    def show_blobs_per_channel(self) -> dict:
+        """The number of blobs in each channel, by channel ({} without
+        blobs)."""
+        if self.blobs is None:
+            return {}
+        chls, counts = np.unique(
+            self.get_blobs_channel(self.blobs), return_counts=True)
+        return dict(zip(chls.tolist(), counts.tolist()))
 
     # -- archive output ------------------------------------------------------
 

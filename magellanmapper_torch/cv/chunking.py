@@ -1,18 +1,19 @@
 """Block geometry for whole-image processing.
 
-Copy of ``magellanmapper_tpu/cv/chunking.py`` without its shared-array
-containers: the overlap-halo block decomposition of a stack
-(``stack_splitter``), the merge of per-block blob arrays
-(``merge_blobs``) and of per-block images (``merge_split_stack``,
-``merge_split_stack2``, ``get_split_stack_total_shape``), and the
-multiprocessing helpers (``get_mp_pool``, ``set_mp_start_method``,
-``is_fork``, ``init_shared_container``) for host pipelines that use a
-process pool.
+Copy of ``magellanmapper_tpu/cv/chunking.py``: the overlap-halo block
+decomposition of a stack (``stack_splitter``), the merge of per-block
+blob arrays (``merge_blobs``) and of per-block images
+(``merge_split_stack``, ``merge_split_stack2``,
+``get_split_stack_total_shape``), and the multiprocessing helpers
+(``get_mp_pool``, ``set_mp_start_method``, ``is_fork``,
+``init_shared_container``, ``SharedArrsContainer``) for host pipelines
+that use a process pool.
 """
 
 from __future__ import annotations
 
 import multiprocessing as _mp
+from collections import namedtuple
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -193,3 +194,42 @@ def init_shared_container(container) -> None:
     the worker (reference ``chunking.init_shared_container``)."""
     global _SHARED_CONTAINER
     _SHARED_CONTAINER = container
+
+
+class SharedArr(namedtuple("SharedArr", ["arr", "shape", "dtype"])):
+    """A raw shared-memory buffer with the shape and dtype of its array."""
+    __slots__ = ()
+
+
+class SharedArrsContainer:
+    """Arrays shared with pool workers, by key. A forked worker inherits
+    ndarrays as they are; ``to_shared`` copies one into raw shared memory
+    for a spawned worker, and ``from_shared`` views it again. The arrays
+    are kept on the class, as in the reference."""
+
+    shared_arrs: dict = {}
+
+    @classmethod
+    def set_data(cls, **arrays) -> None:
+        """Replace the shared arrays with ``arrays``."""
+        cls.shared_arrs = dict(arrays)
+
+    @classmethod
+    def to_shared(cls, key: str, arr: np.ndarray) -> SharedArr:
+        """Copy ``arr`` into raw shared memory under ``key``."""
+        raw = _mp.RawArray("b", arr.nbytes)
+        view = np.frombuffer(raw, dtype=arr.dtype).reshape(arr.shape)
+        view[...] = arr
+        shared = SharedArr(raw, arr.shape, arr.dtype)
+        cls.shared_arrs[key] = shared
+        return shared
+
+    @classmethod
+    def from_shared(cls, key: str) -> np.ndarray:
+        """The array under ``key``: a view of its shared memory, or the
+        array itself when it was set as an ndarray."""
+        shared = cls.shared_arrs[key]
+        if isinstance(shared, SharedArr):
+            return np.frombuffer(
+                shared.arr, dtype=shared.dtype).reshape(shared.shape)
+        return shared

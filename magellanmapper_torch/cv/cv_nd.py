@@ -40,6 +40,10 @@ from magellanmapper_torch.ops import filters, preproc
 from magellanmapper_torch.ops import resize as resize_ops
 from magellanmapper_torch.utils import libmag
 
+#: the resampling helpers of ``ops.resize``, under the reference's names
+calc_isotropic_factor = resize_ops.calc_isotropic_factor
+make_isotropic = resize_ops.make_isotropic
+
 
 def _jfa_offsets(ndim: int) -> np.ndarray:
     """All nonzero {-1,0,1}^ndim neighbor directions."""

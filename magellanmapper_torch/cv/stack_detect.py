@@ -668,14 +668,16 @@ class StackTimes(Enum):
 class StackDetector:
     """Class façade over :func:`detect_blobs_blocks` (reference
     ``StackDetector``): carries the configuration and the device (the
-    card unless ``"cpu"`` is asked for)."""
+    card unless ``"cpu"`` is asked for). ``coloc`` is kept and not read,
+    as in the reference."""
 
     def __init__(self, img, settings, resolutions, channel=None,
-                 device: Union[str, torch.device] = "cuda"):
+                 coloc=False, device: Union[str, torch.device] = "cuda"):
         self.img = img
         self.settings = settings
         self.resolutions = resolutions
         self.channel = channel
+        self.coloc = coloc
         self.device = device
 
     def detect_stack(self, preprocess: bool = True):

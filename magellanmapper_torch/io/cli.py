@@ -159,6 +159,14 @@ task is rejected with a message that names it.
 ``--device`` picks where the device step runs: ``cuda`` (the default)
 fails without a card, and the CPU, which runs the kernels' plain
 versions, is used only when ``--device cpu`` asks for it.
+
+As a library, as the reference's: build ``rc = RunConfig(filenames=[path],
+proc=ProcessTypes.DETECT)`` (``device`` "cuda" unless "cpu" is given),
+set ``rc.roi_profiles = setup_roi_profiles(["lightsheet"])`` and
+``rc.roi_profile``, then ``setup_image(rc)`` loads the image and
+``process_proc_tasks(rc)`` runs the task as :func:`main` does;
+``setup_dbs``, ``setup_atlas_profiles``, ``setup_grid_search_profiles``
+and ``setup_labels`` open the rest.
 """
 
 from __future__ import annotations
@@ -190,7 +198,8 @@ from magellanmapper_torch.parallel import comm, halo
 from magellanmapper_torch.parallel import mesh as mesh_mod
 from magellanmapper_torch.plot import plot_support
 from magellanmapper_torch.settings.atlas_prof import AtlasProfile
-from magellanmapper_torch.settings.config import RegisterTypes
+from magellanmapper_torch.settings.config import ProcessTypes, RegisterTypes
+from magellanmapper_torch.settings.grid_search_prof import GridSearchProfile
 from magellanmapper_torch.settings.roi_prof import ROIProfile
 from magellanmapper_torch.stats import atlas_stats, clustering, mlearn, vols
 from magellanmapper_torch.utils import libmag
@@ -198,14 +207,15 @@ from magellanmapper_torch.utils import libmag
 _logger = logging.getLogger(__name__)
 
 #: ``--proc`` tasks that run on the host: import, load and export
-HOST_TASKS = ("import_only", "load", "export_tif", "export_raw",
-              "export_blobs", "extract", "export_rois", "export_planes",
-              "export_planes_channels", "animated")
-#: ``--proc`` tasks the port runs
-TASKS = ("detect", "detect_coloc", "coloc_match", "classify", "transform",
-         "preprocess") + HOST_TASKS
+HOST_TASKS = (
+    ProcessTypes.IMPORT_ONLY, ProcessTypes.LOAD, ProcessTypes.EXPORT_TIF,
+    ProcessTypes.EXPORT_RAW, ProcessTypes.EXPORT_BLOBS, ProcessTypes.EXTRACT,
+    ProcessTypes.EXPORT_ROIS, ProcessTypes.EXPORT_PLANES,
+    ProcessTypes.EXPORT_PLANES_CHANNELS, ProcessTypes.ANIMATED)
+#: ``--proc`` tasks the port runs: all of the reference's
+TASKS = tuple(ProcessTypes)
 #: the tasks that detect, which take ``--truth_db`` and ``--save_subimg``
-DETECT_TASKS = ("detect", "detect_coloc")
+DETECT_TASKS = (ProcessTypes.DETECT, ProcessTypes.DETECT_COLOC)
 
 
 #: the ``--register`` tasks that compare, merge or plot registered
@@ -232,7 +242,8 @@ REGISTER_TASKS = tuple(RegisterTypes)
 #: the tasks that register an atlas directory onto a sample
 PAIR_TASKS = (RegisterTypes.SINGLE, RegisterTypes.REGISTER_REV)
 #: what the port runs, for the messages that reject the rest
-SUPPORTED = ("--proc " + "/".join(TASKS) + ", --plot_2d, --df, "
+SUPPORTED = ("--proc " + "/".join(t.name.lower() for t in TASKS)
+             + ", --plot_2d, --df, "
              "--grid_search and every --register task")
 #: flags of the reference that the port rejects by name, with the ROADMAP
 #: item that ports them (none is left)
@@ -242,15 +253,16 @@ NOT_PORTED: Dict[str, str] = {}
 @dataclass
 class RunConfig:
     """Parsed command line: the fields of the reference's ``RunConfig``
-    (``magellanmapper_tpu/io/cli.py:32``) that the port's tasks read, with
-    the same values for the same arguments; ``proc`` is the task's name
-    (the reference keeps a ``ProcessTypes`` member)."""
+    (``magellanmapper_tpu/io/cli.py:32``), with the same values for the
+    same arguments, and ``device``. ``proc`` is a :class:`ProcessTypes`
+    member; a run config built by hand runs through
+    :func:`process_proc_tasks` as a parsed one does."""
     filenames: List[str] = field(default_factory=list)
     channel: Optional[List[int]] = None
     series: int = 0
     subimg_offsets: Optional[List[List[int]]] = None
     subimg_sizes: Optional[List[List[int]]] = None
-    proc: Optional[str] = None
+    proc: Optional[ProcessTypes] = None
     proc_args: Dict[str, str] = field(default_factory=dict)
     resolutions: Optional[List[float]] = None
     roi_profile: ROIProfile = field(default_factory=ROIProfile)
@@ -272,6 +284,7 @@ class RunConfig:
     savefig: Optional[str] = None
     plot_labels: Dict[str, str] = field(default_factory=dict)
     plot_2d_task: Optional[str] = None
+    plot_2d_task_args: Optional[List[str]] = None
     df_task: Optional[List[str]] = None
     groups: Optional[List[str]] = None
     size: Optional[List[int]] = None
@@ -297,6 +310,13 @@ class RunConfig:
     notify_msg: Optional[str] = None
     notify_attach: Optional[str] = None
     device: str = "cuda"
+
+    def get_roi_profile(self, channel: int) -> ROIProfile:
+        """The ROI profile of ``channel``: its own from ``roi_profiles``,
+        else ``roi_profile``."""
+        if self.roi_profiles and channel < len(self.roi_profiles):
+            return self.roi_profiles[channel]
+        return self.roi_profile
 
 
 def args_to_dict(args: Optional[Sequence[str]]) -> Dict[str, str]:
@@ -509,15 +529,11 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
     if "resolutions" in meta:
         rc.resolutions = [float(v) for v in meta["resolutions"].split(",")]
     # profiles: comma-separated modifier chains, one per channel
-    for prof_names in args.roi_profile or ():
-        prof = ROIProfile()
-        prof.add_profiles(prof_names)
-        rc.roi_profiles.append(prof)
-    if rc.roi_profiles:
+    if args.roi_profile:
+        rc.roi_profiles = setup_roi_profiles(args.roi_profile)
         rc.roi_profile = rc.roi_profiles[0]
     if args.atlas_profile:
-        rc.atlas_profile = AtlasProfile()
-        rc.atlas_profile.add_profiles(args.atlas_profile)
+        rc.atlas_profile = setup_atlas_profiles(args.atlas_profile)
     rc.reg_suffixes = args_to_dict(args.reg_suffixes)
     rc.transform = args_to_dict(args.transform)
     rc.labels = args_to_dict(args.labels)
@@ -526,7 +542,7 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
     rc.classifier = args.classifier
     rc.save_subimg = args.save_subimg
     if args.proc:
-        rc.proc = args.proc[0].lower()
+        rc.proc = ProcessTypes.__members__.get(args.proc[0].upper())
         rc.proc_args = args_to_dict(args.proc[1:])
     if args.truth_db:
         rc.truth_db = args.truth_db[-1]
@@ -554,7 +570,7 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
         df_task_type(rc.df_task[0])
     else:
         task = "--grid_search" if rc.grid_search else (
-            f"--proc {rc.proc}" if rc.proc else None)
+            f"--proc {args.proc[0].lower()}" if args.proc else None)
         if not rc.grid_search and rc.proc not in TASKS:
             raise SystemExit(
                 f"magellanmapper_torch supports {SUPPORTED} (got {task})")
@@ -562,7 +578,7 @@ def process_cli_args(argv: Optional[Sequence[str]] = None) -> RunConfig:
                and rc.df_task is None and not rc.grid_search)
     detects = by_proc and rc.proc in DETECT_TASKS
     if rc.truth_db and not (rc.grid_search or detects or (
-            by_proc and rc.proc == "export_rois")):
+            by_proc and rc.proc is ProcessTypes.EXPORT_ROIS)):
         raise SystemExit(
             "magellanmapper_torch takes --truth_db only with --grid_search "
             "or --proc detect/detect_coloc/export_rois")
@@ -1210,20 +1226,20 @@ def process_host_task(rc: RunConfig):
     ``export_rois`` (the ROIs' table), ``export_planes[_channels]`` (the
     planes' paths) and ``animated`` (the animation's path)."""
     path = rc.filenames[0]
-    if rc.proc == "import_only":
+    if rc.proc is ProcessTypes.IMPORT_ONLY:
         ext = os.path.splitext(path)[1].lower()
         fn = importer.VENDOR_IMPORTERS.get(ext, importer.import_tiff)
         kwargs = {"series": rc.series} if ext == ".lif" else {}
         return fn(path, out_path=rc.prefix or path,
                   resolutions=rc.resolutions, **kwargs)
-    if rc.proc == "export_blobs":
+    if rc.proc is ProcessTypes.EXPORT_BLOBS:
         return export_rois.blobs_to_csv(rc)
     img5d = load_image(rc)
-    if rc.proc == "load":
+    if rc.proc is ProcessTypes.LOAD:
         return img5d
     base = os.path.splitext(rc.prefix or path)[0]
     channel = rc.channel[0] if rc.channel else None
-    if rc.proc == "extract":
+    if rc.proc is ProcessTypes.EXTRACT:
         z = rc.offset[2] if rc.offset else 0
         plane = plot_support.extract_planes(
             np.asarray(img5d.img), z, rc.plane or "xy")[0]
@@ -1231,7 +1247,7 @@ def process_host_task(rc: RunConfig):
         np.save(out, plane)
         _logger.info("extracted plane -> %s %s", out, plane.shape)
         return plane
-    if rc.proc == "export_rois":
+    if rc.proc is ProcessTypes.EXPORT_ROIS:
         db = sqlite.load_db(rc.truth_db or sqlite.DB_NAME)
         try:
             vol = img5d.img[0] if img5d.img.ndim >= 4 else img5d.img
@@ -1241,7 +1257,7 @@ def process_host_task(rc: RunConfig):
             db.close()
         _logger.info("exported %d ROIs to %s_rois", len(df), base)
         return df
-    if rc.proc == "animated":
+    if rc.proc is ProcessTypes.ANIMATED:
         vol = np.asarray(img5d.img)
         if rc.slice_vals:
             sl = slice(*rc.slice_vals)
@@ -1249,13 +1265,14 @@ def process_host_task(rc: RunConfig):
         fps = max(1, round(1000 / rc.delay)) if rc.delay else 10
         return export_stack.animate_imgs(vol, f"{base}.gif", fps=fps,
                                          channel=channel)
-    if rc.proc in ("export_planes", "export_planes_channels"):
+    if rc.proc in (ProcessTypes.EXPORT_PLANES,
+                   ProcessTypes.EXPORT_PLANES_CHANNELS):
         return export_stack.export_planes(
             np.asarray(img5d.img), f"{base}_planes",
             ext=rc.savefig or "png", channel=channel,
-            separate_channels=rc.proc == "export_planes_channels")
+            separate_channels=rc.proc is ProcessTypes.EXPORT_PLANES_CHANNELS)
     out = rc.prefix or os.path.splitext(path)[0]
-    if rc.proc == "export_tif":
+    if rc.proc is ProcessTypes.EXPORT_TIF:
         out += ".tif"
         tiff.write_tiff(out, np.asarray(img5d.img[0]))
     else:
@@ -1271,22 +1288,25 @@ def process_file(rc: RunConfig, device):
     (the classified blobs), ``transform`` (the output image's path) and
     ``preprocess`` (the processed image)."""
     path = rc.filenames[0]
-    if rc.proc == "transform":
+    if rc.proc is ProcessTypes.TRANSFORM:
         rescale = rc.transform.get("rescale")
         return transformer.transpose_img(
             path, plane=rc.plane,
             rescale=float(rescale) if rescale else None,
             mesh=rank_mesh(rc), device=device)
-    if rc.proc == "preprocess":
+    if rc.proc is ProcessTypes.PREPROCESS:
         img5d = load_image(rc)
         return transformer.preprocess_img(
             np.asarray(img5d.img), list(rc.proc_args),
             out_path=rc.prefix or path, device=device)
-    if rc.proc == "coloc_match":
+    if rc.proc is ProcessTypes.COLOC_MATCH:
         return coloc_match(rc)
-    if rc.proc == "classify":
+    if rc.proc is ProcessTypes.CLASSIFY:
         return classify(rc, device)
-    return detect(rc, device, coloc=rc.proc == "detect_coloc")
+    if rc.proc in DETECT_TASKS:
+        return detect(rc, device,
+                      coloc=rc.proc is ProcessTypes.DETECT_COLOC)
+    raise SystemExit(f"--proc takes a ProcessTypes member, not {rc.proc!r}")
 
 
 def main(argv: Optional[Sequence[str]] = None
@@ -1324,9 +1344,12 @@ def process_tasks(rc: RunConfig):
     if rc.register_type is None and rc.df_task:
         _logger.info("--df %s on the host", rc.df_task[0])
         return df_task(rc)
-    if rc.register_type is None and not rc.grid_search \
-            and rc.proc in HOST_TASKS:
-        _logger.info("--proc %s on the host", rc.proc)
+    by_proc = rc.register_type is None and not rc.grid_search
+    if by_proc and rc.proc is None:
+        _logger.info("no task specified; see --proc / --register")
+        return None
+    if by_proc and rc.proc in HOST_TASKS:
+        _logger.info("%s on the host", rc.proc)
         return process_host_task(rc)
     device = device_mod.resolve(rc.device)
     if rc.register_type is not None:
@@ -1336,8 +1359,73 @@ def process_tasks(rc: RunConfig):
     if rc.grid_search:
         _logger.info("grid search %s on %s", rc.grid_search, device)
         return mlearn.grid_search_from_cli(rc, device)
-    _logger.info("--proc %s on %s", rc.proc, device)
+    _logger.info("%s on %s", rc.proc, device)
     return process_file(rc, device)
+
+
+#: the reference's name of :func:`process_tasks`
+process_proc_tasks = process_tasks
+
+
+def setup_image(rc: RunConfig) -> np_io.Image5d:
+    """The main image of a run config (:func:`load_image`)."""
+    return load_image(rc)
+
+
+def setup_dbs(rc: RunConfig):
+    """The main database (``rc.db_path``, else ``magmap.db``) and the
+    truth database of ``rc.truth_db`` (None without one), opened."""
+    db = sqlite.load_db(rc.db_path or sqlite.DB_NAME)
+    truth = sqlite.load_truth_db(rc.truth_db) if rc.truth_db else None
+    return db, truth
+
+
+def _with_profiles(prof, names: Optional[str]):
+    prof.add_profiles(names)
+    return prof
+
+
+def setup_roi_profiles(names) -> List[ROIProfile]:
+    """One ROI profile for each name (a comma-separated modifier chain;
+    ``"default"``, or no names, the defaults)."""
+    return [_with_profiles(ROIProfile(), name)
+            for name in names or ("default",)]
+
+
+def setup_atlas_profiles(name: Optional[str] = None) -> AtlasProfile:
+    """The atlas profile of a modifier chain (the defaults without one)."""
+    return _with_profiles(AtlasProfile(), name)
+
+
+def setup_grid_search_profiles(
+        name: Optional[str] = None) -> GridSearchProfile:
+    """The grid-search profile of a modifier chain (empty without one)."""
+    return _with_profiles(GridSearchProfile(), name)
+
+
+def update_profiles(rc: RunConfig) -> RunConfig:
+    """Rebuild the run config's profiles from their names. ``RunConfig``
+    keeps no names, so this resets ``roi_profiles`` to one default
+    profile and ``atlas_profile`` to the defaults, as the reference does
+    (ROADMAP section 3, reference defects kept for parity)."""
+    rc.roi_profiles = setup_roi_profiles(
+        getattr(rc, "roi_profile_names", None))
+    rc.atlas_profile = setup_atlas_profiles(
+        getattr(rc, "atlas_profile_name", None))
+    return rc
+
+
+def setup_labels(labels_path: Optional[str], level=None):
+    """The loaded ontology of ``labels_path`` (None without a path);
+    ``level`` is taken and not read, as in the reference."""
+    if not labels_path:
+        return None
+    return ontology.LabelsRef(labels_path).load()
+
+
+def shutdown() -> None:
+    """Flush and close the logging handlers."""
+    logging.shutdown()
 
 
 if __name__ == "__main__":

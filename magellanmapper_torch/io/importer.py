@@ -13,7 +13,9 @@ The vendor formats import through the port's copies of the reference's
 readers: :func:`import_czi` and :func:`import_lif` (``czi_lif``),
 :func:`import_nd2` (``nd2`` with ``jp2k``), :func:`import_oib` and
 :func:`import_oif` (``oib``) and :func:`import_ims` (``hdf5`` with
-``hdf5_native``), with the reference's signatures.
+``hdf5_native``), with the reference's signatures. Formats that need
+Bio-Formats go through the Java gate (:func:`start_jvm`), which raises
+``ImportError`` where javabridge is not installed, as the reference's.
 """
 
 from __future__ import annotations
@@ -440,3 +442,46 @@ def assign_metadata(img5d, md: Dict) -> None:
                 "near_max"):
         if key in md and md[key] is not None:
             setattr(img5d, key, md[key])
+
+
+def is_javabridge_loaded() -> bool:
+    """Whether the Java bridge (javabridge) imports."""
+    try:
+        import javabridge  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def start_jvm(heap_size: str = "8G") -> None:
+    """Start the Bio-Formats JVM; raises ``ImportError`` with the
+    reference's guidance when the Java stack is absent."""
+    if not is_javabridge_loaded():
+        raise ImportError(
+            "javabridge/python-bioformats are required for this format; "
+            "CZI/LIF import natively via io.czi_lif (import_czi/"
+            "import_lif), or import TIFF/NPY/raw, or install the Java "
+            "stack")
+    import javabridge
+    import bioformats
+    javabridge.start_vm(class_path=bioformats.JARS,
+                        max_heap_size=heap_size)
+
+
+def stop_jvm() -> None:
+    """Stop the JVM when the Java bridge is there."""
+    if is_javabridge_loaded():
+        import javabridge
+        javabridge.kill_vm()
+
+
+def parse_ome(filename: str):
+    """OME metadata through Bio-Formats: needs the Java stack
+    (:func:`start_jvm` raises without it)."""
+    start_jvm()
+
+
+def parse_ome_raw(filename: str):
+    """OME-XML through Bio-Formats: needs the Java stack
+    (:func:`start_jvm` raises without it)."""
+    start_jvm()

@@ -17,7 +17,7 @@ Sphere-overlap pruning is kernel K3
 dispatches a CUDA tensor to its kernel and a CPU tensor to its plain
 version. The reference's ``prune_overlapping_blobs`` and its dispatcher
 ``prune_overlapping_blobs_auto`` are the one function
-``prune_overlapping_blobs`` here.
+``prune_overlapping_blobs`` here, under both names.
 """
 
 from __future__ import annotations
@@ -37,6 +37,9 @@ from magellanmapper_torch.kernels.prune_overlap import (  # noqa: F401
 #: they decide which peaks of a group holding more than 8 are returned
 _GROUP = k2.GROUP
 _ROUNDS = k2.ROUNDS
+
+#: the reference's dispatcher: K3 dispatches by the tensor's device
+prune_overlapping_blobs_auto = prune_overlapping_blobs
 
 Peaks = Tuple[torch.Tensor, torch.Tensor, int]
 

@@ -20,6 +20,20 @@ BLOCK_SIZES = (
     "isotropic",
 )
 
+#: preprocessing keys applied to each denoise sub-block
+#: (reference ``roi_prof.py:26`` ``BLOB_PREPROCESSING``).
+BLOB_PREPROCESSING = (
+    "clip_vmin",
+    "clip_vmax",
+    "clip_min",
+    "clip_max",
+    "max_thresh_factor",
+    "tot_var_denoise",
+    "unsharp_strength",
+    "erosion_threshold",
+    "adapt_hist_lim",
+)
+
 class ROIProfile(Profile):
     """Detection settings profile (reference ``ROIProfile``)."""
 

@@ -33,6 +33,9 @@ from magellanmapper_torch.settings.roi_prof import ROIProfile
 
 _logger = logging.getLogger(__name__)
 
+#: the score columns of each grid-search row
+GRID_SEARCH_STATS = ("POS", "TP", "FP", "FN", "FDR", "SENS", "PPV")
+
 #: hyperparameter key the batched detection path can sweep on one pyramid
 MULTI_SWEEP_KEY = "detection_threshold"
 
@@ -86,8 +89,7 @@ def grid_search(
         fn = pos - tp
         fdr = fp / n_det if n_det else 0.0
         row = dict(overrides)
-        row.update({"POS": pos, "TP": tp, "FP": fp, "FN": fn,
-                    "FDR": fdr, "SENS": sens, "PPV": ppv})
+        row.update(zip(GRID_SEARCH_STATS, (pos, tp, fp, fn, fdr, sens, ppv)))
         _logger.info("grid combo %s: sens %.3f ppv %.3f", overrides,
                      sens, ppv)
         return row

@@ -328,7 +328,8 @@ def test_register_cli_parses_as_the_reference(argv):
 def test_pipeline_cli_parses_as_the_reference(argv):
     got = cli.process_cli_args(argv + ["--device", "cpu"])
     want = ref_cli.process_cli_args(argv)
-    assert got.proc == (want.proc.name.lower() if want.proc else None)
+    assert got.proc is (cli.ProcessTypes[want.proc.name] if want.proc
+                        else None)
     assert (got.register_type.name if got.register_type else None) == (
         want.register_type.name if want.register_type else None)
     for name in ("filenames", "prefix", "proc_args", "transform", "plane",

@@ -506,7 +506,8 @@ def test_cli_parses_as_the_reference(argv):
         assert getattr(got, name) == getattr(want, name), name
     assert (got.register_type and got.register_type.name) == (
         want.register_type and want.register_type.name)
-    assert got.proc == (want.proc.name.lower() if want.proc else None)
+    assert got.proc is (cli.ProcessTypes[want.proc.name] if want.proc
+                        else None)
     assert dict(got.roi_profile) == dict(want.roi_profile)
     assert [dict(p) for p in got.roi_profiles] == [
         dict(p) for p in want.roi_profiles]

@@ -257,14 +257,36 @@ result, on any fault. Phases:
    ``cli.process_proc_tasks`` on the card; its rows equal to phase 4's,
    its K1, K3 and K4 launches (the ``library`` path) equal to phase 4's,
    the detect bars, its wall within ``LIBRARY_BUDGET_S``;
-19. a JSON line of per-kernel results (launches summed over the paths,
+19. the last bring-up slice (:func:`last_slice`): (a) the slice through
+   ``stack_detect.detect_blobs_blocks(vol, lightsheet, res, None, [nm],
+   True, verify_fn)`` by position, as the reference's parameters bind:
+   at the near-max the path measures, rows equal to phase 4's bit for bit
+   and ``verify_fn``'s sensitivity and PPV (``timing["verify_stats"]``)
+   equal to phase 4's; at half of it, rows that are not phase 4's and
+   equal ``detect_blobs_stack(..., near_max=[nm / 2])``'s; launches of
+   the three runs (``near_max``); a (64, 256, 256) crop at the halved
+   near-max, card equal to CPU; one block's K1, K3 and K4 bit for bit
+   against their plain versions at the halved near-max; (b) ``python -m
+   magellanmapper_torch --img <phase 4's file> --proc detect
+   --roi_profile lightsheet`` in a fresh interpreter (the launcher module
+   as ``-m`` runs it, reporting its launches, ``launcher``, at exit): its
+   archive equal to phase 4's key by key, its launches phase 4's; (c) the
+   five demos of ``examples/torch`` with ``--no-figures`` at their small
+   sizes (launches ``demos``), each held to its gate (detection equal to
+   its run on the CPU, rendering finite frames, registration a higher
+   Dice, the pipeline's stages and region table, every format whose
+   library phase 13 proved or that needs none round-tripping); each
+   sub-phase's wall, Mvox/s where it detects, peak memory, and the
+   phase within ``LAST_SLICE_BUDGET_S``;
+20. a JSON line of per-kernel results (launches summed over the paths,
    and by path), the ``nvidia-smi`` line, and the final JSON line.
 
 ``python3 chip_smoke.py --study-tables`` runs phase 15 alone, on the
 seed-0 pair's labels at 25 um and the detect slice's volume;
 ``python3 chip_smoke.py --gui`` runs phase 16 alone, on the same;
 ``python3 chip_smoke.py --sharded`` runs phase 17 alone, on its own
-fixtures.
+fixtures; ``python3 chip_smoke.py --demos`` runs the five demos alone,
+``demo_registration`` at full size, (160, 240, 200).
 
 ``python3 chip_smoke.py --gauntlet-suite`` runs the reference's
 gauntlet suite alone instead: ``run_gauntlet_suite`` on (160, 240, 200)
@@ -609,6 +631,14 @@ SHARD_SWEEP = (0.05, 0.1, 0.15, 0.2)
 SHARD_BUDGET_S = 90.0
 #: phase 18's time budget (s): the library entry on the slice's file
 LIBRARY_BUDGET_S = 15.0
+#: phase 19's time budget (s): (a) the slice detected three times with a
+#: caller's near-max and ``verify_fn``, a crop card against CPU and one
+#: block's kernels; (b) the launcher in a fresh interpreter; (c) the five
+#: demos at their small sizes
+LAST_SLICE_BUDGET_S = 120.0
+#: the port's demos (``examples/torch``), in the order they run
+DEMOS = ("demo_detection", "demo_render3d", "demo_registration",
+         "demo_pipeline", "demo_formats")
 
 
 def fail(msg: str) -> None:
@@ -677,15 +707,18 @@ def record(results, name, *, ms, plain_ms, library_ms, nbytes, ops,
           f"{100 * bound_ms / ms:.1f}% of bound", flush=True)
 
 
-def detect_block(torch, prof, vol, dev):
-    """The detect path's step parameters for ``vol`` and one of its block
-    windows on ``dev``."""
+def detect_block(torch, prof, vol, dev, near_max=None):
+    """The detect path's step parameters for ``vol`` (at ``near_max``, by
+    default the one the path measures) and one of its block windows on
+    ``dev``."""
     from magellanmapper_torch.cv import stack_detect as sd
 
     blocks = sd.setup_blocks(prof, vol.shape, (1.0, 1.0, 1.0))
     block_shape = np.minimum(blocks.max_pixels + blocks.overlap, vol.shape)
+    if near_max is None:
+        near_max = float(np.percentile(vol[::16], 99.5))
     params = sd.step_params(prof, blocks, block_shape, (1.0, 1.0, 1.0),
-                            float(np.percentile(vol[::16], 99.5)))
+                            near_max)
     bz, by, bx = (int(v) for v in block_shape)
     block = torch.from_numpy(np.ascontiguousarray(
         vol[64:64 + bz, 256:256 + by, 256:256 + bx])).to(dev)
@@ -3480,7 +3513,8 @@ def vendor_path(torch, vol, centres, fp32, work, launches):
     source, resolutions 1 um; write and import MB/s), the small JPEG CZI,
     and ``--proc detect`` on the Zstd1 CZI's import (launches of the
     ``vendor`` path; phase 4's bars and its blobs). A form whose system
-    library is absent is named as not run."""
+    library is absent is named as not run. Returns which of libzstd,
+    libjpeg and libhdf5 a form proved."""
     import ctypes.util
 
     from magellanmapper_torch import device as dev_mod
@@ -3562,7 +3596,9 @@ def vendor_path(torch, vol, centres, fp32, work, launches):
         fail(f"vendor detect below the bars: sens {sens} ppv {ppv}")
     print(f"vendor import: phase 13 wall {time.perf_counter() - t_phase:.1f}"
           f" s; not run: {not_run or 'none'}", flush=True)
-    return rates
+    return {"libzstd": "czi_zstd1hilo" in imported,
+            "libjpeg": "czi_jpeg" not in not_run,
+            "libhdf5": "ims" in imported}
 
 
 def profiler_path(torch, vol, work, launches):
@@ -4996,6 +5032,326 @@ def library_path(torch, path, centres, fp32, launches):
              f"{LIBRARY_BUDGET_S} s budget")
 
 
+def near_max_path(torch, vol, centres, fp32, launches):
+    """Phase 19 (a): the slice through ``detect_blobs_blocks`` called by
+    position as the reference's parameters bind, ``(vol, lightsheet, res,
+    None, [nm], True, verify_fn)``: at the near-max the path measures,
+    rows equal to phase 4's (``fp32``) and ``verify_fn``'s sensitivity
+    and PPV equal to phase 4's; at half of it, rows not phase 4's and equal
+    to ``detect_blobs_stack(..., near_max=[nm / 2])``'s; launches of the
+    three runs (``near_max``); a crop at the halved near-max, card equal
+    to CPU; one block's K1, K3 and K4 bit for bit against their plain
+    versions at the halved near-max."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+    from magellanmapper_torch.cv import stack_detect as sd
+
+    prof = sd.roi_profile("lightsheet")
+    res = (1.0, 1.0, 1.0)
+    nm = float(np.percentile(vol[::max(1, SLICE_SHAPE[0] // 16)], 99.5))
+
+    def verify_fn(blobs):
+        return testing.sens_ppv(blobs, centres, SLICE_SHAPE, VERIFY_TILE,
+                                VERIFY_TOL)
+
+    def timed_run(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    dev_mod.reset_launches()
+    (rows, t_meas), wall_meas = timed_run(lambda: sd.detect_blobs_blocks(
+        vol, prof, res, None, [nm], True, verify_fn))
+    (half, t_half), wall_half = timed_run(lambda: sd.detect_blobs_blocks(
+        vol, prof, res, None, [nm / 2], True, verify_fn))
+    (stack, _), wall_stack = timed_run(lambda: sd.detect_blobs_stack(
+        vol, prof, res, near_max=[nm / 2], device="cuda"))
+    launches["near_max"] = dict(dev_mod.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"near_max (a): launches {launches['near_max']}", flush=True)
+    for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        if launches["near_max"][name] <= 0:
+            fail(f"near_max: kernel {name} was not launched")
+    mvox = np.prod(SLICE_SHAPE) / 1e6
+    print(f"near_max (a): near-max {nm} measured, {nm / 2} halved; "
+          f"measured: {len(rows)} blobs, verify_stats "
+          f"{t_meas['verify_stats']}, wall {wall_meas:.3f} s "
+          f"(Total_stack {t_meas['Total_stack']:.3f} s = "
+          f"{mvox / t_meas['Total_stack']:.2f} Mvox/s); halved: "
+          f"{len(half)} blobs, verify_stats {t_half['verify_stats']}, wall "
+          f"{wall_half:.3f} s (Total_stack {t_half['Total_stack']:.3f} s = "
+          f"{mvox / t_half['Total_stack']:.2f} Mvox/s); detect_blobs_stack "
+          f"{wall_stack:.3f} s; peak device memory {peak / 2**20:.1f} MiB",
+          flush=True)
+    if not np.array_equal(rows, fp32["blobs"]):
+        fail(f"near_max: {rows.shape} rows at the measured near-max, not "
+             f"phase 4's {fp32['blobs'].shape}")
+    if tuple(t_meas["verify_stats"]) != (fp32["sens"], fp32["ppv"]):
+        fail(f"near_max: verify_stats {t_meas['verify_stats']}, phase 4 "
+             f"{(fp32['sens'], fp32['ppv'])}")
+    if testing.rows_equal(half, rows):
+        fail("near_max: the halved near-max gave the measured one's rows")
+    if not np.array_equal(half, stack.blobs):
+        fail("near_max: detect_blobs_stack(near_max=...) differs from the "
+             "positional call")
+
+    crop = np.ascontiguousarray(vol[:CROP[0], :CROP[1], :CROP[2]])
+    (on_card, _), t_card = timed_run(lambda: sd.detect_blobs_blocks(
+        crop, prof, res, None, [nm / 2], True, None, "cuda"))
+    (on_cpu, _), t_cpu = timed_run(lambda: sd.detect_blobs_blocks(
+        crop, prof, res, None, [nm / 2], True, None, "cpu"))
+    print(f"near_max (a): crop {CROP} at the halved near-max, "
+          f"{len(on_card)} blobs on the card ({t_card:.2f} s), "
+          f"{len(on_cpu)} on the CPU ({t_cpu:.2f} s)", flush=True)
+    if not testing.rows_equal(on_card, on_cpu):
+        fail("near_max: the crop's blobs on the card differ from the CPU's")
+    block_kernels(torch, prof, vol, nm / 2)
+
+
+def block_kernels(torch, prof, vol, near_max):
+    """One block of the slice at ``near_max``: K4 on its denoise tiles, K1
+    on its LoG cube and K3 on its peaks, each bit for bit against its plain
+    version."""
+    from magellanmapper_torch.cv import stack_detect as sd
+    from magellanmapper_torch.kernels import (
+        peak_candidates as k1, prune_overlap as k3, tile_percentiles as k4)
+    from magellanmapper_torch.ops import filters, peaks
+
+    dev = torch.device("cuda")
+    params, block = detect_block(torch, prof, vol, dev, near_max)
+    prep = dict(params.preproc_items)
+    tiles = sd.to_tiles(block, params.denoise_shape)[0]
+    tiles = tiles.reshape(tiles.shape[0], -1)
+    q = (prep["clip_vmin"], prep["clip_vmax"])
+    if not same_bits(torch, k4.tile_percentiles(tiles, *q),
+                     k4.tile_percentiles_plain(tiles, *q)):
+        fail("near_max: K4 != plain version on the block's tiles")
+    pre = sd.preprocess_block(block, params.denoise_shape,
+                              params.preproc_items)
+    cube = filters.log_pyramid(pre, params.sigmas).contiguous()
+    thr = params.threshold
+    gv, gi = k1.select_top_sparse(*k1.peak_candidates(cube, thr),
+                                  cube.numel())
+    wv, wi = k1.select_top_sparse(*k1.peak_candidates_plain(cube, thr),
+                                  cube.numel())
+    if not (torch.equal(gi, wi) and same_bits(torch, gv, wv)):
+        fail("near_max: K1 != plain version on the block's LoG cube")
+    coords4, _, count = peaks.find_peaks(cube, thr, params.capacity)
+    sig = torch.tensor(params.sigmas, dtype=torch.float32,
+                       device=dev)[coords4[:, 0].long()]
+    pos = coords4[:, 1:].to(torch.float32).contiguous()
+    valid = torch.arange(params.capacity, device=dev) < count
+    kept = k3.prune_overlap(pos, sig, valid, params.overlap)
+    if not torch.equal(kept, k3.prune_overlap_plain(pos, sig, valid,
+                                                    params.overlap)):
+        fail("near_max: K3 != plain version on the block's peaks")
+    print(f"near_max (a): block {tuple(block.shape)} at near-max "
+          f"{near_max}: K4 on {tuple(tiles.shape)} tiles, K1 {gv.numel()} "
+          f"peaks, K3 {int(valid.sum())} -> {int(kept.sum())} kept, each "
+          "equal to its plain version bit for bit", flush=True)
+
+
+#: what a fresh interpreter runs as ``python -m magellanmapper_torch
+#: <argv>``, the launcher module as ``-m`` runs it, printing at exit the
+#: kernels' launches and the jax or reference modules it loaded
+LAUNCHER_RUN = """
+import atexit, json, runpy, sys
+from magellanmapper_torch import device
+
+
+def report():
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "magellanmapper_tpu"))
+    print("LAUNCHER " + json.dumps({"launches": device.LAUNCHES,
+                                    "loaded": loaded}), flush=True)
+
+
+atexit.register(report)
+sys.argv = ["magellanmapper_torch"] + sys.argv[1:]
+runpy.run_module("magellanmapper_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+def launcher_path(path, fp32, launches):
+    """Phase 19 (b): ``python -m magellanmapper_torch --img <phase 4's
+    file> --proc detect --roi_profile lightsheet`` in a fresh interpreter;
+    its blob archive equal to phase 4's (``fp32["archive"]``, key by key),
+    its launches (``launcher``) equal to phase 4's."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", LAUNCHER_RUN, "--img", path, "--proc",
+         "detect", "--roi_profile", "lightsheet"],
+        capture_output=True, text=True, timeout=300, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"launcher: exit code {out.returncode}: {out.stderr[-2000:]}")
+    lines = [ln for ln in out.stdout.splitlines()
+             if ln.startswith("LAUNCHER ")]
+    if not lines:
+        fail(f"launcher: no report: {out.stdout[-2000:]}")
+    report = json.loads(lines[-1][len("LAUNCHER "):])
+    launches["launcher"] = report["launches"]
+    if report["loaded"]:
+        fail(f"launcher: imported {report['loaded'][:10]}")
+    for name in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        n, want = launches["launcher"][name], launches["detect"][name]
+        if n <= 0 or n != want:
+            fail(f"launcher: kernel {name} launched {n} times, phase 4 "
+                 f"{want}")
+    archive_path = os.path.splitext(path)[0] + "_blobs.npz"
+    with np.load(archive_path) as archive:
+        got = {k: archive[k] for k in archive.files}
+    want = fp32["archive"]
+    if sorted(got) != sorted(want) or not all(
+            np.array_equal(got[k], want[k]) for k in want):
+        fail(f"launcher: the archive {sorted(got)} differs from phase 4's")
+    print(f"launcher (b): launches {launches['launcher']}; archive equal "
+          f"to phase 4's ({len(got['segments'])} blobs, keys "
+          f"{sorted(got)}); fresh interpreter's wall {wall:.2f} s = "
+          f"{np.prod(SLICE_SHAPE) / 1e6 / wall:.2f} Mvox/s with start-up",
+          flush=True)
+
+
+def load_demo(name):
+    """``examples/torch/<name>.py`` as a module (its ``main(argv)``
+    returns its results)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"torch_{name}", os.path.join(ROOT, "examples", "torch",
+                                      f"{name}.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def demo_formats_here(have):
+    """``demo_formats``' formats that need no system library, and those
+    whose library ``have`` names as proven (``libzstd``, ``libjpeg``,
+    ``libhdf5``, ``libopenjp2``: True or False)."""
+    formats = load_demo("demo_formats").FORMATS
+    return [name for name, lib in formats.items()
+            if lib is None or have.get(lib)]
+
+
+def demos_path(torch, work, launches, small, formats):
+    """Phase 19 (c), or ``--demos`` at full size (``small`` False): the
+    five demos of ``examples/torch`` with ``--no-figures`` on the card,
+    launches counted over all five (``demos``), each demo's wall and peak
+    device memory, Mvox/s where it detects, each held to its gate:
+    detection, its rows, sensitivity and PPV equal to its run on the CPU
+    (which the CPU tests hold to the reference demo's); rendering, finite
+    frames that are not empty; registration (``--small`` when ``small``),
+    Dice after above Dice before; the pipeline, its stages done and a
+    region table that is not empty; formats, the ``formats`` given all
+    round-tripping."""
+    from magellanmapper_torch import device as dev_mod
+    from magellanmapper_torch import testing
+
+    args = {"demo_detection": [os.path.join(work, "detection")],
+            "demo_render3d": [os.path.join(work, "render3d")],
+            "demo_registration": ["--small"] if small else [],
+            "demo_pipeline": [os.path.join(work, "pipeline")],
+            "demo_formats": [os.path.join(work, "formats"), "--formats",
+                             *formats]}
+    got = {}
+    torch.cuda.synchronize()
+    dev_mod.reset_launches()
+    for name in DEMOS:
+        demo = load_demo(name)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got[name] = demo.main(args[name] + ["--device", "cuda",
+                                            "--no-figures"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        rate = ""
+        if name in ("demo_detection", "demo_render3d", "demo_pipeline"):
+            detect_s = (got[name]["detect_s"] if name == "demo_render3d"
+                        else got[name]["timing"]["Total_stack"])
+            rate = (f", detection {detect_s:.3f} s = "
+                    f"{np.prod(demo.SHAPE) / 1e6 / detect_s:.2f} Mvox/s")
+        print(f"demos (c): {name} wall {wall:.2f} s, peak device memory "
+              f"{peak / 2**20:.1f} MiB{rate}", flush=True)
+    launches["demos"] = dict(dev_mod.LAUNCHES)
+    print(f"demos (c): launches {launches['demos']}", flush=True)
+    for kernel in ("peak_candidates", "prune_overlap", "tile_percentiles"):
+        if launches["demos"][kernel] <= 0:
+            fail(f"demos: kernel {kernel} was not launched")
+
+    det = got["demo_detection"]
+    cpu = load_demo("demo_detection").main(
+        [os.path.join(work, "detection_cpu"), "--device", "cpu",
+         "--no-figures"])
+    print(f"demos (c): detection {len(det['blobs'])} blobs, sensitivity "
+          f"{det['sens']} PPV {det['ppv']}; on the CPU "
+          f"{len(cpu['blobs'])}, {cpu['sens']}, {cpu['ppv']}", flush=True)
+    if not (testing.rows_equal(det["blobs"], cpu["blobs"])
+            and (det["sens"], det["ppv"]) == (cpu["sens"], cpu["ppv"])):
+        fail("demos: detection on the card differs from the CPU's")
+    ren = got["demo_render3d"]
+    for key, frame in ren["frames"].items():
+        frame = np.asarray(frame)
+        if not (frame.size and np.isfinite(frame).all() and frame.max() > 0):
+            fail(f"demos: render3d frame {key} is empty or not finite")
+    if ren["blobs"] is None or not len(ren["blobs"]):
+        fail("demos: render3d detected no blobs")
+    print(f"demos (c): render3d {len(ren['blobs'])} blobs, frames "
+          + json.dumps({k: list(np.shape(v)) for k, v in
+                        ren["frames"].items()})
+          + f", visible blobs {json.dumps(ren['visible'])}", flush=True)
+    reg = got["demo_registration"]
+    print(f"demos (c): registration {reg['shape']}: DSC "
+          f"{reg['dsc_before']:.4f} -> {reg['dsc_after']:.4f}, register_duo "
+          f"{reg['wall']:.2f} s", flush=True)
+    if not reg["dsc_after"] > reg["dsc_before"]:
+        fail("demos: registration did not raise the Dice overlap")
+    pipe = got["demo_pipeline"]
+    print(f"demos (c): pipeline image5d {pipe['image5d_shape']}, DSC "
+          f"{pipe['dsc']:.4f}, {len(pipe['blobs'])} blobs, "
+          f"{len(pipe['regions'])} regions, {len(pipe['stats'])} model rows",
+          flush=True)
+    if (pipe["blobs"] is None or not len(pipe["blobs"])
+            or not len(pipe["regions"]) or not len(pipe["stats"])):
+        fail("demos: the pipeline left a stage empty")
+    fmt = got["demo_formats"]
+    not_run = [n for n in load_demo("demo_formats").FORMATS
+               if n not in formats]
+    print(f"demos (c): formats {json.dumps(fmt['matches'])}; not run "
+          f"(library not proven here): {not_run or 'none'}", flush=True)
+    if not fmt["ok"] or sorted(fmt["matches"]) != sorted(formats):
+        fail(f"demos: formats {fmt['matches']}")
+
+
+def last_slice(torch, vol, centres, fp32, path, proven, work, launches):
+    """Phase 19: (a) :func:`near_max_path`, (b) :func:`launcher_path`, (c)
+    :func:`demos_path` at the small sizes, the formats of ``demo_formats``
+    whose library phase 13 proved (``proven``) or that need none; each
+    sub-phase's wall and the phase's against ``LAST_SLICE_BUDGET_S``."""
+    walls = {}
+    t0 = time.perf_counter()
+    near_max_path(torch, vol, centres, fp32, launches)
+    walls["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    launcher_path(path, fp32, launches)
+    walls["b"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    demos_path(torch, work, launches, True, demo_formats_here(proven))
+    walls["c"] = time.perf_counter() - t0
+    total = sum(walls.values())
+    print(f"phase 19: walls (s) {json.dumps(walls)}; phase 19 wall "
+          f"{total:.1f} s", flush=True)
+    if total > LAST_SLICE_BUDGET_S:
+        fail(f"phase 19 took {total:.1f} s, past its {LAST_SLICE_BUDGET_S} "
+             "s budget")
+
+
 def phase_alone(run) -> None:
     """One phase alone (``--study-tables``, ``--gui``), on the seed-0
     pair's labels at 25 um and the detect slice's volume:
@@ -5079,6 +5435,56 @@ def sharded_main() -> None:
         sharded_path(torch, vol, centres, grid_roi, grid_sigmas, reg, ccf25,
                      tmp, launches)
     print(f"sharded launches by path: {json.dumps(launches)}", flush=True)
+    loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "magellanmapper_tpu"))
+    if loaded:
+        fail(f"jax or the reference package was imported: {loaded[:10]}")
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def demos_main() -> None:
+    """``--demos``: the five demos alone at full size (phase 19 (c) with
+    ``demo_registration`` at (160, 240, 200)), the formats whose library
+    loads here or that need none, then the kernels' launches."""
+    import ctypes.util
+
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a card")
+    if not os.path.isdir(os.path.join(ROOT, "magellanmapper_torch")):
+        fail(f"run from a checkout of the repository ({ROOT} has no "
+             "magellanmapper_torch package)")
+    sys.path.insert(0, ROOT)
+    from magellanmapper_torch import native
+    from magellanmapper_torch.io import hdf5_native, jp2k
+    from magellanmapper_torch.kernels import _build
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    kind = torch.cuda.get_device_name(0)
+    print(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
+          f"CUDA {torch.version.cuda}", flush=True)
+    _build.library()
+    print(f"build: {_build.build_seconds:.1f} s", flush=True)
+    have = {"libzstd": ctypes.util.find_library("zstd") is not None,
+            "libjpeg": native.jpeg_available(),
+            "libhdf5": hdf5_native.available(),
+            "libopenjp2": jp2k.available()}
+    print(f"demos: libraries {json.dumps(have)}", flush=True)
+    work = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(work, exist_ok=True)
+    launches = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        demos_path(torch, tmp, launches, False, demo_formats_here(have))
+    print(f"demos: wall {time.perf_counter() - t0:.1f} s; launches "
+          f"{json.dumps(launches)}", flush=True)
     loaded = sorted(m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "magellanmapper_tpu"))
     if loaded:
@@ -5199,7 +5605,8 @@ def main() -> None:
     launches["detect"] = dict(dev_mod.LAUNCHES)
     peak_mem = torch.cuda.max_memory_allocated()
     with np.load(os.path.join(tmp, "nuclei_blobs.npz")) as archive:
-        saved = archive["segments"]
+        saved_archive = {k: archive[k] for k in archive.files}
+    saved = saved_archive["segments"]
     with open(os.path.join(tmp, "nuclei_stack_detection_times.csv")) as f:
         times = {k: float(v) for k, v in next(csv.DictReader(f)).items()}
     print(f"slice: launches {launches['detect']}", flush=True)
@@ -5228,7 +5635,8 @@ def main() -> None:
           f"{peak_mem / 2**20:.1f} MiB", flush=True)
     if not (sens > 0.85 and ppv > 0.7):
         fail(f"detection quality below the bars: sens {sens} ppv {ppv}")
-    fp32 = {"blobs": det, "sens": sens, "ppv": ppv, "mvox": mvox}
+    fp32 = {"blobs": det, "sens": sens, "ppv": ppv, "mvox": mvox,
+            "archive": saved_archive}
 
     crop = np.ascontiguousarray(vol[:CROP[0], :CROP[1], :CROP[2]])
     t0 = time.perf_counter()
@@ -5328,7 +5736,7 @@ def main() -> None:
     # 13. vendor import: the slice as CZI, LIF and IMS files through
     # --proc import_only, then --proc detect on the CZI's import
     with tempfile.TemporaryDirectory(dir=work) as tmp:
-        vendor_path(torch, vol, centres, fp32, tmp, launches)
+        proven = vendor_path(torch, vol, centres, fp32, tmp, launches)
     # 14. the profiler: one detect block traced, entry()'s step
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         profiler_path(torch, vol, tmp, launches)
@@ -5349,11 +5757,18 @@ def main() -> None:
     with tempfile.TemporaryDirectory(dir=work) as tmp:
         sharded_path(torch, vol, centres, grid_roi, grid_sigmas, reg_coarse,
                      ccf25, tmp, launches)
-    del vol, ccf25, grid_roi
+    del ccf25, grid_roi
     # 18. the library entry: phase 4's file through cli.setup_image and
     # cli.process_proc_tasks, as a caller of the reference's library
     torch.cuda.empty_cache()
     library_path(torch, slice_path, centres, fp32, launches)
+    # 19. the reference's positional call with a near-max and verify_fn,
+    # the launcher in a fresh interpreter, the five demos
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        last_slice(torch, vol, centres, fp32, slice_path, proven, tmp,
+                   launches)
+    del vol
     slice_work.cleanup()
 
     for name in results:
@@ -5394,6 +5809,8 @@ if __name__ == "__main__":
                         help="run phase 16, the review GUI, alone")
     parser.add_argument("--sharded", action="store_true",
                         help="run phase 17, the sharded paths, alone")
+    parser.add_argument("--demos", action="store_true",
+                        help="run the five demos alone at full size")
     args = parser.parse_args()
     if args.k4_times:
         k4_times(args.root)
@@ -5409,5 +5826,7 @@ if __name__ == "__main__":
                     gui_path(torch, vol, centres, ccf25, work, launches))
     elif args.sharded:
         sharded_main()
+    elif args.demos:
+        demos_main()
     else:
         main()

@@ -45,8 +45,13 @@ reference so each counterpart is easy to find:
                 (``clrstats``).
 - ``utils/``    path, number and enum helpers (``libmag``), timers,
                 checkpoints and the profiler.
+- ``native/``   the reference's ``native`` names (block extraction, the
+                TIFF and JPEG codecs) over the host libraries of ``io/``.
 - ``testing``   seeded planted-nuclei volumes, specimens and tile sets,
                 result checks.
+
+``python -m magellanmapper_torch <CLI arguments>`` starts the command
+line (``__main__.py``, the reference's ``run.py``).
 
 The package stands alone: it imports nothing of ``magellanmapper_tpu``
 and never imports jax. The host-side code it shares with the reference

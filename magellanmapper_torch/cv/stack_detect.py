@@ -349,7 +349,9 @@ def detect_blobs_blocks(
         settings,
         resolutions: Sequence[float],
         channels: Optional[Sequence[int]] = None,
+        near_max: Optional[Sequence[float]] = None,
         preprocess: bool = True,
+        verify_fn=None,
         device: Union[str, torch.device] = "cuda",
 ) -> Tuple[Optional[np.ndarray], Dict[str, float]]:
     """Detect blobs across a whole (sub)image in blocks on ``device``.
@@ -359,7 +361,12 @@ def detect_blobs_blocks(
         settings: ROI profile for the channel group.
         resolutions: z,y,x spacing.
         channels: channels to detect (must share block settings); None = all.
+        near_max: near-max intensity for saturation, indexed by channel
+            number; measured from the volume when absent.
         preprocess: apply saturate+denoise per denoise tile.
+        verify_fn: optional callback ``(blobs) -> stats``, run on the
+            pruned blobs when there are any; its result is
+            ``timing["verify_stats"]``.
         device: where the device step runs: the card unless ``"cpu"`` is
             asked for; a CUDA device without a card raises.
 
@@ -383,13 +390,16 @@ def detect_blobs_blocks(
     #: hard ceiling for overflow-retry capacity doubling
     max_capacity = min(1 << 20, block_voxels)
 
-    # per-channel near-max for saturation, sampled as the importer does
-    # (99.5th percentile)
-    sample = image[::max(1, shape[0] // 16)]
-    near_max = {
-        c: float(np.percentile(
-            sample[..., c] if multichannel else sample, 99.5))
-        for c in channels}
+    if near_max is None:
+        # per-channel near-max for saturation, sampled as the importer
+        # does (99.5th percentile)
+        sample = image[::max(1, shape[0] // 16)]
+        near_max = {
+            c: float(np.percentile(
+                sample[..., c] if multichannel else sample, 99.5))
+            for c in channels}
+    else:
+        near_max = {c: near_max[c] for c in channels}
 
     coords_list = list(np.ndindex(*grid_shape))
     seg_rois = np.full(grid_shape, None, dtype=object)
@@ -499,6 +509,8 @@ def detect_blobs_blocks(
 
     timing = {"Detection": time_detect, "Pruning": time_prune,
               "Total_stack": time_detect + time_prune, **totals}
+    if verify_fn is not None and blobs_all is not None:
+        timing["verify_stats"] = verify_fn(blobs_all)
     return blobs_all, timing
 
 

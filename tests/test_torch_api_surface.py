@@ -29,20 +29,13 @@ NOT_PORTED = {
     "ops/pallas_kernels.py": "the four Pallas TPU kernels, ported as "
                              "CUDA C++ under kernels/ and csrc/",
     "cv/ref_detect.py": "a CPU oracle of the reference's own tests",
-    "native/__init__.py": "the reference's native block reader, covered "
-                          "by io/_blockio.py and csrc/host/",
     "ops/peaks.py:fused_peaks_fit": "the TPU's VMEM budget of the fused "
                                     "peak route (ROADMAP, not to port)",
 }
 
 #: parameters of a reference function that the port does not take, with
 #: the reason, by ``(path, name)``
-PARAMS_NOT_PORTED = {
-    ("cv/stack_detect.py", "detect_blobs_blocks"): (
-        ("near_max", "verify_fn"),
-        "the port always measures near-max from the image, and verifies "
-        "blobs outside the detector (cli.detect)"),
-}
+PARAMS_NOT_PORTED = {}
 
 REF_MODULES = sorted(
     str(p.relative_to(REF_ROOT)) for p in REF_ROOT.rglob("*.py"))

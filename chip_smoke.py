@@ -180,8 +180,9 @@ result, on any fault. Phases:
 14. the profiler (:func:`profiler_path`): a detect block of phase 4's
    volume stepped twice under ``utils.profiler.trace``, the second time
    in ``annotate``'s range, the Chrome trace read back naming K1, K3 and
-   K4 inside the range on the device; ``entry.entry``'s step once on the
-   card (launches of the ``profile`` path);
+   K4 among the kernels launched inside the range, and no device event
+   named after a span; ``entry.entry``'s step once on the card
+   (launches of the ``profile`` path);
 15. the study tables (:func:`study_tables`): twelve brains, six of
    ``WT`` and six of ``het`` (``null``, the third key of
    ``config.GROUPS_NUMERIC``, reads back from a CSV as missing), on phase
@@ -528,7 +529,7 @@ VENDOR_LIBS = ("zstd", "jpeg", "openjp2", "hdf5_serial", "hdf5")
 JPEG_PLANE = (256, 320)
 JPEG_ATOL = 2
 #: the profiler phase (14): the kernels the trace of one detect block
-#: must name (K1, K3's pair pass, K4) and the range it annotates
+#: must name (K1, K3's pair pass, K4) and the span it opens
 TRACE_KERNELS = ("peak_candidates_kernel", "pairs_kernel",
                  "tile_percentiles")
 TRACE_RANGE = "detect_block"
@@ -3604,9 +3605,12 @@ def vendor_path(torch, vol, centres, fp32, work, launches):
 def profiler_path(torch, vol, work, launches):
     """Phase 14: a detect block of phase 4's volume stepped twice under
     ``utils.profiler.trace``, the second time in ``annotate``'s range; in
-    the written Chrome trace, the range on the device must hold K1, K3
-    and K4 (``TRACE_KERNELS``); then ``entry.entry(device="cuda")``'s
-    step once (launches of the ``profile`` path)."""
+    the written Chrome trace, the kernels launched inside the range (a
+    host ``cpu_op`` range: launches by time, kernels by their launch's
+    correlation) must include K1, K3 and K4 (``TRACE_KERNELS``), and no
+    device event may be named after a span; then
+    ``entry.entry(device="cuda")``'s step once (launches of the
+    ``profile`` path)."""
     import glob
 
     from magellanmapper_torch import device as dev_mod
@@ -3633,22 +3637,31 @@ def profiler_path(torch, vol, work, launches):
         fail(f"profiler: {len(files)} trace files in {log_dir}")
     with open(files[0]) as f:
         events = json.load(f)["traceEvents"]
-    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
-             if e.get("name") == TRACE_RANGE
-             and e.get("cat") == "gpu_user_annotation"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e.get("tid")) for e in events
+             if e.get("name") == TRACE_RANGE and e.get("cat") == "cpu_op"]
+    launched = {e["args"]["correlation"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})
+                and any(lo <= e["ts"] <= hi and e.get("tid") == tid
+                        for lo, hi, tid in spans)}
     kernels = {e["name"] for e in events if e.get("cat") == "kernel"
-               and any(lo <= e["ts"] <= hi for lo, hi in spans)}
+               and e.get("args", {}).get("correlation") in launched}
+    mirrored = sorted({e["name"] for e in events
+                       if e.get("cat") == "gpu_user_annotation"
+                       and (e["name"] == TRACE_RANGE
+                            or e["name"].startswith("mm."))})
     missing = [k for k in TRACE_KERNELS
                if not any(k in name for name in kernels)]
     print(f"profiler: trace of one block {tuple(block.shape)} "
           f"({int(valid.sum())} blobs of {count} peaks): "
           f"{os.path.getsize(files[0])} bytes, {len(events)} events, "
-          f"{len(spans)} device range(s) {TRACE_RANGE} holding "
-          f"{len(kernels)} kernel names; {TRACE_KERNELS} missing {missing}",
-          flush=True)
-    if missing or not spans:
-        fail(f"profiler: the range {TRACE_RANGE} on the device lacks "
-             f"kernels {missing} or is not in the trace")
+          f"{len(spans)} host range(s) {TRACE_RANGE} launching "
+          f"{len(kernels)} kernel names; {TRACE_KERNELS} missing {missing}; "
+          f"spans mirrored on the device {mirrored}", flush=True)
+    if missing or not spans or mirrored:
+        fail(f"profiler: the range {TRACE_RANGE} launches no kernels "
+             f"{missing}, is not in the trace, or spans {mirrored} have "
+             f"device events")
     fn, (batch,) = entry.entry(device="cuda")
     raws, valids, counts = fn(batch)
     torch.cuda.synchronize()

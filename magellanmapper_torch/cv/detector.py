@@ -26,6 +26,7 @@ from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.ops import filters, peaks, preproc, resize
 from magellanmapper_torch.parallel import comm, mesh as mesh_mod
+from magellanmapper_torch.utils import profiler
 
 #: overlap factor for block halos (reference ``detector.py:41``).
 OVERLAP_FACTOR = 5
@@ -76,15 +77,18 @@ def blob_log(
     rows than ``capacity``, and overflow retries gate on this count.
     """
     roi = roi.to(torch.float32)
-    cube = filters.log_pyramid(
-        roi, sigmas, precision=filters.FAST_PRECISION if fast else None)
-    coords4, _, count = peaks.find_peaks(cube, threshold, capacity)
-    valid = torch.arange(capacity, device=roi.device) < count
-    sig = filters.sigma_tensor(
-        tuple(float(s) for s in sigmas), roi.device)[coords4[:, 0].long()]
-    coords = coords4[:, 1:].to(torch.float32).contiguous()
-    valid = peaks.prune_overlapping_blobs(
-        coords, sig, valid, overlap, ndim=roi.dim())
+    with profiler.annotate("mm.log"):
+        cube = filters.log_pyramid(
+            roi, sigmas, precision=filters.FAST_PRECISION if fast else None)
+    with profiler.annotate("mm.peaks"):
+        coords4, _, count = peaks.find_peaks(cube, threshold, capacity)
+        valid = torch.arange(capacity, device=roi.device) < count
+        sig = filters.sigma_tensor(
+            tuple(float(s) for s in sigmas), roi.device)[coords4[:, 0].long()]
+        coords = coords4[:, 1:].to(torch.float32).contiguous()
+    with profiler.annotate("mm.overlap"):
+        valid = peaks.prune_overlapping_blobs(
+            coords, sig, valid, overlap, ndim=roi.dim())
     return torch.cat([coords, sig[:, None]], dim=1), valid, count
 
 
@@ -110,19 +114,22 @@ def blob_log_multi(
     """
     roi = roi.to(torch.float32)
     sigmas = tuple(float(s) for s in sigmas)
-    cube = filters.log_pyramid(
-        roi, sigmas, precision=filters.FAST_PRECISION if fast else None)
+    with profiler.annotate("mm.log"):
+        cube = filters.log_pyramid(
+            roi, sigmas, precision=filters.FAST_PRECISION if fast else None)
     sig_lut = filters.sigma_tensor(sigmas, roi.device)
     ths = [float(t) for t in np.asarray(thresholds, np.float32)]
     first = torch.arange(capacity, device=roi.device)
     rows, valids = [], []
-    for coords4, values, count in peaks.find_peaks_unfused(
-            cube, ths, capacity):
+    with profiler.annotate("mm.harvest"):
+        found = peaks.find_peaks_unfused(cube, ths, capacity)
+    for coords4, values, count in found:
         valid = (first < count) & torch.isfinite(values)
         sig = sig_lut[coords4[:, 0].long()]
         coords = coords4[:, 1:].to(torch.float32).contiguous()
-        valid = peaks.prune_overlapping_blobs(
-            coords, sig, valid, overlap, ndim=roi.dim())
+        with profiler.annotate("mm.overlap"):
+            valid = peaks.prune_overlapping_blobs(
+                coords, sig, valid, overlap, ndim=roi.dim())
         rows.append(torch.cat([coords, sig[:, None]], dim=1))
         valids.append(valid)
     return torch.stack(rows), torch.stack(valids)

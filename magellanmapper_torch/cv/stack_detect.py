@@ -14,6 +14,12 @@ block rows do not fit a slab ships each block window on its own. (The
 reference's separate path for volumes smaller than a block window,
 ``stack_detect.py:756-768``, cannot run: the window is clamped to the
 volume, ``:658``.)
+
+Spans (``utils.profiler.annotate``, recorded only under a profiler):
+``mm.detect`` a call; inside it ``mm.stage`` a transfer, ``mm.block`` a
+block (``mm.preprocess``, ``mm.log``, ``mm.peaks``, ``mm.overlap``,
+``mm.pull``), ``mm.store``, ``mm.retry``, and ``mm.prune`` with a
+``mm.prune.match`` for each band matched (counter ``pairs``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from magellanmapper_torch.cv import chunking, detector
 from magellanmapper_torch.io import _blockio
 from magellanmapper_torch.settings import roi_prof
 from magellanmapper_torch.ops import filters, preproc
+from magellanmapper_torch.utils import profiler
 
 _logger = logging.getLogger(__name__)
 
@@ -243,7 +250,9 @@ def detect_step(
     ``(capacity,)`` and the pre-prune peak count.
     """
     cap = params.capacity if capacity is None else capacity
-    vol = preprocess_block(block, params.denoise_shape, params.preproc_items)
+    with profiler.annotate("mm.preprocess"):
+        vol = preprocess_block(
+            block, params.denoise_shape, params.preproc_items)
     return detector.blob_log(
         vol, params.sigmas, params.threshold, params.overlap, cap,
         fast=params.fast)
@@ -344,6 +353,7 @@ def _retry_overflow(retry, fallback, dispatch, store_block, capacity,
             store_block(coord, wstart, raw)
 
 
+@profiler.annotated("mm.detect")
 def detect_blobs_blocks(
         image: np.ndarray,
         settings,
@@ -373,7 +383,10 @@ def detect_blobs_blocks(
     Returns:
         ``(blobs, timing)``: merged, pruned N x 10 blob array (None when
         empty) and stage timings in seconds (the reference's
-        ``stack_detection_times.csv`` fields).
+        ``stack_detection_times.csv`` fields), from the same
+        ``perf_counter`` reads as the spans ``mm.stage`` (``Gather_host``
+        and ``Stage_h2d``), ``mm.pull`` (``Pull_wait``) and ``mm.prune``
+        (``Pruning``).
     """
     dev = device_mod.resolve(device)
     shape = tuple(int(s) for s in image.shape[:3])
@@ -405,7 +418,7 @@ def detect_blobs_blocks(
     seg_rois = np.full(grid_shape, None, dtype=object)
     totals = {"Gather_host": 0.0, "Pull_wait": 0.0, "Stage_h2d": 0.0,
               "h2d_bytes": 0}
-    time_detect = time.time()
+    time_detect = time.perf_counter()
 
     for chl in channels:
         chan_img = image[..., chl] if multichannel else image
@@ -424,17 +437,18 @@ def detect_blobs_blocks(
         def to_device(host: np.ndarray) -> torch.Tensor:
             """Read ``host`` (a view of the possibly memmapped image) into
             memory and ship it: Gather_host, then Stage_h2d."""
-            t0 = time.time()
-            host = np.ascontiguousarray(host)
-            if not host.flags.writeable:
-                # read-only memmap: torch.from_numpy wants writable memory
-                host = host.copy()
-            t1 = time.time()
-            out = torch.from_numpy(host).to(dev)
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            totals["Gather_host"] += t1 - t0
-            totals["Stage_h2d"] += time.time() - t1
+            with profiler.annotate("mm.stage", clock=True) as stage:
+                host = np.ascontiguousarray(host)
+                if not host.flags.writeable:
+                    # read-only memmap: torch.from_numpy wants writable
+                    # memory
+                    host = host.copy()
+                t1 = time.perf_counter()
+                out = torch.from_numpy(host).to(dev)
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            totals["Gather_host"] += t1 - stage.t0
+            totals["Stage_h2d"] += stage.t1 - t1
             totals["h2d_bytes"] += host.nbytes
             return out
 
@@ -451,10 +465,11 @@ def detect_blobs_blocks(
                                       wstart[2]:wstart[2] + bx])
 
         def detect(block: torch.Tensor, cap: int):
-            raw, valid, count = detect_step(block, params, cap)
-            t0 = time.time()
-            rows = raw[valid].cpu().numpy()
-            totals["Pull_wait"] += time.time() - t0
+            with profiler.annotate("mm.block"):
+                raw, valid, count = detect_step(block, params, cap)
+                with profiler.annotate("mm.pull", clock=True) as pull:
+                    rows = raw[valid].cpu().numpy()
+            totals["Pull_wait"] += pull.seconds
             return rows, count
 
         def dispatch(coords, cap):
@@ -482,10 +497,11 @@ def detect_blobs_blocks(
                 del slab
 
         def store_block(coord, wstart, raw):
-            segs = block_blobs(raw, coord, wstart, blocks, chl)
-            prev = seg_rois[coord]
-            seg_rois[coord] = (
-                segs if prev is None else np.vstack([prev, segs]))
+            with profiler.annotate("mm.store"):
+                segs = block_blobs(raw, coord, wstart, blocks, chl)
+                prev = seg_rois[coord]
+                seg_rois[coord] = (
+                    segs if prev is None else np.vstack([prev, segs]))
 
         results = (staged(slab_plan) if slab_plan is not None
                    else dispatch(coords_list, params.capacity))
@@ -499,13 +515,14 @@ def detect_blobs_blocks(
                 continue
             if rows.shape[0]:
                 store_block(coord, wstart, rows)
-        _retry_overflow(retry, fallback, dispatch, store_block,
-                        params.capacity, max_capacity)
+        with profiler.annotate("mm.retry"):
+            _retry_overflow(retry, fallback, dispatch, store_block,
+                            params.capacity, max_capacity)
 
-    time_detect = time.time() - time_detect
-    time_prune = time.time()
-    blobs_all = prune_blobs(seg_rois, blocks, shape, channels)
-    time_prune = time.time() - time_prune
+    time_detect = time.perf_counter() - time_detect
+    with profiler.annotate("mm.prune", clock=True) as prune:
+        blobs_all = prune_blobs(seg_rois, blocks, shape, channels)
+    time_prune = prune.seconds
 
     timing = {"Detection": time_detect, "Pruning": time_prune,
               "Total_stack": time_detect + time_prune, **totals}
@@ -587,8 +604,10 @@ def prune_blobs(
                     check = band[band[:, axis_col] == j + 1]
                     rest = band[(band[:, axis_col] != j)
                                 & (band[:, axis_col] != j + 1)]
-                    pruned, master = detector.remove_close_blobs(
-                        check, master, tol)
+                    with profiler.annotate("mm.prune.match"):
+                        profiler.count("pairs", len(check) * len(master))
+                        pruned, master = detector.remove_close_blobs(
+                            check, master, tol)
                     pruned_parts.extend(
                         [p for p in (master, pruned, rest) if len(p)])
                     masks.append(blobs[:, axis] < bound_lo)

@@ -17,6 +17,7 @@ from scipy import optimize
 from scipy.spatial import distance
 
 from magellanmapper_torch.cv import blobs as blobs_mod
+from magellanmapper_torch.utils import profiler
 
 #: radius at or above which a truth blob counts as detected
 POS_THRESH = 0
@@ -42,7 +43,9 @@ def find_closest_blobs_cdist(
         a = blobs[:, :n] * scaling
         b = blobs_master[:, :n] * scaling
     dists = distance.cdist(a, b)
-    rowis, colis = optimize.linear_sum_assignment(dists)
+    with profiler.annotate("mm.verify.assign"):
+        profiler.count("cells", dists.size)
+        rowis, colis = optimize.linear_sum_assignment(dists)
     dists_closest = dists[rowis, colis]
     if thresh is not None:
         keep = dists_closest < thresh
@@ -173,6 +176,7 @@ def meas_detection_accuracy(
     return calc_sens_ppv(all_pos, true_pos, false_pos, false_neg)
 
 
+@profiler.annotated("mm.verify")
 def verify_stack(
         blobs: np.ndarray, blobs_truth: np.ndarray, tol: Sequence[float]
 ) -> Tuple[float, float, str]:

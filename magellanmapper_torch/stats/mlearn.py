@@ -30,6 +30,7 @@ from magellanmapper_torch.io import np_io, sqlite
 from magellanmapper_torch.parallel import mesh as mesh_mod
 from magellanmapper_torch.settings.grid_search_prof import GridSearchProfile
 from magellanmapper_torch.settings.roi_prof import ROIProfile
+from magellanmapper_torch.utils import profiler
 
 _logger = logging.getLogger(__name__)
 
@@ -47,6 +48,7 @@ MULTI_SUPPORTED_KEYS = frozenset((
     "num_sigma", "overlap", "max_blobs_per_block", "log_dtype"))
 
 
+@profiler.annotated("mm.grid_search")
 def grid_search(
         hyperparams: "OrderedDict[str, Sequence]",
         fn_detect: Callable[[dict], np.ndarray],
@@ -101,7 +103,8 @@ def grid_search(
         for combo in itertools.product(
                 *(hyperparams[k] for k in other_keys)):
             other = dict(zip(other_keys, combo))
-            blobs_per_thr = fn_detect_multi(other, thresholds)
+            with profiler.annotate("mm.detect_multi"):
+                blobs_per_thr = fn_detect_multi(other, thresholds)
             for thr, blobs in zip(thresholds, blobs_per_thr):
                 # preserve the grid's original key order in the rows
                 overrides = {
@@ -168,8 +171,9 @@ def make_fn_detect_multi(
                 raws, valids = detector.blob_log_multi(
                     vol_t, sigmas, chunk, float(prof["overlap"]), cap,
                     fast=detector.is_fast(prof))
-                raws = raws.cpu().numpy()
-                valids = valids.cpu().numpy()
+                with profiler.annotate("mm.pull"):
+                    raws = raws.cpu().numpy()
+                    valids = valids.cpu().numpy()
             for k in range(len(chunk)):
                 raw = raws[k][valids[k]].copy()
                 if not raw.shape[0]:

@@ -256,11 +256,38 @@ def remove_close_blobs(
         blobs: np.ndarray, blobs_master: np.ndarray, tol: Sequence[float]
 ) -> Tuple[np.ndarray, np.ndarray]:
     """Prune blobs within ``tol`` of any master blob; averages abs coords
-    (copy of the reference's host helper)."""
+    (the reference's host helper, with its pairs found in a sorted window).
+
+    The master rows are sorted on the coordinate column they spread most
+    in; each checked row's candidates are the masters whose key lies
+    within that axis' ``tol`` plus 1 (the margin only filters, so float
+    rounding at the window's edges drops no pair), and the reference's
+    exact test decides among them. The pairs keep ``np.nonzero``'s order,
+    by master then checked row, so a master matched twice keeps its last
+    pair's mean. Counts the pairs tested as ``candidates``."""
     if len(blobs) < 1 or len(blobs_master) < 1:
+        profiler.count("candidates", 0)
         return blobs, blobs_master
-    diffs = np.abs(blobs_master[:, None, :3] - blobs[None, :, :3])
-    close_master, close = np.nonzero((diffs <= np.asarray(tol)).all(2))
+    tol = np.asarray(tol)
+    master = blobs_master[:, :3]
+    check = blobs[:, :3]
+    key = int(np.argmax(np.ptp(master, axis=0)))
+    tol_key = np.broadcast_to(tol, (3,))[key]
+    order = np.argsort(master[:, key], kind="stable")
+    keys = master[order, key]
+    lo = np.searchsorted(keys, check[:, key] - tol_key - 1, side="left")
+    hi = np.searchsorted(keys, check[:, key] + tol_key + 1, side="right")
+    sizes = np.maximum(hi - lo, 0)
+    n = int(sizes.sum())
+    profiler.count("candidates", n)
+    # every checked row against each master in its window
+    cand = np.repeat(np.arange(len(check)), sizes)
+    firsts = np.repeat(lo - (np.cumsum(sizes) - sizes), sizes)
+    cand_master = order[firsts + np.arange(n)]
+    hit = (np.abs(master[cand_master] - check[cand]) <= tol).all(1)
+    close_master, close = cand_master[hit], cand[hit]
+    by_master = np.lexsort((close, close_master))
+    close_master, close = close_master[by_master], close[by_master]
     pruned = np.delete(blobs, close, axis=0)
     if len(close) > 0:
         B = blobs_mod.Blobs

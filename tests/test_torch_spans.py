@@ -9,7 +9,8 @@ profiler's events are all of the ``cpu_op`` kind (no
 ``user_annotation``, which the profiler mirrors on the device), and the
 kept starts lie within 100 us of the profiler's own. The timing dict is
 built from the spans' clock reads, and the ``pairs`` and ``cells``
-counters equal a direct count of the same inputs.
+counters equal a direct count of the same inputs; each prune match tests
+fewer ``candidates`` than its ``pairs``, and no fewer than it prunes.
 """
 
 import collections
@@ -94,13 +95,17 @@ def _traced(fn):
 
 @pytest.fixture(scope="module")
 def detected(volume):
-    """A traced detection, with the pairs each prune match was given."""
+    """A traced detection, with the pairs each prune match was given and
+the rows it pruned."""
     pairs = []
+    pruned = []
     real = detector.remove_close_blobs
 
     def counted(blobs, blobs_master, tol):
         pairs.append(len(blobs) * len(blobs_master))
-        return real(blobs, blobs_master, tol)
+        out = real(blobs, blobs_master, tol)
+        pruned.append(len(blobs) - len(out[0]))
+        return out
 
     detector.remove_close_blobs = counted
     try:
@@ -110,7 +115,7 @@ def detected(volume):
     finally:
         detector.remove_close_blobs = real
     return {"blobs": blobs, "timing": timing, "recs": recs,
-            "events": events, "pairs": pairs}
+            "events": events, "pairs": pairs, "pruned": pruned}
 
 
 @pytest.fixture(scope="module")
@@ -229,6 +234,17 @@ def test_pairs_count_the_prune_match_inputs(detected):
     kept = [r.counts["pairs"] for r in detected["recs"]
             if r.name == "mm.prune.match"]
     assert kept == detected["pairs"] and sum(kept) > 0
+
+
+def test_candidates_lie_between_the_rows_pruned_and_the_pairs(detected):
+    kept = [r.counts for r in detected["recs"]
+            if r.name == "mm.prune.match"]
+    assert len(kept) == len(detected["pruned"])
+    for counts, pruned in zip(kept, detected["pruned"]):
+        assert "candidates" in counts
+        assert pruned <= counts["candidates"] <= counts["pairs"]
+    assert (sum(c["candidates"] for c in kept)
+            < sum(c["pairs"] for c in kept))
 
 
 def test_cells_count_the_verified_blobs_against_the_truth(swept):

@@ -2149,7 +2149,7 @@ def coloc_path(torch, path, truth, work, launches):
             fail(f"coloc channel {c} below the bars: sens {sens} ppv {ppv}")
 
     # the whole stack matched between the channels in blocks (the CLI's
-    # task is one assignment over the whole image, for an ROI)
+    # task takes the same blocks beyond one matching block)
     tol = detector.calc_overlap((1.0, 1.0, 1.0))
     t0 = time.perf_counter()
     matches = colocalizer.StackColocalizer.colocalize_stack(

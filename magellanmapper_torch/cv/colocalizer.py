@@ -6,7 +6,9 @@ mean in every channel against that channel's threshold) and match-based
 colocalization (:func:`colocalize_blobs_match`, the whole stack in blocks
 by :class:`StackColocalizer`: an optimal assignment of one channel's blobs
 to another's within tolerance), the :class:`BlobMatch` table, and its rows
-in a blob database.
+in a blob database. :func:`match_stack` is the whole image's matching, as
+``--proc coloc_match`` runs it: one assignment for an image of one
+matching block, else :class:`StackColocalizer`'s blocks.
 
 The neighbourhood means run on the device, a z slab at a time: the slab
 with its halo, padded as numpy's ``symmetric`` mode pads the whole
@@ -15,6 +17,13 @@ channel, and the shifted views of the radius-2 ball added one by one in
 order, so the card, the CPU and the reference agree bit for bit. A
 convolution would sum in another order and can flip the ``>=`` threshold.
 Matching is host scipy, as in the reference.
+
+Spans (``utils.profiler.annotate``, recorded only under a profiler):
+``mm.coloc`` a :func:`colocalize_blobs` call, with ``mm.coloc.ball`` a
+slab of the ball sums (counters ``voxels``, the slab's output voxels, and
+``blobs``, the rows it serves); ``mm.coloc.match`` a :func:`match_stack`
+call (counter ``blocks``), inside which ``verifier``'s ``mm.verify.assign``
+spans count their ``cells``.
 """
 
 from __future__ import annotations
@@ -30,11 +39,14 @@ from magellanmapper_torch import device as device_mod
 from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.cv import chunking, verifier
 from magellanmapper_torch.ops import filters
+from magellanmapper_torch.utils import profiler
 
 #: radius of the ball whose mean stands for a blob's intensity
 BALL_RADIUS = 2
 #: planes of a slab of the neighbourhood means
 SLAB_PLANES = 32
+#: edge of a block of whole-stack matching (:class:`StackColocalizer`)
+MATCH_BLOCK = 128
 
 
 class BlobMatch:
@@ -122,21 +134,26 @@ def _ball_sums(chl: np.ndarray, coords: np.ndarray, dev: torch.device,
         sel = np.flatnonzero((coords[:, 0] >= z0) & (coords[:, 0] < z1))
         if not len(sel):
             continue
-        lo, hi = max(z0 - radius, 0), min(z1 + radius, nz)
-        slab = torch.from_numpy(np.array(chl[lo:hi])).to(dev)
-        padded = filters.pad_symmetric(slab, [
-            (radius - (z0 - lo), radius - (hi - z1)), (radius, radius),
-            (radius, radius)]).to(torch.float32)
         shape = (z1 - z0,) + tuple(chl.shape[1:])
-        acc = None
-        for off in offsets:
-            view = padded[tuple(slice(o, o + s) for o, s in zip(off, shape))]
-            acc = view.clone() if acc is None else acc.add_(view)
-        at = torch.from_numpy(coords[sel] - (z0, 0, 0)).to(dev)
-        out[sel] = acc[at[:, 0], at[:, 1], at[:, 2]].cpu().numpy()
+        with profiler.annotate("mm.coloc.ball"):
+            profiler.count("voxels", int(np.prod(shape)))
+            profiler.count("blobs", len(sel))
+            lo, hi = max(z0 - radius, 0), min(z1 + radius, nz)
+            slab = torch.from_numpy(np.array(chl[lo:hi])).to(dev)
+            padded = filters.pad_symmetric(slab, [
+                (radius - (z0 - lo), radius - (hi - z1)), (radius, radius),
+                (radius, radius)]).to(torch.float32)
+            acc = None
+            for off in offsets:
+                view = padded[tuple(
+                    slice(o, o + s) for o, s in zip(off, shape))]
+                acc = view.clone() if acc is None else acc.add_(view)
+            at = torch.from_numpy(coords[sel] - (z0, 0, 0)).to(dev)
+            out[sel] = acc[at[:, 0], at[:, 1], at[:, 2]].cpu().numpy()
     return out
 
 
+@profiler.annotated("mm.coloc")
 def colocalize_blobs(
         roi: np.ndarray, blobs: np.ndarray, thresh=None,
         device: Union[str, torch.device] = "cuda") -> Optional[np.ndarray]:
@@ -225,7 +242,7 @@ class StackColocalizer:
     @classmethod
     def colocalize_stack(
             cls, shape, blobs: np.ndarray, tol,
-            block_size: int = 128,
+            block_size: int = MATCH_BLOCK,
             channels: Optional[Sequence[int]] = None
     ) -> Dict[Tuple[int, int], BlobMatch]:
         """Match the channel pairs' blobs block by block, each block with
@@ -278,6 +295,36 @@ class StackColocalizer:
             df = df.drop_duplicates("_key").drop(columns="_key")
             out[pair] = BlobMatch(df=df.reset_index(drop=True))
         return out
+
+
+@profiler.annotated("mm.coloc.match")
+def match_stack(
+        blobs: Optional[np.ndarray], shape: Sequence[int], tol,
+        channels: Optional[Sequence[int]] = None
+) -> Dict[Tuple[int, int], BlobMatch]:
+    """Match-based colocalization of a whole ``shape`` (z,y,x) image, as
+    ``--proc coloc_match`` runs it.
+
+    An image of one matching block (at most :data:`MATCH_BLOCK` on every
+    axis) gets :func:`colocalize_blobs_match`'s one assignment over the
+    whole image, the reference CLI's result bit for bit; a larger one
+    :meth:`StackColocalizer.colocalize_stack`'s blocks, whose distance
+    matrices stay the size of a block's blobs (the reference CLI's one
+    dense matrix is tens of GB at a specimen's blobs; ROADMAP section 3).
+
+    Returns a dict mapping ``(chl1, chl2)`` to a :class:`BlobMatch`.
+    """
+    shape = tuple(int(s) for s in shape[:3])
+    if blobs is None:
+        return {}
+    if max(shape) <= MATCH_BLOCK:
+        profiler.count("blocks", 1)
+        return colocalize_blobs_match(
+            blobs, (0, 0, 0), shape[::-1], tol, channels)
+    profiler.count("blocks", int(np.prod(chunking.num_units(
+        shape, (MATCH_BLOCK,) * 3))))
+    return StackColocalizer.colocalize_stack(
+        shape, blobs, tol, channels=channels)
 
 
 def _get_roi_id(db, offset, shape, exp_name: str = "exp") -> int:

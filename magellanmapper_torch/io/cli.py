@@ -42,7 +42,8 @@ Blob analysis: ``--proc detect_coloc --channel 0 1`` detects every
 channel and flags each blob's colocalization with the other channels
 (``colocs`` in ``blobs.npz``, :func:`cv.colocalizer.colocalize_blobs`);
 ``--proc coloc_match`` matches the saved blobs between channel pairs
-(:func:`cv.colocalizer.colocalize_blobs_match`; returns the matches);
+(:func:`cv.colocalizer.match_stack`: one assignment for an image of one
+matching block, else in blocks; returns the matches);
 ``--proc classify [--classifier model.pkl]`` classifies the saved blobs
 with the patch CNN (an untrained one without a model, as in the
 reference) into their ``confirmed`` column; ``--register cluster_blobs``
@@ -802,13 +803,13 @@ def load_blobs(rc: RunConfig) -> blobs_mod.Blobs:
 
 def coloc_match(rc: RunConfig) -> Dict:
     """The ``--proc coloc_match`` task: match the saved blobs between each
-    pair of channels within the detection overlap (host matching)."""
+    pair of channels within the detection overlap (host matching; in
+    blocks beyond one matching block, :func:`colocalizer.match_stack`)."""
     img5d = load_image(rc)
     blobs = load_blobs(rc)
     tol = detector.calc_overlap(_resolutions(img5d))
     shape = img5d.img.shape[1:4]
-    return colocalizer.colocalize_blobs_match(
-        blobs.blobs, (0, 0, 0), shape[::-1], tol)
+    return colocalizer.match_stack(blobs.blobs, shape, tol)
 
 
 def classify(rc: RunConfig, device) -> Optional[blobs_mod.Blobs]:

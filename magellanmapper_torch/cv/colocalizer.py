@@ -23,7 +23,9 @@ Spans (``utils.profiler.annotate``, recorded only under a profiler):
 slab of the ball sums (counters ``voxels``, the slab's output voxels, and
 ``blobs``, the rows it serves); ``mm.coloc.match`` a :func:`match_stack`
 call (counter ``blocks``), inside which ``verifier``'s ``mm.verify.assign``
-spans count their ``cells``.
+spans count their ``cells``, and beyond one block ``mm.coloc.bin`` the
+binning of the rows to the matching blocks (counter ``rows``, the (block,
+row) pairs handed to blocks).
 """
 
 from __future__ import annotations
@@ -236,6 +238,46 @@ def colocalize_blobs_match(
     return matches_all
 
 
+def _bin_rows(coords: np.ndarray, slices: np.ndarray,
+              pad: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The rows of each of ``slices``' blocks, each block's bounds widened
+    by ``pad``: the rows whose ``coords`` (z,y,x) lie at or above ``lo -
+    pad`` and below ``hi + pad`` on every axis.
+
+    The grid is separable, so each axis' bounds are searched once a row:
+    its first block ends past the row, its last starts at or before it.
+    A row outside the image on an axis, or with a NaN coordinate, falls
+    into no block.
+
+    Returns ``(rows, starts)``: block ``k`` (``np.ndindex`` order over
+    ``slices``) holds ``rows[starts[k]:starts[k + 1]]``, ascending.
+    """
+    grid = slices.shape
+    first, count = [], []
+    for ax in range(3):
+        edge = slices[tuple(
+            slice(None) if a == ax else 0 for a in range(3))]
+        lo = np.array([sl[ax].start for sl in edge]) - pad[ax]
+        hi = np.array([sl[ax].stop for sl in edge]) + pad[ax]
+        c = coords[:, ax]
+        k0 = np.searchsorted(hi, c, side="right")
+        k1 = np.searchsorted(lo, c, side="right")
+        first.append(k0)
+        count.append(np.maximum(k1 - k0, 0))
+    per_row = count[0] * count[1] * count[2]
+    rows = np.repeat(np.arange(len(coords)), per_row)
+    # each row's blocks, its z range outermost
+    j = np.arange(len(rows)) - np.repeat(np.cumsum(per_row) - per_row,
+                                         per_row)
+    n1, n2 = count[1][rows], count[2][rows]
+    ids = np.ravel_multi_index((first[0][rows] + j // (n1 * n2),
+                                first[1][rows] + j // n2 % n1,
+                                first[2][rows] + j % n2), grid)
+    order = np.argsort(ids, kind="stable")
+    starts = np.searchsorted(ids[order], np.arange(int(np.prod(grid)) + 1))
+    return rows[order], starts
+
+
 class StackColocalizer:
     """Match-based colocalization of a whole stack in blocks."""
 
@@ -265,18 +307,18 @@ class StackColocalizer:
         tol = np.asarray(tol, float)
         pad = np.ceil(tol).astype(int)
         slices, _ = chunking.stack_splitter(shape, (block_size,) * 3, pad)
+        with profiler.annotate("mm.coloc.bin"):
+            rows, starts = _bin_rows(blobs[:, :3], slices, pad)
+            profiler.count("rows", len(rows))
 
         collected: dict = {}
-        for coord in np.ndindex(*slices.shape):
+        for k, coord in enumerate(np.ndindex(*slices.shape)):
+            if starts[k + 1] - starts[k] < 2:
+                continue
             sl = slices[coord]
             lo = np.asarray([s.start for s in sl])
             hi = np.asarray([s.stop for s in sl])
-            in_block = np.all(
-                (blobs[:, :3] >= lo - pad) & (blobs[:, :3] < hi + pad),
-                axis=1)
-            sub = blobs[in_block]
-            if len(sub) < 2:
-                continue
+            sub = blobs[rows[starts[k]:starts[k + 1]]]
             matches = colocalize_blobs_match(
                 sub, lo[::-1], (hi - lo)[::-1], tol, channels)
             for pair, bm in matches.items():

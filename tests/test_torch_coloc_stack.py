@@ -24,7 +24,7 @@ import torch
 from magellanmapper_tpu.cv import colocalizer as ref_coloc
 from magellanmapper_tpu.io import cli as ref_cli
 from magellanmapper_torch import testing
-from magellanmapper_torch.cv import colocalizer, detector
+from magellanmapper_torch.cv import chunking, colocalizer, detector
 from magellanmapper_torch.io import cli, np_io
 from magellanmapper_torch.utils import profiler
 from portbench.drivers.coloc import match_diff, match_rows
@@ -190,3 +190,35 @@ def test_match_cells_are_counted_inside_the_match_span(task):
     assert len(root) == 1 and assigns
     assert all(r.root == root[0] for r in assigns)
     assert sum(r.counts["cells"] for r in assigns) > 0
+
+
+def test_coloc_bin_opens_once_inside_the_blocked_match(task):
+    """Beyond one block the rows are binned to the blocks in one
+    ``mm.coloc.bin`` span inside ``mm.coloc.match``, whose ``rows`` are
+    the rows that a mask of each block's widened bounds picks, summed;
+    the one assignment opens none; without a profiler nothing records."""
+    recs, blobs = task["recs"], task["blobs"]
+    bins = [r for r in recs if r.name == "mm.coloc.bin"]
+    assert len(bins) == 1
+    assert recs[bins[0].parent].name == "mm.coloc.match"
+    pad = np.ceil(np.asarray(detector.calc_overlap(RES), float)).astype(int)
+    slices, _ = chunking.stack_splitter(SHAPE, (128,) * 3, pad)
+    masked = 0
+    for sl in slices.flat:
+        lo = np.asarray([s.start for s in sl])
+        hi = np.asarray([s.stop for s in sl])
+        masked += int(np.all((blobs[:, :3] >= lo - pad)
+                             & (blobs[:, :3] < hi + pad), axis=1).sum())
+    assert bins[0].counts == {"rows": masked}
+    assert len(blobs) < masked < 1.5 * len(blobs)
+
+    profiler.clear_spans()
+    colocalizer.match_stack(blobs, SHAPE, (5, 5, 5))
+    assert profiler.spans() == []
+    one = _blobs(1, ONE_BLOCK, 300)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        colocalizer.match_stack(one, ONE_BLOCK, (5, 5, 5))
+    names = [r.name for r in profiler.spans()]
+    profiler.clear_spans()
+    assert "mm.coloc.match" in names and "mm.coloc.bin" not in names

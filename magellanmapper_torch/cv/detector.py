@@ -57,6 +57,25 @@ def sigma_list(
     return np.linspace(float(min_sigma), float(max_sigma), int(num_sigma))
 
 
+def profile_sigmas(settings, resolutions: Sequence[float]
+                   ) -> Tuple[float, ...]:
+    """A profile's LoG scales: its sigma factors in pixels at the x
+    spacing of ``resolutions``."""
+    scaling_factor = calc_scaling_factor(resolutions)[2]
+    return tuple(float(s) for s in sigma_list(
+        settings["min_sigma_factor"] * scaling_factor,
+        settings["max_sigma_factor"] * scaling_factor,
+        settings["num_sigma"]))
+
+
+def rows_to_blobs(raw: np.ndarray, channel) -> np.ndarray:
+    """Device rows ``z, y, x, sigma`` as the ``N x 10`` blobs of
+    ``channel``, radius = sigma * sqrt(3) (reference
+    ``detector.py:257-258``); scales ``raw``'s sigmas in place."""
+    raw[:, 3] *= math.sqrt(3)
+    return blobs_mod.Blobs(raw).format_blobs(channel)
+
+
 def is_fast(settings) -> bool:
     """True when a profile asks for the fast LoG (``log_dtype``
     ``"bfloat16"``)."""
@@ -204,7 +223,6 @@ def detect_blobs(
         iso_factor = resize.calc_isotropic_factor(isotropic, resolutions)
         vol = resize.make_isotropic(vol, isotropic, resolutions)
 
-    scaling_factor = calc_scaling_factor(resolutions)[2]
     blobs_all = []
     for chl in channels:
         roi_detect = vol[..., chl] if multichannel else vol
@@ -223,21 +241,15 @@ def detect_blobs(
                 roi_detect, chl_set["clip_min"], chl_set["clip_max"],
                 chl_set["tot_var_denoise"], chl_set["unsharp_strength"],
                 chl_set["erosion_threshold"])
-        sigmas = tuple(sigma_list(
-            chl_set["min_sigma_factor"] * scaling_factor,
-            chl_set["max_sigma_factor"] * scaling_factor,
-            chl_set["num_sigma"]))
         raw, valid, _ = blob_log(
-            roi_detect.contiguous(), sigmas,
+            roi_detect.contiguous(), profile_sigmas(chl_set, resolutions),
             float(chl_set["detection_threshold"]), float(chl_set["overlap"]),
             int(chl_set["max_blobs_per_block"] or 4096),
             fast=is_fast(chl_set))
         raw = raw[valid].cpu().numpy()
         if raw.shape[0] < 1:
             continue
-        # radius = sigma * sqrt(3) (reference detector.py:257-258)
-        raw[:, 3] *= math.sqrt(3)
-        blobs_all.append(blobs_mod.Blobs(raw).format_blobs(chl))
+        blobs_all.append(rows_to_blobs(raw, chl))
 
     if not blobs_all:
         return None

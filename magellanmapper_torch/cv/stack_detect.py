@@ -5,7 +5,8 @@ Port of ``magellanmapper_tpu/cv/stack_detect.py``. The host plans blocks
 the reference does; the device step runs per block: per-denoise-tile
 saturate and denoise (percentiles from kernel K4), the LoG pyramid, peak
 finding (K1) and sphere-overlap pruning (K3). A batch of blocks is a
-Python loop over views of the staged volume.
+Python loop over views of the staged volume, :class:`BlockPass`, which
+``parallel.distributed`` runs over each rank's share of the blocks.
 
 Staging: a volume up to ``_RESIDENT_BYTES_BUDGET`` bytes goes to the
 device once and blocks are carved from it; a larger one goes in uniform
@@ -25,7 +26,6 @@ block (``mm.preprocess``, ``mm.log``, ``mm.peaks``, ``mm.overlap``,
 from __future__ import annotations
 
 import logging
-import math
 import time
 from enum import Enum
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
@@ -72,12 +72,7 @@ def setup_blocks(
         resolutions: Sequence[float]) -> Blocks:
     """Block geometry from profile settings (copy of the reference's)."""
     scaling_factor = detector.calc_scaling_factor(resolutions)
-    denoise_size = settings["denoise_size"]
-    denoise_max_shape = None
-    if denoise_size:
-        denoise_max_shape = np.ceil(
-            scaling_factor * denoise_size).astype(int)
-
+    denoise_max_shape = denoise_shape(settings, resolutions)
     overlap_base = detector.calc_overlap(resolutions)
     tol = np.multiply(
         overlap_base, settings["prune_tol_factor"]).astype(int)
@@ -108,9 +103,29 @@ def setup_blocks(
     sub_roi_slices, sub_rois_offsets = chunking.stack_splitter(
         shape, max_pixels, overlap)
     return Blocks(
-        sub_roi_slices, sub_rois_offsets, denoise_max_shape,
+        sub_roi_slices, sub_rois_offsets,
+        None if denoise_max_shape is None else np.asarray(denoise_max_shape),
         None if exclude_border is None else np.asarray(exclude_border),
         tol, overlap_base, overlap, overlap_padding, max_pixels)
+
+
+def denoise_shape(settings, resolutions: Sequence[float]
+                  ) -> Optional[Tuple[int, ...]]:
+    """A profile's denoise-tile shape in voxels (None without
+    ``denoise_size``)."""
+    size = settings["denoise_size"]
+    if not size:
+        return None
+    return tuple(int(d) for d in np.ceil(
+        detector.calc_scaling_factor(resolutions) * size))
+
+
+def sample_near_max(volume: np.ndarray) -> float:
+    """Near-max intensity of one channel's ``(Z, Y, X)`` volume for
+    saturation, sampled as the importer does: the 99.5th percentile of
+    every ``Z // 16``-th plane."""
+    return float(np.percentile(
+        volume[::max(1, volume.shape[0] // 16)], 99.5))
 
 
 def _window_for_block(
@@ -156,33 +171,31 @@ def step_params(
         preprocess: bool = True) -> StepParams:
     """The device step's arguments for one channel of near-max
     ``near_max``."""
-    scaling_factor = detector.calc_scaling_factor(resolutions)[2]
-    sigmas = tuple(float(s) for s in detector.sigma_list(
-        settings["min_sigma_factor"] * scaling_factor,
-        settings["max_sigma_factor"] * scaling_factor,
-        settings["num_sigma"]))
-    prep = None
-    if preprocess:
-        prep = (
-            ("clip_vmin", float(settings["clip_vmin"])),
-            ("clip_vmax", float(settings["clip_vmax"])),
-            ("max_thresh", float(
-                near_max * settings["max_thresh_factor"])),
-            ("clip_min", float(settings["clip_min"])),
-            ("clip_max", float(settings["clip_max"])),
-            ("tot_var_denoise", float(settings["tot_var_denoise"] or 0.0)),
-            ("unsharp_strength", float(
-                settings["unsharp_strength"] or 0.0)),
-            ("erosion_threshold", float(
-                settings["erosion_threshold"] or 0.0)),
-        )
-    denoise_shape = (tuple(int(d) for d in blocks.denoise_max_shape)
-                     if blocks.denoise_max_shape is not None else None)
+    tile = (tuple(int(d) for d in blocks.denoise_max_shape)
+            if blocks.denoise_max_shape is not None else None)
     return StepParams(
-        sigmas, float(settings["detection_threshold"]),
+        detector.profile_sigmas(settings, resolutions),
+        float(settings["detection_threshold"]),
         float(settings["overlap"]),
-        _choose_capacity(settings, int(np.prod(block_shape))),
-        denoise_shape, prep, detector.is_fast(settings))
+        _choose_capacity(settings, int(np.prod(block_shape))), tile,
+        preproc_items(settings, near_max) if preprocess else None,
+        detector.is_fast(settings))
+
+
+def preproc_items(settings, near_max: float
+                  ) -> Tuple[Tuple[str, float], ...]:
+    """A profile's saturate and denoise arguments for a channel of
+    near-max ``near_max``, as :func:`preprocess_block` takes them."""
+    return (
+        ("clip_vmin", float(settings["clip_vmin"])),
+        ("clip_vmax", float(settings["clip_vmax"])),
+        ("max_thresh", float(near_max * settings["max_thresh_factor"])),
+        ("clip_min", float(settings["clip_min"])),
+        ("clip_max", float(settings["clip_max"])),
+        ("tot_var_denoise", float(settings["tot_var_denoise"] or 0.0)),
+        ("unsharp_strength", float(settings["unsharp_strength"] or 0.0)),
+        ("erosion_threshold", float(settings["erosion_threshold"] or 0.0)),
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -353,6 +366,122 @@ def _retry_overflow(retry, fallback, dispatch, store_block, capacity,
             store_block(coord, wstart, raw)
 
 
+class BlockPass:
+    """The blocks of one volume detected on one device, a channel at a
+    time: each block's window carved from its staged slab or shipped on
+    its own, :func:`detect_step` run and its rows pulled, and
+    :func:`block_blobs` stacked into ``seg_rois``; blocks whose pre-prune
+    peaks fill the capacity go to :func:`_retry_overflow`, up to
+    ``min(1 << 20, block voxels)``. ``totals`` holds the staging and pull
+    times of the spans ``mm.stage`` and ``mm.pull``, and ``h2d_bytes``.
+    """
+
+    def __init__(self, blocks: Blocks, shape: Sequence[int],
+                 device: torch.device):
+        self.blocks = blocks
+        self.shape = tuple(int(s) for s in shape)
+        self.block_shape = np.minimum(
+            blocks.max_pixels + blocks.overlap, self.shape)
+        self.dev = device
+        self.seg_rois = np.full(
+            blocks.sub_roi_slices.shape, None, dtype=object)
+        self.totals = {"Gather_host": 0.0, "Pull_wait": 0.0,
+                       "Stage_h2d": 0.0, "h2d_bytes": 0}
+        self.image = self.params = self.channel = None
+
+    def run(self, image: np.ndarray, params: StepParams, channel,
+            coords: Sequence[Tuple[int, ...]],
+            slab_plan: Optional[SlabPlan] = None) -> None:
+        """Detect channel ``channel``'s ``(Z, Y, X)`` volume ``image``:
+        the blocks of ``slab_plan``'s slabs, or without a plan the blocks
+        ``coords``, each window shipped on its own."""
+        self.image, self.params, self.channel = image, params, channel
+        results = (self._staged(slab_plan) if slab_plan is not None
+                   else self._dispatch(coords, params.capacity))
+        retry, fallback = [], {}
+        for coord, wstart, rows, count in results:
+            if count >= params.capacity:
+                # a full PRE-prune buffer may be truncated: re-detect at a
+                # doubled capacity (post-prune counts can sit below it)
+                retry.append(coord)
+                fallback[coord] = (wstart, rows)
+                continue
+            if rows.shape[0]:
+                self._store(coord, wstart, rows)
+        with profiler.annotate("mm.retry"):
+            _retry_overflow(
+                retry, fallback, self._dispatch, self._store,
+                params.capacity,
+                min(1 << 20, int(np.prod(self.block_shape))))
+
+    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+        """Read ``host`` (a view of the possibly memmapped image) into
+        memory and ship it: Gather_host, then Stage_h2d."""
+        with profiler.annotate("mm.stage", clock=True) as stage:
+            host = np.ascontiguousarray(host)
+            if not host.flags.writeable:
+                # read-only memmap: torch.from_numpy wants writable memory
+                host = host.copy()
+            t1 = time.perf_counter()
+            out = torch.from_numpy(host).to(self.dev)
+            if self.dev.type == "cuda":
+                torch.cuda.synchronize(self.dev)
+        self.totals["Gather_host"] += t1 - stage.t0
+        self.totals["Stage_h2d"] += stage.t1 - t1
+        self.totals["h2d_bytes"] += host.nbytes
+        return out
+
+    def _detect(self, block: torch.Tensor, cap: int):
+        with profiler.annotate("mm.block"):
+            raw, valid, count = detect_step(block, self.params, cap)
+            with profiler.annotate("mm.pull", clock=True) as pull:
+                rows = raw[valid].cpu().numpy()
+        self.totals["Pull_wait"] += pull.seconds
+        return rows, count
+
+    def _dispatch(self, coords, cap):
+        """Blocks shipped one by one (the wider types read and cast to
+        float32 by the threaded extractor, as in the reference's gather);
+        yields ``(coord, window start, rows, pre-prune count)``."""
+        bz, by, bx = (int(v) for v in self.block_shape)
+        for coord in coords:
+            wstart = _window_for_block(
+                self.shape, self.blocks.sub_rois_offsets[coord],
+                self.block_shape)
+            z, y, x = (int(v) for v in wstart)
+            if self.image.dtype in _EXTRACTED:
+                host = _blockio.extract_blocks(
+                    self.image, np.asarray([wstart]), (bz, by, bx))[0]
+            else:
+                host = self.image[z:z + bz, y:y + by, x:x + bx]
+            rows, count = self._detect(self._to_device(host), cap)
+            yield coord, wstart, rows, count
+
+    def _staged(self, plan: SlabPlan):
+        """Each slab staged once, its blocks carved on the device."""
+        sz, sy = plan.extent
+        bz, by, bx = (int(v) for v in self.block_shape)
+        for z0, y0, coords in plan.slabs:
+            slab = self._to_device(self.image[z0:z0 + sz, y0:y0 + sy])
+            for coord in coords:
+                wstart = _window_for_block(
+                    self.shape, self.blocks.sub_rois_offsets[coord],
+                    self.block_shape)
+                z, y, x = (int(v) for v in wstart)
+                block = slab[z - z0:z - z0 + bz, y - y0:y - y0 + by,
+                             x:x + bx]
+                rows, count = self._detect(block, self.params.capacity)
+                yield coord, wstart, rows, count
+            del slab
+
+    def _store(self, coord, wstart, raw):
+        with profiler.annotate("mm.store"):
+            segs = block_blobs(raw, coord, wstart, self.blocks, self.channel)
+            prev = self.seg_rois[coord]
+            self.seg_rois[coord] = (
+                segs if prev is None else np.vstack([prev, segs]))
+
+
 @profiler.annotated("mm.detect")
 def detect_blobs_blocks(
         image: np.ndarray,
@@ -388,7 +517,6 @@ def detect_blobs_blocks(
         and ``Stage_h2d``), ``mm.pull`` (``Pull_wait``) and ``mm.prune``
         (``Pruning``).
     """
-    dev = device_mod.resolve(device)
     shape = tuple(int(s) for s in image.shape[:3])
     multichannel = image.ndim > 3
     if channels is None:
@@ -397,27 +525,12 @@ def detect_blobs_blocks(
 
     blocks = setup_blocks(settings, shape, resolutions)
     grid_shape = blocks.sub_roi_slices.shape
-    block_shape = np.minimum(blocks.max_pixels + blocks.overlap, shape)
-    bz, by, bx = (int(v) for v in block_shape)
-    block_voxels = int(np.prod(block_shape))
-    #: hard ceiling for overflow-retry capacity doubling
-    max_capacity = min(1 << 20, block_voxels)
-
+    block_pass = BlockPass(blocks, shape, device_mod.resolve(device))
+    block_shape = block_pass.block_shape
     if near_max is None:
-        # per-channel near-max for saturation, sampled as the importer
-        # does (99.5th percentile)
-        sample = image[::max(1, shape[0] // 16)]
-        near_max = {
-            c: float(np.percentile(
-                sample[..., c] if multichannel else sample, 99.5))
-            for c in channels}
-    else:
-        near_max = {c: near_max[c] for c in channels}
-
+        near_max = {c: sample_near_max(image[..., c] if multichannel
+                                       else image) for c in channels}
     coords_list = list(np.ndindex(*grid_shape))
-    seg_rois = np.full(grid_shape, None, dtype=object)
-    totals = {"Gather_host": 0.0, "Pull_wait": 0.0, "Stage_h2d": 0.0,
-              "h2d_bytes": 0}
     time_detect = time.perf_counter()
 
     for chl in channels:
@@ -433,99 +546,16 @@ def detect_blobs_blocks(
         else:
             slab_plan = _plan_slabs(
                 grid_shape, blocks, block_shape, shape, chan_img.itemsize)
-
-        def to_device(host: np.ndarray) -> torch.Tensor:
-            """Read ``host`` (a view of the possibly memmapped image) into
-            memory and ship it: Gather_host, then Stage_h2d."""
-            with profiler.annotate("mm.stage", clock=True) as stage:
-                host = np.ascontiguousarray(host)
-                if not host.flags.writeable:
-                    # read-only memmap: torch.from_numpy wants writable
-                    # memory
-                    host = host.copy()
-                t1 = time.perf_counter()
-                out = torch.from_numpy(host).to(dev)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-            totals["Gather_host"] += t1 - stage.t0
-            totals["Stage_h2d"] += stage.t1 - t1
-            totals["h2d_bytes"] += host.nbytes
-            return out
-
-        def gather(wstart) -> torch.Tensor:
-            """Ship one block window on its own; wider volumes are read
-            and cast to float32 by the threaded extractor, as in the
-            reference's gather (the device step casts to float32 all the
-            same)."""
-            if chan_img.dtype in _EXTRACTED:
-                return to_device(_blockio.extract_blocks(
-                    chan_img, np.asarray([wstart]), (bz, by, bx))[0])
-            return to_device(chan_img[wstart[0]:wstart[0] + bz,
-                                      wstart[1]:wstart[1] + by,
-                                      wstart[2]:wstart[2] + bx])
-
-        def detect(block: torch.Tensor, cap: int):
-            with profiler.annotate("mm.block"):
-                raw, valid, count = detect_step(block, params, cap)
-                with profiler.annotate("mm.pull", clock=True) as pull:
-                    rows = raw[valid].cpu().numpy()
-            totals["Pull_wait"] += pull.seconds
-            return rows, count
-
-        def dispatch(coords, cap):
-            """Blocks shipped one by one; yields
-            ``(coord, window start, rows, pre-prune count)``."""
-            for coord in coords:
-                wstart = _window_for_block(
-                    shape, blocks.sub_rois_offsets[coord], block_shape)
-                rows, count = detect(gather(wstart), cap)
-                yield coord, wstart, rows, count
-
-        def staged(plan: SlabPlan):
-            """Each slab staged once, its blocks carved on the device."""
-            sz, sy = plan.extent
-            for z0, y0, coords in plan.slabs:
-                slab = to_device(chan_img[z0:z0 + sz, y0:y0 + sy])
-                for coord in coords:
-                    wstart = _window_for_block(
-                        shape, blocks.sub_rois_offsets[coord], block_shape)
-                    z, y, x = (int(v) for v in wstart)
-                    block = slab[z - z0:z - z0 + bz, y - y0:y - y0 + by,
-                                 x:x + bx]
-                    rows, count = detect(block, params.capacity)
-                    yield coord, wstart, rows, count
-                del slab
-
-        def store_block(coord, wstart, raw):
-            with profiler.annotate("mm.store"):
-                segs = block_blobs(raw, coord, wstart, blocks, chl)
-                prev = seg_rois[coord]
-                seg_rois[coord] = (
-                    segs if prev is None else np.vstack([prev, segs]))
-
-        results = (staged(slab_plan) if slab_plan is not None
-                   else dispatch(coords_list, params.capacity))
-        retry, fallback = [], {}
-        for coord, wstart, rows, count in results:
-            if count >= params.capacity:
-                # a full PRE-prune buffer may be truncated: re-detect at a
-                # doubled capacity (post-prune counts can sit below it)
-                retry.append(coord)
-                fallback[coord] = (wstart, rows)
-                continue
-            if rows.shape[0]:
-                store_block(coord, wstart, rows)
-        with profiler.annotate("mm.retry"):
-            _retry_overflow(retry, fallback, dispatch, store_block,
-                            params.capacity, max_capacity)
+        block_pass.run(chan_img, params, chl, coords_list, slab_plan)
 
     time_detect = time.perf_counter() - time_detect
     with profiler.annotate("mm.prune", clock=True) as prune:
-        blobs_all = prune_blobs(seg_rois, blocks, shape, channels)
+        blobs_all = prune_blobs(
+            block_pass.seg_rois, blocks, shape, channels)
     time_prune = prune.seconds
 
     timing = {"Detection": time_detect, "Pruning": time_prune,
-              "Total_stack": time_detect + time_prune, **totals}
+              "Total_stack": time_detect + time_prune, **block_pass.totals}
     if verify_fn is not None and blobs_all is not None:
         timing["verify_stats"] = verify_fn(blobs_all)
     return blobs_all, timing
@@ -537,8 +567,7 @@ def block_blobs(raw: np.ndarray, coord, wstart, blocks: Blocks,
     sigmas, shifted to absolute coordinates, only those inside the
     block's sub-ROI kept (less its border zone, except at the stack's
     outer faces)."""
-    raw[:, 3] *= math.sqrt(3)
-    segs = blobs_mod.Blobs(raw).format_blobs(channel)
+    segs = detector.rows_to_blobs(raw, channel)
     blobs_mod.Blobs.shift_blob_rel_coords(segs, wstart)
     blobs_mod.Blobs.shift_blob_abs_coords(segs, wstart)
     sl = blocks.sub_roi_slices[coord]

@@ -21,7 +21,6 @@ per-shard preprocessing matches too.
 
 from __future__ import annotations
 
-import math
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -208,7 +207,7 @@ def detect_blobs_sharded_batch(
     the single-device detector); z/y are padded to shard multiples with
     the Gaussian kernels' reflect boundary (numpy 'symmetric'); with
     ``preprocess``, saturate/denoise runs in the step with each volume's
-    own near-max (the 99.5th percentile of every 16th plane unless
+    own near-max (:func:`cv.stack_detect.sample_near_max` unless
     ``near_max`` gives it). A batch shorter than a multiple of dp is
     filled with the first volume, whose results are dropped. Returns one
     ``N x 10`` blob array (or None) per input volume, the same on every
@@ -221,46 +220,25 @@ def detect_blobs_sharded_batch(
     volumes = [np.asarray(v) for v in volumes]
     z, y, x = volumes[0].shape[:3]
 
-    scaling_factor = detector.calc_scaling_factor(resolutions)[2]
-    sigmas = tuple(float(s) for s in detector.sigma_list(
-        settings["min_sigma_factor"] * scaling_factor,
-        settings["max_sigma_factor"] * scaling_factor,
-        settings["num_sigma"]))
+    sigmas = detector.profile_sigmas(settings, resolutions)
     halo = log_support(max(sigmas))
 
     denoise_shape = None
     prep = None
     max_thresh_list: List[float] = []
     if preprocess:
-        denoise_size = settings["denoise_size"]
-        if denoise_size:
-            denoise_shape = tuple(
-                int(v) for v in np.ceil(
-                    detector.calc_scaling_factor(resolutions)
-                    * denoise_size).astype(int))
+        denoise_shape = stack_detect.denoise_shape(settings, resolutions)
         if near_max is None:
-            near_max_list = [
-                float(np.percentile(v[::max(1, z // 16)], 99.5))
-                for v in volumes]
+            near_max_list = [stack_detect.sample_near_max(v)
+                             for v in volumes]
         elif np.isscalar(near_max):
             near_max_list = [float(near_max)] * len(volumes)
         else:
             near_max_list = [float(v) for v in near_max]
-        factor = float(settings["max_thresh_factor"])
-        max_thresh_list = [nm * factor for nm in near_max_list]
-        prep = (
-            ("clip_vmin", float(settings["clip_vmin"])),
-            ("clip_vmax", float(settings["clip_vmax"])),
-            ("max_thresh", max_thresh_list[0]),
-            ("clip_min", float(settings["clip_min"])),
-            ("clip_max", float(settings["clip_max"])),
-            ("tot_var_denoise", float(
-                settings["tot_var_denoise"] or 0.0)),
-            ("unsharp_strength", float(
-                settings["unsharp_strength"] or 0.0)),
-            ("erosion_threshold", float(
-                settings["erosion_threshold"] or 0.0)),
-        )
+        preps = [stack_detect.preproc_items(settings, nm)
+                 for nm in near_max_list]
+        prep = preps[0]
+        max_thresh_list = [dict(p)["max_thresh"] for p in preps]
 
     # shard extents: cover the volume, fit the halo, and stay aligned to
     # the denoise-tile grid so per-shard preprocessing matches single-shot
@@ -303,8 +281,7 @@ def detect_blobs_sharded_batch(
             if out.shape[0] == 0:
                 results.append(None)
                 continue
-            out[:, 3] *= math.sqrt(3)
-            results.append(blobs_mod.Blobs(out).format_blobs(0))
+            results.append(detector.rows_to_blobs(out, 0))
     return results[:n_true]
 
 

@@ -14,7 +14,6 @@ from __future__ import annotations
 
 import itertools
 import logging
-import math
 from collections import OrderedDict
 from enum import Enum
 from typing import Callable, Sequence, Union
@@ -24,7 +23,6 @@ import pandas as pd
 import torch
 
 from magellanmapper_torch import device as device_mod
-from magellanmapper_torch.cv import blobs as blobs_mod
 from magellanmapper_torch.cv import detector, stack_detect, verifier
 from magellanmapper_torch.io import np_io, sqlite
 from magellanmapper_torch.parallel import mesh as mesh_mod
@@ -141,7 +139,6 @@ def make_fn_detect_multi(
     """
     dev = device_mod.resolve(device)
     vol_t = torch.from_numpy(np.array(vol, np.float32)).to(dev)
-    sf = detector.calc_scaling_factor(res)[2]
 
     def fn(other_overrides, thresholds):
         prof = type(base_profile)() if base_profile is not None \
@@ -149,9 +146,7 @@ def make_fn_detect_multi(
         if base_profile is not None:
             prof.update(dict(base_profile))
         prof.update(other_overrides)
-        sigmas = tuple(detector.sigma_list(
-            prof["min_sigma_factor"] * sf,
-            prof["max_sigma_factor"] * sf, prof["num_sigma"]))
+        sigmas = detector.profile_sigmas(prof, res)
         # whole-volume capacity: the blocked path's per-block heuristic
         # (block_voxels // 1024) applied to the full volume
         cap = int(prof["max_blobs_per_block"] or 0)
@@ -179,8 +174,7 @@ def make_fn_detect_multi(
                 if not raw.shape[0]:
                     out.append(None)
                     continue
-                raw[:, 3] *= math.sqrt(3)   # radius = sigma * sqrt(3)
-                out.append(blobs_mod.Blobs(raw).format_blobs(0))
+                out.append(detector.rows_to_blobs(raw, 0))
         return out
 
     return fn

@@ -36,6 +36,8 @@ torch.set_num_threads(1)
 RES = (1.0, 1.0, 1.0)
 HALO = "magellanmapper_torch.parallel.halo:"
 CASES = "magellanmapper_torch.parallel.cases:"
+BLOCKS = ("magellanmapper_torch.parallel.distributed:"
+          "detect_blobs_blocks_sharded")
 
 
 def _nuclei(seed, shape, n):
@@ -65,6 +67,8 @@ PROF_SPY = dict(min_sigma_factor=1.5, max_sigma_factor=3.0, num_sigma=4,
                 max_blobs_per_block=512)
 PROF_PRE = dict(PROF_SPY, denoise_size=16)
 PROF_BLOCKS = dict(PROF_A, segment_size=30, denoise_size=None)
+#: every block's peaks fill this capacity: each is re-detected at 8, then 16
+PROF_BLOCKS_OVERFLOW = dict(PROF_BLOCKS, max_blobs_per_block=4)
 PROF_CH = dict(min_sigma_factor=2.0, max_sigma_factor=4.0, num_sigma=4,
                max_blobs_per_block=256)
 PROF_TAIL = dict(min_sigma_factor=2.0, max_sigma_factor=3.5, num_sigma=3,
@@ -95,7 +99,8 @@ def data():
 def _cases(d):
     port = {k: _profiles(**v)[0] for k, v in (
         ("a", PROF_A), ("spy", PROF_SPY), ("pre", PROF_PRE),
-        ("blocks", PROF_BLOCKS), ("ch", PROF_CH), ("tail", PROF_TAIL),
+        ("blocks", PROF_BLOCKS), ("overflow", PROF_BLOCKS_OVERFLOW),
+        ("ch", PROF_CH), ("tail", PROF_TAIL),
         ("near", PROF_NEAR), ("cap", PROF_CAP))}
     cpu = {"device": "cpu"}
     near_pre = float(np.percentile(d["pre"][::3], 99.5))
@@ -131,15 +136,16 @@ def _cases(d):
         dict(key="cap", fn=HALO + "detect_blobs_sharded",
              args=(d["a"], port["cap"], RES), kwargs=cpu,
              mesh=dict(n_devices=4, dp=1)),
+        dict(key="blocks_overflow", fn=BLOCKS,
+             args=(d["blocks"], port["overflow"], RES), kwargs=cpu,
+             mesh=dict(n_devices=4, dp=4, sp=1)),
     ]
     for n in (4, 2, 1):
         cases += [
             dict(key=f"a{n}", fn=HALO + "detect_blobs_sharded",
                  args=(d["a"], port["a"], RES), kwargs=cpu,
                  mesh=dict(n_devices=n, dp=1)),
-            dict(key=f"blocks{n}",
-                 fn="magellanmapper_torch.parallel.distributed:"
-                    "detect_blobs_blocks_sharded",
+            dict(key=f"blocks{n}", fn=BLOCKS,
                  args=(d["blocks"], port["blocks"], RES), kwargs=cpu,
                  mesh=dict(n_devices=n, dp=n, sp=1)),
         ]
@@ -251,6 +257,23 @@ class TestDistributedBlocks:
         want, _ = ref_distributed.detect_blobs_blocks_sharded(
             data["blocks"], ref, RES, mesh=ref_mesh.make_mesh(8, dp=8, sp=1))
         assert rows_equal(got, want)
+
+    def test_sharded_overflow_retry_matches_single(
+            self, world, data, caplog):
+        """At a capacity every block's peaks fill, each rank re-detects
+        its blocks at doubled capacities and the result equals the
+        single-device run's, itself equal to the full-capacity run."""
+        port, _ = _profiles(**PROF_BLOCKS_OVERFLOW)
+        with caplog.at_level("INFO", logger=stack_detect.__name__):
+            single, _ = stack_detect.detect_blobs_blocks(
+                data["blocks"], port, RES, preprocess=False, device="cpu")
+        assert "re-detecting 8 dense blocks at capacity 8" in caplog.text
+        full, _ = stack_detect.detect_blobs_blocks(
+            data["blocks"], _profiles(**PROF_BLOCKS)[0], RES,
+            preprocess=False, device="cpu")
+        got = world[0]["blocks_overflow"][0]
+        assert rows_equal(got, single)
+        assert rows_equal(got, full)
 
 
 class TestShardedMultichannel:

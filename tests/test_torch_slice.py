@@ -6,7 +6,9 @@ Blob rows must be equal after sorting: coordinates exact, radii within
 order, which moves no peak on these fixtures).
 """
 
+import ast
 import os
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -123,6 +125,52 @@ def test_overflow_retry_stores_truncated_rows_at_the_ceiling(volume):
         lambda coords, cap: [(c, (0, 0, 0), rows, cap) for c in coords],
         lambda coord, wstart, raw: stored.setdefault(coord, raw), 4, 16)
     np.testing.assert_array_equal(stored[(0, 0, 0)], rows)
+
+
+def _stack_detect_privates(source: str):
+    """The ``_``-prefixed names of ``cv.stack_detect`` that a module's
+    source names: ``from ... import _x`` and ``alias._x``."""
+    tree = ast.parse(source)
+    aliases, found = set(), []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom):
+            for a in node.names:
+                if (node.module or "").endswith("stack_detect"):
+                    if a.name.startswith("_"):
+                        found.append(a.name)
+                elif a.name == "stack_detect":
+                    aliases.add(a.asname or a.name)
+        elif isinstance(node, ast.Import):
+            aliases.update(a.asname for a in node.names
+                           if a.name.endswith(".stack_detect") and a.asname)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute) and node.attr.startswith("_")
+                and (isinstance(node.value, ast.Name)
+                     and node.value.id in aliases
+                     or isinstance(node.value, ast.Attribute)
+                     and node.value.attr == "stack_detect")):
+            found.append(node.attr)
+    return found
+
+
+def test_no_module_of_the_package_names_a_stack_detect_private():
+    """``cv/stack_detect.py`` owns the block pass: every other module of
+    the package calls its public names, so that a change to the pass is
+    made in one place."""
+    assert _stack_detect_privates(
+        "from magellanmapper_torch.cv import stack_detect as s\n"
+        "import magellanmapper_torch.cv.stack_detect as t\n"
+        "from magellanmapper_torch.cv.stack_detect import _a\n"
+        "s._b, t._c, magellanmapper_torch.cv.stack_detect._d, s.e\n"
+    ) == ["_a", "_b", "_c", "_d"]
+    own = pathlib.Path(sd.__file__).resolve()
+    root = own.parents[1]
+    seen = {}
+    for path in sorted(root.rglob("*.py")):
+        names = _stack_detect_privates(path.read_text())
+        if names and path.resolve() != own:
+            seen[str(path.relative_to(root))] = names
+    assert not seen, seen
 
 
 def test_stack_detector_facade(volume, port_resident):
